@@ -11,7 +11,9 @@ Module layout mirrors the JAX package so each counterpart is easy to find:
   ops/            vecmath, intersect, shading, trace, kernels (CUDA wrappers)
   renderer.py     frame plan, tiles, device-side encode, host assembly
 Entry points run on the card unless the caller passes device="cpu".
-This slice ports the packed-row pool path of the `realistic` configs;
+Ported so far: the `default`, `anti_aliasing`, `soft_shadows` and
+`realistic` configs on one device with the device-side u32 encode, through
+the packed-row and unpacked pool paths and the per-ray stack path;
 ROADMAP.md lists what is still to come.
 """
 

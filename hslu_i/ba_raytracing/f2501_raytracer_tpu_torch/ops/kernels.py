@@ -1,13 +1,19 @@
 """The port's hand-written CUDA kernels, their wrappers and plain twins.
 
-Two kernels carry the packed-row pool path (the JAX package's two Pallas
-kernels on that path, ops/pallas_kernels.py):
+Four kernels, each replacing one Pallas kernel of the JAX package
+(ops/pallas_kernels.py):
 
-* `cast_triangles`  <- `_cast_kernel` / `pallas_cast_triangles`
+* `cast_triangles`  <- `_cast_kernel` / `pallas_cast_triangles` (every path)
 * `shade_eval_rows` <- `_shade_eval_kernel(packed_rows=True)` /
-  `pallas_shade_eval_rows`
+  `pallas_shade_eval_rows` (the packed-row pool path)
+* `shade_eval`      <- `_shade_eval_kernel(packed_rows=False)` /
+  `pallas_shade_eval` (the per-ray stack path, `packed_stage=False`)
+* `light_shade`     <- `_light_shade_kernel` / `pallas_light_shade`
+  (configs without reflections or refractions)
 
-Sources are `csrc/*.cu` (CUDA C++ for sm_90a with a plain C interface).
+Sources are `csrc/*.cu` (CUDA C++ for sm_90a with a plain C interface); the
+three shading kernels share the device code of `rt_light.cuh` and
+`rt_node.cuh`.
 They are built with nvcc on first use into `build/torch_kernels/` at the
 repository root (keyed by a hash of the sources and flags; one nvcc per
 source, all started together) and loaded with ctypes. Each kernel launches
@@ -33,7 +39,7 @@ import time
 import torch
 
 from .intersect import BIG_IDX, _homogeneous, _pack_nearest
-from .shading import light_sums
+from .shading import ambient, light_sums
 from .trace import POOL_COLS, _node_children, _pack_entry
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -44,8 +50,10 @@ BUILD_DIR = os.path.join(
 KERNEL_SOURCES = {
     "cast_triangles": "cast_triangles.cu",
     "shade_eval_rows": "shade_eval_rows.cu",
+    "shade_eval": "shade_eval.cu",
+    "light_shade": "light_shade.cu",
 }
-COMMON_HEADERS = ("rt_common.cuh",)
+COMMON_HEADERS = ("rt_common.cuh", "rt_light.cuh", "rt_node.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -115,15 +123,23 @@ def build_kernels(names=None) -> dict:
     return out
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# scene tables of the shading kernels: lights, n_lights, sph, S, trb, P,
+# trans_rows, blk, blk_aabb, nb, B, n_trans_blocks
+_SCENE = [_P, _I, _P, _I, _P, _I, _I, _P, _P, _I, _I, _I]
 _ARGTYPES = {
     "cast_triangles": ("rt_cast_triangles", [
         _P, _P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P]),
     "shade_eval_rows": ("rt_shade_eval_rows", [
-        _P, _I, _P, _I, _P, _I, _I, _P, _P, _I, _I, _I,  # scene tables
-        *([_P] * 17), _I,  # per-ray fields, R
-        ctypes.c_float, _I, _I, _I, _I, _I, ctypes.c_float, ctypes.c_float,
-        _P, _P, _P, _P, _P, _P]),  # outputs, stream
+        *_SCENE, *([_P] * 17), _I,  # per-ray fields, R
+        _F, _I, _I, _I, _I, _I, _F, _F,  # node constants
+        *([_P] * 6)]),  # 5 outputs, stream
+    "shade_eval": ("rt_shade_eval", [
+        *_SCENE, *([_P] * 16), _I,  # per-ray fields, R
+        _F, _I, _I, _I, _I, _I, _F, _F,  # node constants
+        *([_P] * 13)]),  # 12 outputs, stream
+    "light_shade": ("rt_light_shade", [
+        *_SCENE, *([_P] * 6), _I, _F, _I, _P, _P, _P]),
 }
 
 
@@ -242,7 +258,230 @@ def cast_triangles(trb_pack, tri_cast_pack, tri_aabb, tri_saabb, o, d, *,
 
 
 # ---------------------------------------------------------------------------
-# shade_eval_rows  (TPU: pallas_kernels.py::_shade_eval_kernel, line 1858)
+# the shading kernels: shared input checks and the node twin
+# ---------------------------------------------------------------------------
+
+_NODE_SCALARS = ("t", "rior", "from_refl", "h_httr", "h_met", "h_ior", "h_opac", "h_boost")
+
+
+def _check_shading(name, light_pack, sph_pack, trb_pack, tri_blk_pack, tri_blk_aabb,
+                   point, normal, view, color, shininess, valid, *, n_lights,
+                   n_trans_blocks, bigtri_trans_rows):
+    """Check the scene tables and the lighting inputs of a shading kernel
+    (float32, contiguous, on the points' device). Returns the scene-table
+    arguments of the C entry points (ctypes `_SCENE` order)."""
+    R = point.shape[0]
+    dev = point.device
+    f32 = torch.float32
+    Lp = light_pack.shape[0]
+    S = sph_pack.shape[0]
+    P = trb_pack.shape[0]
+    nb, B, _ = tri_blk_pack.shape
+    _check(light_pack, "light_pack", f32, (Lp, 8), dev)
+    _check(sph_pack, "sph_pack", f32, (S, 16), dev)
+    _check(trb_pack, "trb_pack", f32, (P, 32), dev)
+    _check(tri_blk_pack, "tri_blk_pack", f32, (nb, B, 32), dev)
+    _check(tri_blk_aabb, "tri_blk_aabb", f32, (nb, 8), dev)
+    for k, v in dict(point=point, normal=normal, view=view, color=color).items():
+        _check(v, k, f32, (R, 3), dev)
+    _check(shininess, "shininess", f32, (R,), dev)
+    _check(valid, "valid", f32, (R,), dev)
+    if not 0 < n_lights <= Lp:
+        raise ValueError(f"n_lights={n_lights} outside (0, {Lp}]")
+    if not (0 <= bigtri_trans_rows <= P and 0 <= n_trans_blocks <= nb):
+        raise ValueError("bigtri_trans_rows / n_trans_blocks outside the packs")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return (_ptr(light_pack), int(n_lights), _ptr(sph_pack), S, _ptr(trb_pack), P,
+            int(bigtri_trans_rows), _ptr(tri_blk_pack), _ptr(tri_blk_aabb), nb, B,
+            int(n_trans_blocks))
+
+
+def _check_node(w, budget, node, R, dev):
+    """Check a node kernel's per-ray state: w (R,3) f32, budget (R,) int32,
+    and the (R,) f32 fields of `_NODE_SCALARS` (in that order)."""
+    _check(w, "w", torch.float32, (R, 3), dev)
+    _check(budget, "budget", torch.int32, (R,), dev)
+    for k, v in zip(_NODE_SCALARS, node):
+        _check(v, k, torch.float32, (R,), dev)
+
+
+def _node_consts(eps_dist, backface_culling, reflections, refractions, refl_max,
+                 refr_max, weight_cutoff, air):
+    return (float(eps_dist), int(bool(backface_culling)), int(bool(reflections)),
+            int(bool(refractions)), int(refl_max), int(refr_max), float(weight_cutoff),
+            float(air))
+
+
+def _node_plain(light_pack, sph_pack, trb_pack, tri_blk_pack, point, normal, view,
+                color, shininess, valid, t, w, rior, budget, from_refl, h_httr, h_met,
+                h_ior, h_opac, h_boost, *, n_lights, eps_dist, backface_culling,
+                reflections, refractions, refl_max, refr_max, weight_cutoff, air):
+    """The node kernels' plain body: the lighting of the plain path
+    (ops/shading.py::light_sums + ambient) and the child math of
+    `_eval_node` (ops/trace.py::_node_children). Returns (contrib,
+    refl_push, refr_push); a push is None for a disabled child type."""
+    hval = valid != 0.0
+    direct, spec = light_sums(
+        light_pack, n_lights, sph_pack, trb_pack, tri_blk_pack, point, normal,
+        view, color, shininess, hval, eps_dist, backface_culling,
+    )
+    return _node_children(
+        point, normal, color, h_met, h_httr != 0.0, h_ior, h_opac, h_boost, t, hval,
+        ambient(color, hval) + direct, spec, view, rior, w, budget, from_refl != 0.0,
+        eps_dist, reflections=reflections, refractions=refractions, refl_max=refl_max,
+        refr_max=refr_max, weight_cutoff=weight_cutoff, air=air,
+    )
+
+
+# ---------------------------------------------------------------------------
+# light_shade  (TPU: pallas_kernels.py::_light_shade_kernel, line 1834)
+# ---------------------------------------------------------------------------
+
+
+def light_shade_plain(light_pack, sph_pack, trb_pack, tri_blk_pack, tri_blk_aabb,
+                      point, normal, view, color, shininess, valid, *, n_lights,
+                      eps_dist, n_trans_blocks=0, backface_culling=False,
+                      bigtri_trans_rows=8):
+    """Plain twin of the light kernel: ops/shading.py::light_sums (the
+    plain lighting path, no ambient). `tri_blk_aabb`, `n_trans_blocks` and
+    `bigtri_trans_rows` only let the kernel skip work that cannot change
+    the result; the twin does that work."""
+    del tri_blk_aabb, n_trans_blocks, bigtri_trans_rows
+    return light_sums(
+        light_pack, n_lights, sph_pack, trb_pack, tri_blk_pack, point, normal, view,
+        color, shininess, valid != 0.0, eps_dist, backface_culling,
+    )
+
+
+def light_shade(light_pack, sph_pack, trb_pack, tri_blk_pack, tri_blk_aabb,
+                point, normal, view, color, shininess, valid, *, n_lights, eps_dist,
+                n_trans_blocks=0, backface_culling=False, bigtri_trans_rows=8):
+    """Direct + specular lighting of R rays over the first n_lights point
+    lights, shadows included and ambient left out: the port's
+    `pallas_light_shade`. Per-ray inputs: point, normal, view (= the ray
+    direction), color (R,3) f32; shininess, valid (1.0/0.0) (R,) f32.
+    Returns (direct (R,3), spec (R,3))."""
+    scene = _check_shading(
+        "light_shade", light_pack, sph_pack, trb_pack, tri_blk_pack, tri_blk_aabb,
+        point, normal, view, color, shininess, valid, n_lights=n_lights,
+        n_trans_blocks=n_trans_blocks, bigtri_trans_rows=bigtri_trans_rows,
+    )
+    if point.device.type == "cpu":
+        return light_shade_plain(
+            light_pack, sph_pack, trb_pack, tri_blk_pack, tri_blk_aabb, point, normal,
+            view, color, shininess, valid, n_lights=n_lights, eps_dist=eps_dist,
+            backface_culling=backface_culling,
+        )
+    R = point.shape[0]
+    direct = torch.empty((R, 3), dtype=torch.float32, device=point.device)
+    spec = torch.empty_like(direct)
+    _launch(
+        "light_shade", *scene, _ptr(point), _ptr(normal), _ptr(view), _ptr(color),
+        _ptr(shininess), _ptr(valid), R, float(eps_dist), int(bool(backface_culling)),
+        _ptr(direct), _ptr(spec),
+    )
+    return direct, spec
+
+
+# ---------------------------------------------------------------------------
+# shade_eval  (TPU: pallas_kernels.py::_shade_eval_kernel, packed_rows=False,
+# line 1858)
+# ---------------------------------------------------------------------------
+
+
+def shade_eval_plain(
+    light_pack, sph_pack, trb_pack, tri_blk_pack, tri_blk_aabb,
+    point, normal, view, color, shininess, valid,
+    t, w, rior, budget, from_refl, h_httr, h_met, h_ior, h_opac, h_boost,
+    *, n_lights, eps_dist, n_trans_blocks=0, backface_culling=False,
+    bigtri_trans_rows=8, reflections=True, refractions=True, refl_max=5,
+    refr_max=10, weight_cutoff=0.0, air=1.000293,
+):
+    """Plain twin of the per-field node kernel (`_node_plain`), in the
+    kernel's output form; a disabled child type gives zeros, False masks
+    and (refraction) ior 1."""
+    del tri_blk_aabb, n_trans_blocks, bigtri_trans_rows
+    R = point.shape[0]
+    contrib, refl, refr = _node_plain(
+        light_pack, sph_pack, trb_pack, tri_blk_pack, point, normal, view, color,
+        shininess, valid, t, w, rior, budget, from_refl, h_httr, h_met, h_ior, h_opac,
+        h_boost, n_lights=n_lights, eps_dist=eps_dist, backface_culling=backface_culling,
+        reflections=reflections, refractions=refractions, refl_max=refl_max,
+        refr_max=refr_max, weight_cutoff=weight_cutoff, air=air,
+    )
+
+    def fields(push, keys):
+        if push is None:
+            z3 = torch.zeros((R, 3), dtype=torch.float32, device=point.device)
+            push = dict(o=z3, d=z3, w=z3, budget=torch.zeros_like(budget),
+                        ior=torch.ones_like(rior),
+                        mask=torch.zeros((R,), dtype=torch.bool, device=point.device))
+        return {k: push[k] for k in keys}
+
+    return (contrib, fields(refl, ("o", "d", "w", "budget", "mask")),
+            fields(refr, ("o", "d", "w", "budget", "ior", "mask")))
+
+
+def shade_eval(
+    light_pack, sph_pack, trb_pack, tri_blk_pack, tri_blk_aabb,
+    point, normal, view, color, shininess, valid,
+    t, w, rior, budget, from_refl, h_httr, h_met, h_ior, h_opac, h_boost,
+    *, n_lights, eps_dist, n_trans_blocks=0, backface_culling=False,
+    bigtri_trans_rows=8, reflections=True, refractions=True, refl_max=5,
+    refr_max=10, weight_cutoff=0.0, air=1.000293,
+):
+    """Fused lighting + node evaluation for R rays with per-field outputs,
+    the port's `pallas_shade_eval`. Per-ray inputs as `shade_eval_rows`
+    without `pix`. Returns (contrib (R,3), refl {o, d, w (R,3); budget (R,)
+    int32; mask (R,) bool}, refr {o, d, w; budget; ior (R,) f32; mask})."""
+    node = (t, rior, from_refl, h_httr, h_met, h_ior, h_opac, h_boost)
+    scene = _check_shading(
+        "shade_eval", light_pack, sph_pack, trb_pack, tri_blk_pack, tri_blk_aabb,
+        point, normal, view, color, shininess, valid, n_lights=n_lights,
+        n_trans_blocks=n_trans_blocks, bigtri_trans_rows=bigtri_trans_rows,
+    )
+    R = point.shape[0]
+    dev = point.device
+    _check_node(w, budget, node, R, dev)
+    consts = dict(n_lights=n_lights, eps_dist=eps_dist, backface_culling=backface_culling,
+                  reflections=reflections, refractions=refractions, refl_max=refl_max,
+                  refr_max=refr_max, weight_cutoff=weight_cutoff, air=air)
+    if dev.type == "cpu":
+        return shade_eval_plain(
+            light_pack, sph_pack, trb_pack, tri_blk_pack, tri_blk_aabb, point, normal,
+            view, color, shininess, valid, t, w, rior, budget, from_refl, h_httr, h_met,
+            h_ior, h_opac, h_boost, **consts,
+        )
+    f32 = torch.float32
+
+    def vec3():
+        return torch.empty((R, 3), dtype=f32, device=dev)
+
+    contrib = vec3()
+    refl = dict(o=vec3(), d=vec3(), w=vec3(),
+                budget=torch.empty((R,), dtype=torch.int32, device=dev),
+                mask=torch.empty((R,), dtype=torch.bool, device=dev))
+    refr = dict(o=vec3(), d=vec3(), w=vec3(),
+                budget=torch.empty((R,), dtype=torch.int32, device=dev),
+                ior=torch.empty((R,), dtype=f32, device=dev),
+                mask=torch.empty((R,), dtype=torch.bool, device=dev))
+    _launch(
+        "shade_eval", *scene,
+        _ptr(point), _ptr(normal), _ptr(view), _ptr(color), _ptr(shininess),
+        _ptr(valid), _ptr(t), _ptr(w), _ptr(rior), _ptr(budget), _ptr(from_refl),
+        _ptr(h_httr), _ptr(h_met), _ptr(h_ior), _ptr(h_opac), _ptr(h_boost), R,
+        *_node_consts(eps_dist, backface_culling, reflections, refractions, refl_max,
+                      refr_max, weight_cutoff, air),
+        _ptr(contrib), *[_ptr(refl[k]) for k in ("o", "d", "w", "budget", "mask")],
+        *[_ptr(refr[k]) for k in ("o", "d", "w", "budget", "ior", "mask")],
+    )
+    return contrib, refl, refr
+
+
+# ---------------------------------------------------------------------------
+# shade_eval_rows  (TPU: pallas_kernels.py::_shade_eval_kernel, packed_rows=True,
+# line 1858)
 # ---------------------------------------------------------------------------
 
 
@@ -254,22 +493,14 @@ def shade_eval_rows_plain(
     bigtri_trans_rows=8, reflections=True, refractions=True, refl_max=5,
     refr_max=10, weight_cutoff=0.0, air=1.000293,
 ):
-    """Plain twin of the shade kernel: the lighting of the plain path
-    (ops/shading.py::light_sums), the child math of `_eval_node`
-    (ops/trace.py::_node_children) and `_pack_entry`. `tri_blk_aabb`,
-    `n_trans_blocks` and `bigtri_trans_rows` only let the kernel skip work
-    that cannot change the result; the twin does that work."""
+    """Plain twin of the packed-row node kernel: `_node_plain`, then
+    `_pack_entry` for each child."""
     del tri_blk_aabb, n_trans_blocks, bigtri_trans_rows
     R = point.shape[0]
-    hval = valid != 0.0
-    httr = h_httr != 0.0
-    direct, spec = light_sums(
-        light_pack, n_lights, sph_pack, trb_pack, tri_blk_pack, point, normal,
-        view, color, shininess, hval, eps_dist, backface_culling,
-    )
-    contrib, refl, refr = _node_children(
-        point, normal, color, h_met, httr, h_ior, h_opac, h_boost, t, hval,
-        direct, spec, view, rior, w, budget, from_refl != 0.0, eps_dist,
+    contrib, refl, refr = _node_plain(
+        light_pack, sph_pack, trb_pack, tri_blk_pack, point, normal, view, color,
+        shininess, valid, t, w, rior, budget, from_refl, h_httr, h_met, h_ior, h_opac,
+        h_boost, n_lights=n_lights, eps_dist=eps_dist, backface_culling=backface_culling,
         reflections=reflections, refractions=refractions, refl_max=refl_max,
         refr_max=refr_max, weight_cutoff=weight_cutoff, air=air,
     )
@@ -300,62 +531,39 @@ def shade_eval_rows(
     (R,) int32. Returns (contrib (R,3), rfl_rows (R,16), rfl_mask (R,) bool,
     rfr_rows (R,16), rfr_mask (R,) bool); rows/masks of a disabled child
     type are zeros/False."""
+    node = (t, rior, from_refl, h_httr, h_met, h_ior, h_opac, h_boost)
+    scene = _check_shading(
+        "shade_eval_rows", light_pack, sph_pack, trb_pack, tri_blk_pack, tri_blk_aabb,
+        point, normal, view, color, shininess, valid, n_lights=n_lights,
+        n_trans_blocks=n_trans_blocks, bigtri_trans_rows=bigtri_trans_rows,
+    )
     R = point.shape[0]
     dev = point.device
-    f32, i32 = torch.float32, torch.int32
-    Lp = light_pack.shape[0]
-    S = sph_pack.shape[0]
-    P = trb_pack.shape[0]
-    nb, B, _ = tri_blk_pack.shape
-    _check(light_pack, "light_pack", f32, (Lp, 8), dev)
-    _check(sph_pack, "sph_pack", f32, (S, 16), dev)
-    _check(trb_pack, "trb_pack", f32, (P, 32), dev)
-    _check(tri_blk_pack, "tri_blk_pack", f32, (nb, B, 32), dev)
-    _check(tri_blk_aabb, "tri_blk_aabb", f32, (nb, 8), dev)
-    vec3 = dict(point=point, normal=normal, view=view, color=color, w=w)
-    scal = dict(shininess=shininess, valid=valid, t=t, rior=rior, from_refl=from_refl,
-                h_httr=h_httr, h_met=h_met, h_ior=h_ior, h_opac=h_opac, h_boost=h_boost)
-    for k, v in vec3.items():
-        _check(v, k, f32, (R, 3), dev)
-    for k, v in scal.items():
-        _check(v, k, f32, (R,), dev)
-    _check(budget, "budget", i32, (R,), dev)
-    _check(pix, "pix", i32, (R,), dev)
-    if not 0 < n_lights <= Lp:
-        raise ValueError(f"n_lights={n_lights} outside (0, {Lp}]")
-    if not (0 <= bigtri_trans_rows <= P and 0 <= n_trans_blocks <= nb):
-        raise ValueError("bigtri_trans_rows / n_trans_blocks outside the packs")
-    kw = dict(
-        n_lights=n_lights, eps_dist=eps_dist, n_trans_blocks=n_trans_blocks,
-        backface_culling=backface_culling, bigtri_trans_rows=bigtri_trans_rows,
-        reflections=reflections, refractions=refractions, refl_max=refl_max,
-        refr_max=refr_max, weight_cutoff=weight_cutoff, air=air,
-    )
+    _check_node(w, budget, node, R, dev)
+    _check(pix, "pix", torch.int32, (R,), dev)
     if dev.type == "cpu":
         return shade_eval_rows_plain(
             light_pack, sph_pack, trb_pack, tri_blk_pack, tri_blk_aabb,
             point, normal, view, color, shininess, valid, t, w, rior, budget,
-            from_refl, h_httr, h_met, h_ior, h_opac, h_boost, pix, **kw,
+            from_refl, h_httr, h_met, h_ior, h_opac, h_boost, pix,
+            n_lights=n_lights, eps_dist=eps_dist, backface_culling=backface_culling,
+            reflections=reflections, refractions=refractions, refl_max=refl_max,
+            refr_max=refr_max, weight_cutoff=weight_cutoff, air=air,
         )
-    if dev.type != "cuda":
-        raise ValueError(f"shade_eval_rows: unsupported device {dev}")
+    f32 = torch.float32
     contrib = torch.empty((R, 3), dtype=f32, device=dev)
     rfl_rows = torch.empty((R, POOL_COLS), dtype=f32, device=dev)
     rfr_rows = torch.empty((R, POOL_COLS), dtype=f32, device=dev)
     rfl_m = torch.empty((R,), dtype=torch.bool, device=dev)
     rfr_m = torch.empty((R,), dtype=torch.bool, device=dev)
     _launch(
-        "shade_eval_rows",
-        _ptr(light_pack), int(n_lights), _ptr(sph_pack), S, _ptr(trb_pack), P,
-        int(bigtri_trans_rows), _ptr(tri_blk_pack), _ptr(tri_blk_aabb), nb, B,
-        int(n_trans_blocks),
+        "shade_eval_rows", *scene,
         _ptr(point), _ptr(normal), _ptr(view), _ptr(color), _ptr(shininess),
         _ptr(valid), _ptr(t), _ptr(w), _ptr(rior), _ptr(budget), _ptr(from_refl),
         _ptr(h_httr), _ptr(h_met), _ptr(h_ior), _ptr(h_opac), _ptr(h_boost),
         _ptr(pix), R,
-        float(eps_dist), int(bool(backface_culling)), int(bool(reflections)),
-        int(bool(refractions)), int(refl_max), int(refr_max), float(weight_cutoff),
-        float(air),
+        *_node_consts(eps_dist, backface_culling, reflections, refractions, refl_max,
+                      refr_max, weight_cutoff, air),
         _ptr(contrib), _ptr(rfl_rows), _ptr(rfl_m), _ptr(rfr_rows), _ptr(rfr_m),
     )
     return contrib, rfl_rows, rfl_m, rfr_rows, rfr_m

@@ -15,8 +15,10 @@ these constants and asymmetries define the image and must not be "fixed":
   surface, not the halfway vector                 (ref raytracer_renderer.rs:818-833)
 * node distance attenuation 1/(1+d+0.1d²)         (ref raytracer_renderer.rs:266-277)
 
-The main path runs lighting inside the `shade_eval_rows` kernel
-(ops/kernels.py); `light_sums` here is its plain twin's lighting part.
+`calculate_lighting` sends the light sums through the `light_shade` kernel
+(ops/kernels.py) and adds ambient outside it, as the JAX package does; the
+node kernels (`shade_eval`, `shade_eval_rows`) run the same sums inside.
+`light_sums` here is the plain twins' lighting part.
 """
 
 from __future__ import annotations
@@ -64,14 +66,12 @@ def compute_fresnel(normal, view_dir, other_ior, color, metallic, ior, has_trans
 def light_sums(light_pack, n_lights: int, sph_pack, trb_pack, tri_blk_pack,
                point, normal, view_dir, color, shininess, valid,
                epsilon_distance: float, backface_culling: bool):
-    """Ambient + direct and specular light at a hit wavefront
+    """Direct and specular light at a hit wavefront, WITHOUT ambient
     (ref raytracer_renderer.rs:731-874), from the kernel-packed scene
-    tables. Returns (direct_rgb incl. ambient, specular_rgb), each (R, 3)."""
+    tables; the plain twin of the `light_shade` kernel
+    (`pallas_light_shade`). Returns (direct_rgb, specular_rgb), each (R, 3)."""
     R = point.shape[0]
     material_color = color
-
-    # ambient: color (1,1,1) value-maximized is itself; intensity 0.08
-    ambient = _where0(valid[:, None], material_color) * 0.08
 
     has_specular = shininess > 0.0
     spec_exponent = torch.clamp(shininess * 512.0, min=1.0)
@@ -163,15 +163,32 @@ def light_sums(light_pack, n_lights: int, sph_pack, trb_pack, tri_blk_pack,
             dim=0,
         )
 
-    return ambient + light_color, specular_color
+    return light_color, specular_color
+
+
+def ambient(color, valid):
+    """Ambient light: colour (1,1,1) value-maximized is itself; intensity
+    0.08 (ref raytracer_renderer.rs:752-764)."""
+    return _where0(valid[:, None], color) * 0.08
 
 
 def calculate_lighting(scene: DeviceScene, cfg: RenderConfig, hit: Hit, view_dir,
                        epsilon_distance: float):
     """Direct + specular lighting at a hit wavefront
-    (ref raytracer_renderer.rs:731-874). Returns (direct_rgb, specular_rgb)."""
-    return light_sums(
-        scene.light_pack, scene.n_lights, scene.sph_pack, scene.trb_pack,
-        scene.tri_blk_pack, hit.point, hit.normal, view_dir, hit.color,
-        hit.shininess, hit.valid, epsilon_distance, cfg.backface_culling,
+    (ref raytracer_renderer.rs:731-874) through the `light_shade` kernel,
+    ambient added outside it. Returns (direct_rgb incl. ambient,
+    specular_rgb)."""
+    from .kernels import light_shade
+
+    direct, spec = light_shade(
+        scene.light_pack, scene.sph_pack, scene.trb_pack, scene.tri_blk_pack,
+        scene.tri_blk_aabb, hit.point.contiguous(), hit.normal.contiguous(),
+        view_dir.contiguous(), hit.color.contiguous(), hit.shininess.contiguous(),
+        hit.valid.to(torch.float32),
+        n_lights=scene.n_lights,
+        eps_dist=float(epsilon_distance),
+        n_trans_blocks=scene.n_trans_blocks,
+        backface_culling=cfg.backface_culling,
+        bigtri_trans_rows=scene.bigtri_trans_rows,
     )
+    return ambient(hit.color, hit.valid) + direct, spec

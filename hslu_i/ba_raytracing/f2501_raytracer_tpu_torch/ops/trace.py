@@ -1,13 +1,24 @@
-"""Wavefront Whitted tracing: the reference's recursion tree as a ray pool.
+"""Wavefront Whitted tracing: the reference's recursion tree as a ray pool
+or a per-ray stack.
 
-The port's counterpart of the JAX package's `ops/trace.py`, for the
-packed-row pool path (the `realistic` configs' main path). The reference
+The port's counterpart of the JAX package's `ops/trace.py`. The reference
 recursively branches into a reflection subtree and a refraction subtree per
 hit (ref raytracer_renderer.rs:147-264, 279-524, 526-729). Here every
-pending ray is one packed (16,) f32 row in a dense pool carrying its
-accumulated *weight* (the product of Fresnel reflectances / transmittances
-/ boosts along its path), so contributions are linear and can be summed
-into the framebuffer in any order.
+pending ray carries its accumulated *weight* (the product of Fresnel
+reflectances / transmittances / boosts along its path), so contributions are
+linear and can be summed into the framebuffer in any order. Three paths, as
+in the JAX package:
+
+* the pool path (tiles of at least kernel_ray_tile * compaction_ratio rays
+  with children): a dense LIFO pool of packed (16,) f32 rows, W rays
+  serviced per iteration (`_run_pool`); the node kernel writes packed rows
+  (`shade_eval_rows`), or per-field children with `packed_stage=False`
+  (`shade_eval`, then `_pack_entry`);
+* the stack path (smaller tiles, or compaction_ratio 1): one pop per ray
+  per iteration from a per-ray stack (`_run_stack`), nodes through
+  `shade_eval`;
+* configs without reflections or refractions: the primary node alone, lit
+  through `light_shade` (`calculate_lighting`).
 
 Depth-budget semantics copied exactly (they shape the image):
 * budget -1 encodes the reference's `None` (top level); the first reflection
@@ -22,11 +33,9 @@ Depth-budget semantics copied exactly (they shape the image):
 * reflection contributions are attenuated by the *child's* first-hit distance
   (raytracer_renderer.rs:711-728) -- tracked via the `from_refl` flag
 
-Not in this slice (they raise NotImplementedError; ROADMAP.md Queue 1
-item 6): the per-ray stack path taken by tiles smaller than
-kernel_ray_tile * compaction_ratio, packet_mode, resort_secondary, the
-gather/unique stage modes, commit_splits > 1, streamed scenes, and configs
-without reflections or refractions.
+Not ported yet (they raise NotImplementedError; ROADMAP.md Queue 1):
+packet_mode, resort_secondary, the gather/unique stage modes,
+commit_splits > 1 and streamed scenes.
 """
 
 from __future__ import annotations
@@ -56,10 +65,7 @@ PK_O, PK_D, PK_W = slice(0, 3), slice(3, 6), slice(6, 9)
 PK_IOR, PK_BUD, PK_REFL, PK_PIX = 9, 10, 11, 12
 POOL_COLS = 16
 
-_NOT_IN_SLICE = (
-    "is not ported yet (ROADMAP.md, Queue 1 item 6): the port covers the "
-    "packed-row pool path only"
-)
+_NOT_IN_SLICE = "is not ported yet (ROADMAP.md, Queue 1)"
 
 
 def _node_children(point, normal, color, metallic, has_trans, hior, opacity,
@@ -179,27 +185,85 @@ def _cast_active(scene, cfg, o, d, active):
     return hit, hval, point, d
 
 
-def _eval_node(scene, cfg: RenderConfig, eps_dist, o, d, ior, weight, budget,
-               from_refl, active):
-    """Evaluate one shading-tree node for the whole wavefront through the
-    plain path (JAX `_eval_node` with use_pallas=False, non-packet).
-
-    Returns (contribution (R,3), primary_hit_valid (R,), refl_push, refr_push)."""
-    if cfg.packet_mode:
-        raise NotImplementedError("packet_mode " + _NOT_IN_SLICE)
-    hit, hval, point, d = _cast_active(scene, cfg, o, d, active)
-    direct, spec = calculate_lighting(
-        scene, cfg, dataclasses.replace(hit, valid=hval, point=point), d, eps_dist
+def _node_args(scene, hit, hval, point, d, ior, weight, budget, from_refl):
+    """The per-ray inputs of the node kernels (`shade_eval`,
+    `shade_eval_rows` without `pix`), contiguous and in their dtypes."""
+    f32 = torch.float32
+    return (
+        scene.light_pack, scene.sph_pack, scene.trb_pack,
+        scene.tri_blk_pack, scene.tri_blk_aabb,
+        point, hit.normal.contiguous(), d.contiguous(), hit.color.contiguous(),
+        hit.shininess.contiguous(), hval.to(f32), hit.t.contiguous(),
+        weight.contiguous(), ior.contiguous(), budget.to(torch.int32).contiguous(),
+        from_refl.to(f32), hit.has_trans.to(f32), hit.metallic.contiguous(),
+        hit.ior.contiguous(), hit.opacity.contiguous(), hit.boost.contiguous(),
     )
-    contrib, refl_push, refr_push = _node_children(
-        point, hit.normal, hit.color, hit.metallic, hit.has_trans, hit.ior,
-        hit.opacity, hit.boost, hit.t, hval, direct, spec, d, ior, weight,
-        budget, from_refl, eps_dist,
-        reflections=cfg.reflections, refractions=cfg.refractions,
+
+
+def _node_kw(scene, cfg: RenderConfig, eps_dist):
+    return dict(
+        n_lights=scene.n_lights,
+        eps_dist=float(eps_dist),
+        n_trans_blocks=scene.n_trans_blocks,
+        backface_culling=cfg.backface_culling,
+        bigtri_trans_rows=scene.bigtri_trans_rows,
+        reflections=cfg.reflections,
+        refractions=cfg.refractions,
         refl_max=int(cfg.reflection_max_depth),
         refr_max=int(cfg.refraction_max_depth),
         weight_cutoff=float(cfg.weight_cutoff),
+        air=AIR,
     )
+
+
+def _eval_node(scene, cfg: RenderConfig, eps_dist, o, d, ior, weight, budget,
+               from_refl, active):
+    """Evaluate one shading-tree node for the whole wavefront (JAX
+    `_eval_node`, non-packet): with reflections or refractions through the
+    fused `shade_eval` kernel (JAX `_eval_node_fused`), else lit through
+    `calculate_lighting` (the `light_shade` kernel) with no children.
+
+    Returns (contribution (R,3), primary_hit_valid (R,), refl_push, refr_push);
+    a push is a dict of child fields + `mask`, or None for a disabled child
+    type."""
+    if cfg.packet_mode:
+        raise NotImplementedError("packet_mode " + _NOT_IN_SLICE)
+    hit, hval, point, d = _cast_active(scene, cfg, o, d, active)
+    if cfg.reflections or cfg.refractions:
+        return _eval_node_fused(scene, cfg, eps_dist, hit, hval, point, d, ior,
+                                weight, budget, from_refl)
+    direct, spec = calculate_lighting(
+        scene, cfg, dataclasses.replace(hit, valid=hval, point=point), d, eps_dist
+    )
+    contrib, _, _ = _node_children(
+        point, hit.normal, hit.color, hit.metallic, hit.has_trans, hit.ior,
+        hit.opacity, hit.boost, hit.t, hval, direct, spec, d, ior, weight,
+        budget, from_refl, eps_dist, reflections=False, refractions=False,
+        refl_max=0, refr_max=0, weight_cutoff=0.0,
+    )
+    return contrib, hval, None, None
+
+
+def _eval_node_fused(scene, cfg: RenderConfig, eps_dist, hit, hval, point, d, ior,
+                     weight, budget, from_refl):
+    """Lighting + children through the `shade_eval` kernel (JAX
+    `_eval_node_fused`). The kernel does not output what the caller knows:
+    the reflection child keeps the input medium `ior`, and the from_refl
+    flags are True for the reflection child and False for the refraction
+    child."""
+    from .kernels import shade_eval
+
+    R = d.shape[0]
+    contrib, refl, refr = shade_eval(
+        *_node_args(scene, hit, hval, point, d, ior, weight, budget, from_refl),
+        **_node_kw(scene, cfg, eps_dist),
+    )
+    refl_push = refr_push = None
+    if cfg.reflections:
+        refl_push = dict(refl, ior=ior,  # reflection keeps the current medium (rs:703)
+                         from_refl=torch.ones((R,), dtype=torch.bool, device=d.device))
+    if cfg.refractions:
+        refr_push = dict(refr, from_refl=torch.zeros((R,), dtype=torch.bool, device=d.device))
     return contrib, hval, refl_push, refr_push
 
 
@@ -213,27 +277,9 @@ def _eval_node_rows(scene, cfg: RenderConfig, eps_dist, o, d, ior, weight,
     from .kernels import shade_eval_rows
 
     hit, hval, point, d = _cast_active(scene, cfg, o, d, active)
-    f32 = torch.float32
     contrib, rfl_rows, rfl_m, rfr_rows, rfr_m = shade_eval_rows(
-        scene.light_pack, scene.sph_pack, scene.trb_pack,
-        scene.tri_blk_pack, scene.tri_blk_aabb,
-        point, hit.normal.contiguous(), d.contiguous(), hit.color.contiguous(),
-        hit.shininess.contiguous(), hval.to(f32), hit.t.contiguous(),
-        weight.contiguous(), ior.contiguous(), budget.to(torch.int32),
-        from_refl.to(f32), hit.has_trans.to(f32), hit.metallic.contiguous(),
-        hit.ior.contiguous(), hit.opacity.contiguous(), hit.boost.contiguous(),
-        pix.to(torch.int32),
-        n_lights=scene.n_lights,
-        eps_dist=float(eps_dist),
-        n_trans_blocks=scene.n_trans_blocks,
-        backface_culling=cfg.backface_culling,
-        bigtri_trans_rows=scene.bigtri_trans_rows,
-        reflections=cfg.reflections,
-        refractions=cfg.refractions,
-        refl_max=int(cfg.reflection_max_depth),
-        refr_max=int(cfg.refraction_max_depth),
-        weight_cutoff=float(cfg.weight_cutoff),
-        air=AIR,
+        *_node_args(scene, hit, hval, point, d, ior, weight, budget, from_refl),
+        pix.to(torch.int32), **_node_kw(scene, cfg, eps_dist),
     )
     rows, masks = [], []
     if cfg.refractions:  # pool-append order: refr first
@@ -243,6 +289,23 @@ def _eval_node_rows(scene, cfg: RenderConfig, eps_dist, o, d, ior, weight,
         rows.append(rfl_rows)
         masks.append(rfl_m)
     return contrib, hval, torch.cat(rows, dim=0), torch.cat(masks, dim=0)
+
+
+def _node_rows(scene, cfg: RenderConfig, eps_dist, o, d, ior, weight, budget,
+               from_refl, active, pix):
+    """A pool node evaluation as (contrib, hval, rows, masks) in the
+    pool-append order [refr, refl]: packed by the kernel
+    (`_eval_node_rows`), or with `packed_stage=False` from the per-field
+    children (`_eval_node`, then `_pack_entry`; JAX trace.py:805-811,
+    866-871, 895-901)."""
+    if cfg.packed_stage:
+        return _eval_node_rows(scene, cfg, eps_dist, o, d, ior, weight, budget,
+                               from_refl, active, pix)
+    contrib, hval, refl, refr = _eval_node(scene, cfg, eps_dist, o, d, ior, weight,
+                                           budget, from_refl, active)
+    pushes = [p for p in (refr, refl) if p is not None]
+    return (contrib, hval, torch.cat([_pack_entry(p, pix) for p in pushes], dim=0),
+            torch.cat([p["mask"] for p in pushes], dim=0))
 
 
 def _pack_entry(e, pix):
@@ -325,14 +388,16 @@ def _run_pool(scene, cfg, eps_dist, R, contrib, rows0, masks0):
     max_iters = cfg.max_nodes * ratio
     chunk = max(int(cfg.loop_chunk), 1)
     # per-chunk contribution staging: iteration i writes its (W, 3)
-    # contributions at rows [i*W, (i+1)*W) and ONE index_add_ per chunk
-    # commits them; dead rows point at the dump row R of the accumulator
-    accum = torch.cat([contrib, torch.zeros((1, 3), dtype=contrib.dtype, device=dev)])
+    # contributions at rows [i*W, (i+1)*W) and ONE `_commit` per chunk adds
+    # them. A dead staging row s points at its own dump row R + s of the
+    # accumulator: rows that share a target are summed one after another by
+    # one thread in the sorted commit, so the (mostly dead) rows of a
+    # drained pool must not all share one
+    accum = torch.cat([contrib, torch.zeros((chunk * W, 3), dtype=contrib.dtype, device=dev)])
     stage_pix = torch.empty((chunk * W,), dtype=torch.int64, device=dev)
     stage_contrib = torch.empty((chunk * W, 3), dtype=torch.float32, device=dev)
     lanes = torch.arange(W, dtype=torch.int64, device=dev)
     k = rows0.shape[0] // R  # enabled child types (1 or 2)
-    dump = torch.full((W,), R, dtype=torch.int64, device=dev)
 
     it = 0
     while it < max_iters and int(count) > 0:
@@ -341,12 +406,12 @@ def _run_pool(scene, cfg, eps_dist, R, contrib, rows0, masks0):
             idx = start + lanes
             sel_active = idx < count
             e = _unpack_entry(pool.index_select(0, idx))
-            contrib_w, _, rows_b, masks_b = _eval_node_rows(
+            contrib_w, _, rows_b, masks_b = _node_rows(
                 scene, cfg, eps_dist, e["o"], e["d"], e["ior"], e["w"],
                 e["budget"], e["from_refl"], sel_active, pix=e["pix"],
             )
             rows_sl = slice(slot * W, (slot + 1) * W)
-            stage_pix[rows_sl] = torch.where(sel_active, e["pix"], dump)
+            stage_pix[rows_sl] = torch.where(sel_active, e["pix"], R + slot * W + lanes)
             stage_contrib[rows_sl] = _where0(sel_active[:, None], contrib_w)
             # cap so a full append of 2W candidates stays within the logical
             # capacity; at the auto capacity this never engages
@@ -354,57 +419,141 @@ def _run_pool(scene, cfg, eps_dist, R, contrib, rows0, masks0):
             dropped = dropped + (start - capped)
             count = _pool_append(pool, capped, rows_b, masks_b & sel_active.repeat(k))
             it += 1
-        accum.index_add_(0, stage_pix, stage_contrib)
+        _commit(accum, stage_pix, stage_contrib)
     return accum[:R], dropped
+
+
+def _commit(accum, pix, contrib):
+    """accum[pix] += contrib with the same f32 sums on every run. On the
+    card `index_put_(accumulate=True)` sorts the rows by pixel (a radix
+    sort, stable) and sums the rows of each pixel in one thread in that
+    fixed order, so its time grows with the largest number of rows that
+    share a pixel; `index_add_` there adds with atomics, whose order, and so
+    whose f32 result, changes from run to run. On the CPU `index_add_` adds
+    in row order, as the JAX scatter-add does."""
+    if accum.is_cuda:
+        accum.index_put_((pix,), contrib, accumulate=True)
+    else:
+        accum.index_add_(0, pix, contrib)
+
+
+def _push(stack, sp, dropped, entry, lanes):
+    """Masked per-ray stack push (JAX `_push`). `stack` holds K slots per
+    ray as packed (16,) rows, slot k of ray r at row k*R + r. A push into a
+    full stack is counted in `dropped` (never silent). Returns (sp,
+    dropped); `stack` is updated in place."""
+    if entry is None:
+        return sp, dropped
+    R = lanes.shape[0]
+    K = stack.shape[0] // R
+    ok = entry["mask"] & (sp < K)
+    dropped = dropped + (entry["mask"] & (sp >= K)).sum()
+    at = torch.clamp(sp, max=K - 1) * R + lanes
+    rows = torch.where(ok[:, None], _pack_entry(entry, lanes), stack.index_select(0, at))
+    stack.index_copy_(0, at, rows)  # one row per ray: no two writes collide
+    return sp + ok.to(sp.dtype), dropped
+
+
+def _pop(stack, sp, lanes):
+    """Pop every ray's top entry (JAX `_pop`): returns (entry, active, sp);
+    a ray with an empty stack pops slot 0 as an inactive lane, which
+    `_eval_node` parks."""
+    R = lanes.shape[0]
+    active = sp > 0
+    e = _unpack_entry(stack.index_select(0, torch.clamp(sp - 1, min=0) * R + lanes))
+    return e, active, torch.clamp(sp - 1, min=0)
+
+
+def _run_stack(scene, cfg, eps_dist, contrib, refl_push, refr_push):
+    """Full-width per-ray DFS (JAX trace.py:631-670 with `_body_full`): every
+    iteration pops one entry per ray, evaluates the whole wavefront and
+    pushes the children, refraction first so that the reflection child pops
+    first (the reference evaluates the reflection subtree before the
+    refraction subtree). Returns (accum (R,3), dropped int64 tensor).
+
+    The stop condition `it < max_nodes` is checked once per `loop_chunk`
+    iterations, as the JAX while_loop condition is; inside a chunk an
+    iteration runs only while some stack is not empty (the JAX in-chunk
+    guard). So a tile runs up to ceil(max_nodes / loop_chunk) * loop_chunk
+    iterations. The host reads `any(sp > 0)` once per iteration."""
+    R = contrib.shape[0]
+    dev = contrib.device
+    lanes = torch.arange(R, dtype=torch.int64, device=dev)
+    stack = torch.zeros((cfg.stack_size * R, POOL_COLS), dtype=torch.float32, device=dev)
+    sp = torch.zeros((R,), dtype=torch.int64, device=dev)
+    dropped = torch.zeros((), dtype=torch.int64, device=dev)
+    sp, dropped = _push(stack, sp, dropped, refr_push, lanes)
+    sp, dropped = _push(stack, sp, dropped, refl_push, lanes)
+    accum = contrib
+    chunk = max(int(cfg.loop_chunk), 1)
+    it = 0
+    live = bool((sp > 0).any())
+    while live and it < cfg.max_nodes:
+        for _ in range(chunk):
+            e, active, sp = _pop(stack, sp, lanes)
+            c, _, refl_p, refr_p = _eval_node(
+                scene, cfg, eps_dist, e["o"], e["d"], e["ior"], e["w"], e["budget"],
+                e["from_refl"], active,
+            )
+            accum = accum + c
+            sp, dropped = _push(stack, sp, dropped, refr_p, lanes)
+            sp, dropped = _push(stack, sp, dropped, refl_p, lanes)
+            it += 1
+            live = bool((sp > 0).any())
+            if not live:
+                break
+    return accum, dropped
 
 
 def trace_rays(scene: DeviceScene, cfg: RenderConfig, origins, directions,
                with_stats: bool = False):
-    """Trace R rays to final linear-RGB colors on the packed-row pool path.
+    """Trace R rays to final linear-RGB colors.
 
     `directions` need not be normalized (Ray::new normalizes, ray.rs:54).
     Returns (color (R,3), valid (R,)) -- `valid` is the primary-hit mask. With
     `with_stats=True` a third element is returned: {"dropped": int64 tensor},
-    the number of pending secondary rays truncated by pool capacity (0 in
-    healthy runs; the reference recursion never drops subtrees)."""
+    the number of pending secondary rays truncated by pool or stack capacity
+    (0 in healthy runs; the reference recursion never drops subtrees)."""
     R = origins.shape[0]
     ratio = max(int(cfg.compaction_ratio), 1)
+    children = cfg.reflections or cfg.refractions
+    # >=: a tile of exactly kernel_ray_tile * ratio rays takes the pool path
+    pool_path = children and ratio > 1 and R >= cfg.kernel_ray_tile * ratio
     if cfg.packet_mode:
         raise NotImplementedError("packet_mode " + _NOT_IN_SLICE)
-    if not (cfg.reflections or cfg.refractions):
-        raise NotImplementedError(
-            "configs without reflections/refractions need pallas_light_shade, "
-            "which " + _NOT_IN_SLICE
-        )
-    if not (ratio > 1 and R >= cfg.kernel_ray_tile * ratio):
-        raise NotImplementedError(
-            f"the per-ray stack path (R={R} < kernel_ray_tile*compaction_ratio) "
-            + _NOT_IN_SLICE
-        )
-    if not cfg.packed_stage:
-        raise NotImplementedError("packed_stage=False " + _NOT_IN_SLICE)
-    if cfg.resort_secondary:
-        raise NotImplementedError("resort_secondary " + _NOT_IN_SLICE)
-    if cfg.stage_mode != "scatter":
-        raise NotImplementedError(f"stage_mode={cfg.stage_mode!r} " + _NOT_IN_SLICE)
-    if int(cfg.commit_splits) != 1:
-        raise NotImplementedError("commit_splits > 1 " + _NOT_IN_SLICE)
     if scene.streaming:
         raise NotImplementedError("streamed scenes " + _NOT_IN_SLICE)
+    if pool_path and cfg.resort_secondary:
+        raise NotImplementedError("resort_secondary " + _NOT_IN_SLICE)
+    if pool_path and cfg.stage_mode != "scatter":
+        raise NotImplementedError(f"stage_mode={cfg.stage_mode!r} " + _NOT_IN_SLICE)
+    if pool_path and int(cfg.commit_splits) != 1:
+        raise NotImplementedError("commit_splits > 1 " + _NOT_IN_SLICE)
 
     eps_dist = float(cfg.camera.epsilon_distance)
     dev = origins.device
-    d0 = normalized(directions)
-    contrib, top_valid, rows0, masks0 = _eval_node_rows(
-        scene, cfg, eps_dist, origins, d0,
+    # primary node: budget None (-1), weight 1, current medium = air
+    prim = (
+        origins,
+        normalized(directions),
         torch.full((R,), AIR, dtype=torch.float32, device=dev),
         torch.ones((R, 3), dtype=torch.float32, device=dev),
         torch.full((R,), -1, dtype=torch.int32, device=dev),
         torch.zeros((R,), dtype=torch.bool, device=dev),
         torch.ones((R,), dtype=torch.bool, device=dev),
-        pix=torch.arange(R, dtype=torch.int64, device=dev),
     )
-    accum, dropped = _run_pool(scene, cfg, eps_dist, R, contrib, rows0, masks0)
+    if pool_path:
+        contrib, top_valid, rows0, masks0 = _node_rows(
+            scene, cfg, eps_dist, *prim,
+            pix=torch.arange(R, dtype=torch.int64, device=dev),
+        )
+        accum, dropped = _run_pool(scene, cfg, eps_dist, R, contrib, rows0, masks0)
+    else:
+        contrib, top_valid, refl_push, refr_push = _eval_node(scene, cfg, eps_dist, *prim)
+        if children:
+            accum, dropped = _run_stack(scene, cfg, eps_dist, contrib, refl_push, refr_push)
+        else:
+            accum, dropped = contrib, torch.zeros((), dtype=torch.int64, device=dev)
     if with_stats:
         return accum, top_valid, {"dropped": dropped}
     return accum, top_valid

@@ -4,9 +4,10 @@ The port's counterpart of the JAX package's `renderer.py` for the
 single-device `device_encode` path (ref renderer/raytracer_renderer.rs:
 1140-1379, renderer/mod.rs:80-210): the frame is cut into ray wavefronts of
 `cfg.tile_rays`, primary rays are generated on the device from the
-tile-major pixel permutation, every tile runs the packed-row pool trace
-and encodes its pixels to 0xFFRRGGBB on the device, and the host fetches
-the 4-byte pixels once at the end.
+tile-major pixel permutation, every tile is traced (ops/trace.py:
+the pool or the stack path, or the primary node alone without reflections
+and refractions) and encodes its pixels to 0xFFRRGGBB on the device, and
+the host fetches the 4-byte pixels once at the end.
 
 Not in this slice (raise NotImplementedError; ROADMAP.md Queue 1): the
 progress callback path, `device_encode=False`, multi-device meshes and

@@ -12,6 +12,7 @@
 from __future__ import annotations
 
 import os
+import shutil
 import subprocess
 import sys
 
@@ -83,17 +84,12 @@ def test_unported_paths_raise():
         _small_cfg(packet_mode=True, anti_aliasing=True),
         _small_cfg(stage_mode="gather"),
         _small_cfg(commit_splits=2),
-        _small_cfg(packed_stage=False),
         _small_cfg(resort_secondary=True),
-        # no reflections/refractions: the lighting-only kernel (#7)
-        RenderConfig(width=16, height=8, kernel_ray_tile=64, compaction_ratio=2),
     ]
     for bad in unported:
         with pytest.raises(NotImplementedError):
             trace_rays(ds, bad, o, d)
-    # a wavefront below kernel_ray_tile * compaction_ratio needs the stack path
-    with pytest.raises(NotImplementedError, match="stack path"):
-        trace_rays(ds, cfg, o[:64], d[:64])
+    # the f32 (device_encode=False) frame path
     with pytest.raises(NotImplementedError):
         RaytracerRenderer(RenderConfig(width=16, height=8), device="cpu")
 
@@ -108,7 +104,8 @@ def test_wrappers_check_inputs_and_count_only_kernel_launches():
     t, idx = kernels.cast_triangles(ds.trb_pack, ds.tri_cast_pack, ds.tri_aabb,
                                     ds.tri_saabb, o, d, sb_sizes=ds.sb_sizes)
     assert t.dtype == torch.float32 and idx.dtype == torch.int32 and t.shape == (64,)
-    assert kernels.LAUNCHES == {"cast_triangles": 0, "shade_eval_rows": 0}
+    assert kernels.LAUNCHES == {"cast_triangles": 0, "shade_eval_rows": 0,
+                                "shade_eval": 0, "light_shade": 0}
     with pytest.raises(TypeError):
         kernels.cast_triangles(ds.trb_pack, ds.tri_cast_pack, ds.tri_aabb,
                                ds.tri_saabb, o.double(), d, sb_sizes=ds.sb_sizes)
@@ -118,17 +115,50 @@ def test_wrappers_check_inputs_and_count_only_kernel_launches():
     with pytest.raises(ValueError):
         kernels.cast_triangles(ds.trb_pack, ds.tri_cast_pack, ds.tri_aabb, ds.tri_saabb,
                                o.t().contiguous().t(), d, sb_sizes=ds.sb_sizes)
+    # the shading wrappers: lighting inputs and node state
+    tables = (ds.light_pack, ds.sph_pack, ds.trb_pack, ds.tri_blk_pack, ds.tri_blk_aabb)
+    R = o.shape[0]
+    light = (o, d, d, o, torch.zeros(R), torch.ones(R))
+    kw = dict(n_lights=ds.n_lights, eps_dist=1e-4, n_trans_blocks=ds.n_trans_blocks,
+              bigtri_trans_rows=ds.bigtri_trans_rows)
+    direct, spec = kernels.light_shade(*tables, *light, **kw)
+    assert direct.shape == spec.shape == (R, 3)
+    with pytest.raises(TypeError):
+        kernels.light_shade(*tables, o.double(), *light[1:], **kw)
+    with pytest.raises(ValueError):
+        kernels.light_shade(*tables, *light, **dict(kw, n_lights=ds.light_pack.shape[0] + 1))
+    node = (torch.ones(R), torch.ones((R, 3)), torch.ones(R), torch.full((R,), -1, dtype=torch.int32),
+            *[torch.zeros(R)] * 6)
+    contrib, refl, refr = kernels.shade_eval(*tables, *light, *node, **kw)
+    assert contrib.shape == (R, 3) and refl["budget"].dtype == refr["budget"].dtype == torch.int32
+    with pytest.raises(TypeError):
+        kernels.shade_eval(*tables, *light, *node[:3], node[3].long(), *node[4:], **kw)
+    assert sum(kernels.LAUNCHES.values()) == 0
 
 
-def test_kernel_build_is_keyed_by_sources():
+def test_kernel_build_is_keyed_by_sources(tmp_path, monkeypatch):
     """Each kernel builds from the package's csrc/ into the ignored build
     directory, under a name that changes with its source, header or flags."""
+    assert sorted(kernels.KERNEL_SOURCES) == [
+        "cast_triangles", "light_shade", "shade_eval", "shade_eval_rows"]
+    assert set(kernels.COMMON_HEADERS) == {"rt_common.cuh", "rt_light.cuh", "rt_node.cuh"}
+    for f in kernels.COMMON_HEADERS:
+        assert os.path.exists(os.path.join(kernels.CSRC, f))
+    paths = {}
     for name, src in kernels.KERNEL_SOURCES.items():
         assert os.path.exists(os.path.join(kernels.CSRC, src))
         path = kernels._so_path(name)
         assert path.startswith(os.path.join(ROOT, "build", "torch_kernels"))
         assert path == kernels._so_path(name)
-    assert kernels._so_path("cast_triangles") != kernels._so_path("shade_eval_rows")
+        paths[name] = path
+    assert len(set(paths.values())) == len(paths)
+    # an edit to a shared header renames every library
+    shutil.copytree(kernels.CSRC, tmp_path / "csrc")
+    monkeypatch.setattr(kernels, "CSRC", str(tmp_path / "csrc"))
+    assert {n: kernels._so_path(n) for n in paths} == paths
+    with open(tmp_path / "csrc" / "rt_light.cuh", "a") as fh:
+        fh.write("// edited\n")
+    assert all(kernels._so_path(n) != p for n, p in paths.items())
     assert "--fmad=false" in kernels.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
     assert not any("fast_math" in f for f in kernels.NVCC_FLAGS)

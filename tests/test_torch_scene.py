@@ -98,3 +98,51 @@ def test_device_scene_from_arrays_round_trips():
     with pytest.raises(ValueError):
         device_scene_from_arrays({k: v for k, v in fields.items() if k != "mat_pack"},
                                  static, device="cpu")
+
+
+def test_soft_shadow_light_pack_equals_jax():
+    """The soft-shadow light cloud of the 1080p frame: 50 lights in a pack
+    padded to 56 rows, every field bit-equal to the JAX build."""
+    kw = dict(width=1920, height=1080, scene_backface_culling=True, soft_shadows=True)
+    cfg = RenderConfig(**kw)
+    scene = Scene.backface_culling(build("semesterbild", cfg), np.array([0.0, 0.0, 1.0]))
+    ds = build_device_scene(scene, cfg, device="cpu")
+    jcfg = JaxConfig(**kw)
+    jscene = JaxScene.backface_culling(jax_model("semesterbild", jcfg), np.array([0.0, 0.0, 1.0]))
+    ref_fields, ref_static = _jax_arrays(jax_build(jscene, jcfg))
+    assert ds.n_lights == 50 and tuple(ds.light_pack.shape) == (56, 8)
+    assert not ds.light_pack[50:].any()
+    for name in ARRAY_FIELDS:
+        np.testing.assert_array_equal(getattr(ds, name).numpy(), ref_fields[name], err_msg=name)
+    for name in STATIC_FIELDS:
+        assert getattr(ds, name) == ref_static[name], name
+
+
+# bench.py:37-59 feature sets, at bench.py's tile size
+PLAN_CONFIGS = {
+    "default": dict(),
+    "anti_aliasing": dict(anti_aliasing_rotation_scale=True, anti_aliasing_randomness=True),
+    "soft_shadows": dict(soft_shadows=True),
+    "realistic": REALISTIC,
+    "extreme": dict(REALISTIC, anti_aliasing_rotation_scale=True,
+                    anti_aliasing_randomness=True, extreme_quality=True),
+}
+
+
+@pytest.mark.parametrize("config", sorted(PLAN_CONFIGS))
+def test_plan_frame_equals_jax(config):
+    """Tile layout, AA offsets and weights of the 1080p frame, bit-equal."""
+    from hslu_i.ba_raytracing.f2501_raytracer_tpu.renderer import plan_frame as jax_plan
+    from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.renderer import plan_frame
+
+    kw = dict(width=1920, height=1080, tile_rays=131072, **PLAN_CONFIGS[config])
+    got, ref = plan_frame(RenderConfig(**kw)), jax_plan(JaxConfig(**kw))
+    for name in ("order", "offsets", "weights"):
+        a, b = getattr(got, name), getattr(ref, name)
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    assert (got.pix_per_tile, got.n_tiles) == (ref.pix_per_tile, ref.n_tiles)
+    if config == "anti_aliasing":  # 9 deduped samples: 143 tiles of 131067 rays
+        assert (got.aa, got.n_tiles, got.pix_per_tile * got.aa) == (9, 143, 131067)
+    elif config in ("default", "soft_shadows", "realistic"):
+        assert (got.aa, got.n_tiles, got.pix_per_tile) == (1, 16, 131072)
