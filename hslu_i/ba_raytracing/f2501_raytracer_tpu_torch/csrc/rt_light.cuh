@@ -21,6 +21,7 @@
 #pragma once
 
 #include "rt_common.cuh"
+#include "rt_occlude.cuh"  // Occl, occl_tri, occl_pack, add_part
 
 // The scene tables a shading kernel reads. Light rows: [pos3 | color3 |
 // intensity | pad]; sphere rows (16 floats): [c3 | r^2 | ior | opacity |
@@ -53,39 +54,6 @@ __device__ __forceinline__ Tables rt_stage_tables(const ShadeScene& sc, bool sta
     smem[i] = i < nl ? sc.lights[i] : (i < nl + ns ? sc.sph[i - nl] : sc.trb[i - nl - ns]);
   __syncthreads();
   return Tables{smem, smem + nl, smem + nl + ns};
-}
-
-struct Occl {
-  float dec, fr, fg, fb;
-  bool opq;
-};
-
-// Shadow accumulators of one triangle row for the shadow ray (so, ld, maxd)
-__device__ __forceinline__ void occl_tri(const float* __restrict__ w, float sox,
-                                         float soy, float soz, float ldx, float ldy,
-                                         float ldz, float maxd, bool backface,
-                                         bool trans_section, Occl* acc) {
-  float t;
-  bool valid = rt_tri_test(w, sox, soy, soz, ldx, ldy, ldz, &t);
-  const bool httr = w[14] != 0.0f;
-  const float cos_nv = -rt_dot_normal(w, ldx, ldy, ldz);
-  if (backface) valid = valid && ((-cos_nv < 0.75f) || httr);
-  if (!(valid && t <= maxd)) return;
-  float io = 0.0f;  // all-opaque rows: every hit decrements opacity fully
-  if (trans_section && httr) io = w[19] * rt_shadow_tr_red(cos_nv, w[18], w[20], w[21], true);
-  acc->dec += 1.0f - io;
-  acc->opq = acc->opq || !httr;
-  acc->fr += w[22];
-  acc->fg += w[23];
-  acc->fb += w[24];
-}
-
-__device__ __forceinline__ void add_part(Occl* tot, const Occl& part) {
-  tot->dec += part.dec;
-  tot->fr += part.fr;
-  tot->fg += part.fg;
-  tot->fb += part.fb;
-  tot->opq = tot->opq || part.opq;
 }
 
 // Full shadow scan for one light; returns the totals (opq set => the rest
@@ -143,13 +111,9 @@ __device__ Occl rt_shadow_scan(const ShadeScene& sc, const Tables& tb, float sox
   const float ix = 1.0f / ldx, iy = 1.0f / ldy, iz = 1.0f / ldz;
   for (int b = 0; b < sc.nb; ++b) {
     if (!rt_gate(sc.blk_aabb + b * 8, sox, soy, soz, ix, iy, iz, maxd)) continue;
-    const float* blk = sc.blk + (size_t)b * sc.B * 32;
-    const bool trans = b < sc.n_trans_blocks;
-    Occl part = {0.0f, 0.0f, 0.0f, 0.0f, false};
-    for (int c = 0; c < sc.B && !part.opq; ++c)
-      occl_tri(blk + c * 32, sox, soy, soz, ldx, ldy, ldz, maxd, bf, trans, &part);
-    add_part(&tot, part);
-    if (tot.opq) return tot;
+    if (occl_pack(sc.blk + (size_t)b * sc.B * 32, sc.B, sox, soy, soz, ldx, ldy, ldz, maxd, bf,
+                  b < sc.n_trans_blocks, &tot))
+      return tot;
   }
   return tot;
 }

@@ -6,11 +6,15 @@ precomputed Woop transforms (scene/device.py); nearest-hit selection is a
 running (t, index) min (ref raytracing/raytracer.rs:162-220 `cast_ray`,
 :24-106 `has_any_intersection`).
 
-`cast_rays` sends the triangle scan through `ops/kernels.py::cast_triangles`
-(a CUDA kernel on a CUDA tensor, the plain twin built from the functions of
-this module on a CPU tensor); the sphere nearest-hit and the material row
-gather stay plain PyTorch. The occlusion functions are plain PyTorch only:
-they back the lighting twin (`ops/shading.py`).
+`cast_rays` and `occlude_rays` send the triangle scan through the kernels of
+`ops/kernels.py` (a CUDA kernel on a CUDA tensor, the plain twin built from
+the functions of this module on a CPU tensor): `cast_triangles` /
+`occlude_triangles` for a resident scene, `cast_triangles_stream` /
+`occlude_triangles_stream` for a scene past `cfg.stream_triangles`
+(`scene.streaming`), where the big-primitive pack is scanned in plain
+PyTorch beside the spheres. The sphere tests and the material row gather
+are plain PyTorch on every path. `occlude_packs` is plain PyTorch only: it
+backs the twin of the fused light kernels (`ops/shading.py::light_sums`).
 
 Semantics preserved exactly (these define the image):
 * sphere root selection prefers the nearest non-negative t (sphere.rs:108-129)
@@ -182,20 +186,33 @@ def _pack_nearest(pack, o4, d, backface_culling):
 def cast_rays(scene: DeviceScene, o, d, backface_culling: bool = False) -> Hit:
     """Nearest-hit cast of R rays (ref raytracer.rs:162-220). `d` must be
     normalized (Ray::new normalizes, ray.rs:54)."""
-    from .kernels import cast_triangles
+    from .kernels import cast_triangles, cast_triangles_stream
 
     S = scene.sphere_slots
     best_t, best_idx = _sphere_nearest(scene, o, d, backface_culling)
 
-    # triangle scan in the kernel's local index space: big primitive p -> p,
-    # Morton slot s -> P_pad + s (JAX intersect.py:281-300)
-    tt, tidx = cast_triangles(
-        scene.trb_pack, scene.tri_cast_pack, scene.tri_aabb, scene.tri_saabb,
-        o, d, backface_culling=backface_culling, sb_sizes=scene.sb_sizes,
-    )
+    if scene.streaming:
+        # big primitives in plain ops, then the streamed Morton-block scan,
+        # which returns local slots (JAX intersect.py:253-280)
+        bt, bidx = _pack_nearest(scene.trb_pack, _homogeneous(o), d, backface_culling)
+        closer = bt < best_t
+        best_t = torch.where(closer, bt, best_t)
+        best_idx = torch.where(closer, S + bidx, best_idx)
+        tt, tidx = cast_triangles_stream(
+            scene.tri_cast_pack, scene.tri_aabb, o, d, backface_culling=backface_culling,
+        )
+        tri_base = S + scene.n_bigtris
+    else:
+        # triangle scan in the kernel's local index space: big primitive
+        # p -> p, Morton slot s -> P_pad + s (JAX intersect.py:281-300)
+        tt, tidx = cast_triangles(
+            scene.trb_pack, scene.tri_cast_pack, scene.tri_aabb, scene.tri_saabb,
+            o, d, backface_culling=backface_culling, sb_sizes=scene.sb_sizes,
+        )
+        tri_base = S
     closer = tt < best_t
     best_t = torch.where(closer, tt, best_t)
-    best_idx = torch.where(closer, S + tidx.long(), best_idx)
+    best_idx = torch.where(closer, tri_base + tidx.long(), best_idx)
 
     valid = torch.isfinite(best_t)
     t_safe = _where0(valid, best_t)
@@ -295,19 +312,13 @@ def _pack_occlusion(pack, o4, d, max_distance, backface_culling):
     return dec, opq, fsub
 
 
-def occlude_rays(sph_pack, trb_pack, tri_blk_pack, o, d, max_distance,
+def occlude_packs(sph_pack, trb_pack, tri_blk_pack, o, d, max_distance,
                   backface_culling: bool = False):
     """Shadow/occlusion test (ref raytracer.rs:24-106), plain PyTorch, over
-    the kernel-packed scene tables (the JAX `occlude_rays` takes the whole
-    scene): spheres, big primitives, then the Morton blocks in
-    `tri_blk_pack` order (the order the shading kernel scans them in).
-
-    Returns (completely_occluded (R,), combined_opacity (R,), color_filter (R,3)).
-    completely_occluded reduces to "any opaque valid hit within distance";
-    combined_opacity = max(0, 1 - Σ (1 - opacity_i·T_i)) over occluders;
-    color_filter = 1 - Σ absorption_i over occluders (can go negative, as in
-    the reference). The backface-cull quirk applies to shadow rays too.
-    """
+    the kernel-packed scene tables: spheres, big primitives, then the Morton
+    blocks in `tri_blk_pack` order (the order the fused light kernels scan
+    them in). The twin of those kernels' shadow scan; returns what
+    `occlude_rays` returns."""
     dec, opq, fsub = _sphere_occlusion(sph_pack, o, d, max_distance, backface_culling)
     o4 = _homogeneous(o)
     for pack in [trb_pack, *tri_blk_pack]:
@@ -315,7 +326,49 @@ def occlude_rays(sph_pack, trb_pack, tri_blk_pack, o, d, max_distance,
         dec = dec + pdec
         opq = opq | popq
         fsub = fsub + pfsub
+    return _occlusion_result(dec, opq, fsub)
+
+
+def _occlusion_result(dec, opq, fsub):
     combined_opacity = torch.clamp(1.0 - dec, 0.0, 1.0)
     color_filter = 1.0 - fsub
     return opq, combined_opacity, color_filter
 
+
+def occlude_rays(scene: DeviceScene, o, d, max_distance, backface_culling: bool = False):
+    """Shadow/occlusion test of R rays against the scene (ref
+    raytracer.rs:24-106; JAX `occlude_rays`): spheres in plain PyTorch, the
+    triangles through the `occlude_triangles` kernel, or -- for a streamed
+    scene -- big primitives in plain PyTorch and the Morton blocks through
+    `occlude_triangles_stream`.
+
+    Returns (completely_occluded (R,), combined_opacity (R,), color_filter (R,3)).
+    completely_occluded reduces to "any opaque valid hit within distance";
+    combined_opacity = max(0, 1 - sum(1 - opacity_i * T_i)) over occluders;
+    color_filter = 1 - sum(absorption_i) over occluders (can go negative, as
+    in the reference). The backface-cull quirk applies to shadow rays too.
+    completely_occluded is exact; the other two are specified where it is
+    False (a kernel's scan stops at the first opaque hit, and the lighting
+    reads them only for a light that reaches the point)."""
+    from .kernels import occlude_triangles, occlude_triangles_stream
+
+    dec, opq, fsub = _sphere_occlusion(scene.sph_pack, o, d, max_distance, backface_culling)
+    if scene.streaming:
+        bdec, bopq, bfsub = _pack_occlusion(
+            scene.trb_pack, _homogeneous(o), d, max_distance, backface_culling
+        )
+        dec = dec + bdec
+        opq = opq | bopq
+        fsub = fsub + bfsub
+        tdec, topq, tfsub = occlude_triangles_stream(
+            scene.tri_cast_pack, scene.tri_aabb, o, d, max_distance,
+            backface_culling=backface_culling, block_has_trans=scene.block_has_trans,
+        )
+    else:
+        tdec, topq, tfsub = occlude_triangles(
+            scene.trb_pack, scene.tri_cast_pack, scene.tri_aabb, scene.tri_saabb,
+            o, d, max_distance, backface_culling=backface_culling,
+            bigtri_trans=scene.bigtri_trans, block_has_trans=scene.block_has_trans,
+            sb_sizes=scene.sb_sizes,
+        )
+    return _occlusion_result(dec + tdec, opq | topq, fsub + tfsub)

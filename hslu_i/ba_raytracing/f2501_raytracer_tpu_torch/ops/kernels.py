@@ -1,9 +1,16 @@
 """The port's hand-written CUDA kernels, their wrappers and plain twins.
 
-Four kernels, each replacing one Pallas kernel of the JAX package
+Seven kernels, each replacing one Pallas kernel of the JAX package
 (ops/pallas_kernels.py):
 
-* `cast_triangles`  <- `_cast_kernel` / `pallas_cast_triangles` (every path)
+* `cast_triangles`  <- `_cast_kernel` / `pallas_cast_triangles` (every
+  resident path)
+* `cast_triangles_stream` <- `_cast_stream_kernel` /
+  `pallas_cast_triangles_stream` (the cast of a streamed scene)
+* `occlude_triangles_stream` <- `_occl_stream_kernel` /
+  `pallas_occlude_triangles_stream` (the lighting of a streamed scene)
+* `occlude_triangles` <- `_occlude_kernel` / `pallas_occlude_triangles`
+  (`occlude_rays` on a resident scene)
 * `shade_eval_rows` <- `_shade_eval_kernel(packed_rows=True)` /
   `pallas_shade_eval_rows` (the packed-row pool path)
 * `shade_eval`      <- `_shade_eval_kernel(packed_rows=False)` /
@@ -13,7 +20,8 @@ Four kernels, each replacing one Pallas kernel of the JAX package
 
 Sources are `csrc/*.cu` (CUDA C++ for sm_90a with a plain C interface); the
 three shading kernels share the device code of `rt_light.cuh` and
-`rt_node.cuh`.
+`rt_node.cuh`, and they and the two occlusion kernels that of
+`rt_occlude.cuh`.
 They are built with nvcc on first use into `build/torch_kernels/` at the
 repository root (keyed by a hash of the sources and flags; one nvcc per
 source, all started together) and loaded with ctypes. Each kernel launches
@@ -38,7 +46,7 @@ import time
 
 import torch
 
-from .intersect import BIG_IDX, _homogeneous, _pack_nearest
+from .intersect import BIG_IDX, _homogeneous, _pack_nearest, _pack_occlusion
 from .shading import ambient, light_sums
 from .trace import POOL_COLS, _node_children, _pack_entry
 
@@ -49,11 +57,14 @@ BUILD_DIR = os.path.join(
 )
 KERNEL_SOURCES = {
     "cast_triangles": "cast_triangles.cu",
+    "cast_triangles_stream": "cast_triangles_stream.cu",
+    "occlude_triangles_stream": "occlude_triangles_stream.cu",
+    "occlude_triangles": "occlude_triangles.cu",
     "shade_eval_rows": "shade_eval_rows.cu",
     "shade_eval": "shade_eval.cu",
     "light_shade": "light_shade.cu",
 }
-COMMON_HEADERS = ("rt_common.cuh", "rt_light.cuh", "rt_node.cuh")
+COMMON_HEADERS = ("rt_common.cuh", "rt_occlude.cuh", "rt_light.cuh", "rt_node.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -130,6 +141,16 @@ _SCENE = [_P, _I, _P, _I, _P, _I, _I, _P, _P, _I, _I, _I]
 _ARGTYPES = {
     "cast_triangles": ("rt_cast_triangles", [
         _P, _P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P]),
+    # o, d, R, pack, nb, B, aabb, backface, t, idx, stream
+    "cast_triangles_stream": ("rt_cast_triangles_stream", [
+        _P, _P, _I, _P, _I, _I, _P, _I, _P, _P, _P]),
+    # o, d, maxd, R, pack, nb, B, aabb, block_httr, backface, dec, opq, fsub, stream
+    "occlude_triangles_stream": ("rt_occlude_triangles_stream", [
+        _P, _P, _P, _I, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P]),
+    # o, d, maxd, R, trb, P, bigtri_trans, pack, nb, B, aabb, saabb, sb_start,
+    # nsb, block_httr, backface, dec, opq, fsub, stream
+    "occlude_triangles": ("rt_occlude_triangles", [
+        _P, _P, _P, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P]),
     "shade_eval_rows": ("rt_shade_eval_rows", [
         *_SCENE, *([_P] * 17), _I,  # per-ray fields, R
         _F, _I, _I, _I, _I, _I, _F, _F,  # node constants
@@ -255,6 +276,192 @@ def cast_triangles(trb_pack, tri_cast_pack, tri_aabb, tri_saabb, o, d, *,
         int(bool(backface_culling)), _ptr(t_out), _ptr(idx_out),
     )
     return t_out, idx_out
+
+
+# ---------------------------------------------------------------------------
+# cast_triangles_stream  (TPU: pallas_kernels.py::_cast_stream_kernel, line 473)
+# ---------------------------------------------------------------------------
+
+
+def cast_triangles_stream_plain(tri_cast_pack, o, d, backface_culling=False):
+    """Plain twin of the streamed cast kernel: the JAX plain path's
+    Morton-block nearest hit (`_tri_nearest_xla`) over the blocks of
+    `tri_cast_pack` in order, strict `<` across blocks, in the kernel's
+    index space (slot (b, c) -> b*B + c; miss: +inf, 2^31-1). No AABB gate:
+    the kernel's widened gate never changes the result."""
+    nb, B, _ = tri_cast_pack.shape
+    R = o.shape[0]
+    o4 = _homogeneous(o)
+    best_t = torch.full((R,), float("inf"), dtype=o.dtype, device=o.device)
+    best_idx = torch.full((R,), BIG_IDX, dtype=torch.int64, device=o.device)
+    for b in range(nb):
+        tmin, targ = _pack_nearest(tri_cast_pack[b], o4, d, backface_culling)
+        closer = tmin < best_t
+        best_t = torch.where(closer, tmin, best_t)
+        best_idx = torch.where(closer, b * B + targ, best_idx)
+    return best_t, best_idx.to(torch.int32)
+
+
+def _check_rays(name, o, d, max_distance=None):
+    """Check the per-ray inputs of a cast or occlusion kernel; returns
+    (R, device)."""
+    R = o.shape[0]
+    dev = o.device
+    _check(o, "o", torch.float32, (R, 3), dev)
+    _check(d, "d", torch.float32, (R, 3), dev)
+    if max_distance is not None:
+        _check(max_distance, "max_distance", torch.float32, (R,), dev)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return R, dev
+
+
+def cast_triangles_stream(tri_cast_pack, tri_aabb, o, d, *, backface_culling=False):
+    """Nearest Morton-slot hit of R rays over the blocks of `tri_cast_pack`
+    (nb, B, 32), for scenes past `stream_triangles`: (t (R,) f32, local slot
+    (R,) int32), the port's `pallas_cast_triangles_stream`. The caller folds
+    in spheres and big primitives."""
+    R, dev = _check_rays("cast_triangles_stream", o, d)
+    nb, B, _ = tri_cast_pack.shape
+    _check(tri_cast_pack, "tri_cast_pack", torch.float32, (nb, B, 32), dev)
+    _check(tri_aabb, "tri_aabb", torch.float32, (nb, 8), dev)
+    if dev.type == "cpu":
+        return cast_triangles_stream_plain(tri_cast_pack, o, d, backface_culling)
+    o_soa = o.t().contiguous()  # (3, R): coalesced per-ray loads
+    d_soa = d.t().contiguous()
+    t_out = torch.empty((R,), dtype=torch.float32, device=dev)
+    idx_out = torch.empty((R,), dtype=torch.int32, device=dev)
+    _launch(
+        "cast_triangles_stream", _ptr(o_soa), _ptr(d_soa), R, _ptr(tri_cast_pack), nb, B,
+        _ptr(tri_aabb), int(bool(backface_culling)), _ptr(t_out), _ptr(idx_out),
+    )
+    return t_out, idx_out
+
+
+# ---------------------------------------------------------------------------
+# occlude_triangles_stream  (TPU: pallas_kernels.py::_occl_stream_kernel, line
+# 604) and occlude_triangles  (TPU: pallas_kernels.py::_occlude_kernel, line 964)
+# ---------------------------------------------------------------------------
+
+_httr_cache: dict = {}
+
+
+def _block_httr(block_has_trans, nb, device):
+    """The per-block any-transmissive table (nb,) f32 on the device, all
+    ones for an empty tuple (JAX intersect.py:485-487); cached per scene: a
+    scene past `stream_triangles` has thousands of blocks, and building the
+    table per call would cost a host-to-device copy each time."""
+    key = (tuple(block_has_trans), nb, str(device))
+    if key not in _httr_cache:
+        flags = [float(bool(f)) for f in block_has_trans] or [1.0] * nb
+        if len(flags) != nb:
+            raise ValueError(f"block_has_trans has {len(flags)} entries for {nb} blocks")
+        _httr_cache[key] = torch.tensor(flags, dtype=torch.float32, device=device)
+    return _httr_cache[key]
+
+
+def _occlude_packs_plain(packs, o, d, max_distance, backface_culling):
+    R = o.shape[0]
+    o4 = _homogeneous(o)
+    dec = torch.zeros((R,), dtype=o.dtype, device=o.device)
+    opq = torch.zeros((R,), dtype=torch.bool, device=o.device)
+    fsub = torch.zeros((R, 3), dtype=o.dtype, device=o.device)
+    for pack in packs:
+        pdec, popq, pfsub = _pack_occlusion(pack, o4, d, max_distance, backface_culling)
+        dec = dec + pdec
+        opq = opq | popq
+        fsub = fsub + pfsub
+    return dec, opq, fsub
+
+
+def occlude_triangles_stream_plain(tri_cast_pack, o, d, max_distance,
+                                   backface_culling=False):
+    """Plain twin of the streamed occlusion kernel: one `_pack_occlusion`
+    (a block of the JAX `_tri_occlusion_xla`) per Morton block of
+    `tri_cast_pack` in order. No gate, no per-block Fresnel skip and no
+    early exit: it scans everything, so its sums are also defined for
+    occluded rays."""
+    return _occlude_packs_plain(tri_cast_pack, o, d, max_distance, backface_culling)
+
+
+def occlude_triangles_plain(trb_pack, tri_cast_pack, o, d, max_distance,
+                            backface_culling=False):
+    """Plain twin of the resident occlusion kernel: the big-primitive pack
+    first (`_bigtri_occlusion_xla`), then every Morton block in order."""
+    return _occlude_packs_plain([trb_pack, *tri_cast_pack], o, d, max_distance,
+                                backface_culling)
+
+
+def _occlusion_outputs(R, dev):
+    return (torch.empty((R,), dtype=torch.float32, device=dev),
+            torch.empty((R,), dtype=torch.bool, device=dev),
+            torch.empty((R, 3), dtype=torch.float32, device=dev))
+
+
+def occlude_triangles_stream(tri_cast_pack, tri_aabb, o, d, max_distance, *,
+                             backface_culling=False, block_has_trans=()):
+    """Shadow sums of R rays over the Morton blocks of `tri_cast_pack`, for
+    scenes past `stream_triangles`, the port's
+    `pallas_occlude_triangles_stream`: (opacity_decrement_sum (R,) f32,
+    any_opaque (R,) bool, filter_sub (R,3) f32) over the hits with
+    t <= max_distance. `block_has_trans`: the scene's per-block
+    any-transmissive flags (empty: every block runs the shadow Fresnel).
+    The caller folds in spheres and big primitives.
+
+    `any_opaque` is exact. The two sums are specified where `any_opaque` is
+    False: the kernel stops a ray's scan at its first opaque hit, the twin
+    scans on, and no caller reads the sums of an occluded ray."""
+    R, dev = _check_rays("occlude_triangles_stream", o, d, max_distance)
+    nb, B, _ = tri_cast_pack.shape
+    _check(tri_cast_pack, "tri_cast_pack", torch.float32, (nb, B, 32), dev)
+    _check(tri_aabb, "tri_aabb", torch.float32, (nb, 8), dev)
+    if dev.type == "cpu":
+        return occlude_triangles_stream_plain(tri_cast_pack, o, d, max_distance,
+                                              backface_culling)
+    httr = _block_httr(block_has_trans, nb, dev)
+    o_soa = o.t().contiguous()
+    d_soa = d.t().contiguous()
+    dec, opq, fsub = _occlusion_outputs(R, dev)
+    _launch(
+        "occlude_triangles_stream", _ptr(o_soa), _ptr(d_soa), _ptr(max_distance), R,
+        _ptr(tri_cast_pack), nb, B, _ptr(tri_aabb), _ptr(httr),
+        int(bool(backface_culling)), _ptr(dec), _ptr(opq), _ptr(fsub),
+    )
+    return dec, opq, fsub
+
+
+def occlude_triangles(trb_pack, tri_cast_pack, tri_aabb, tri_saabb, o, d, max_distance,
+                      *, backface_culling=False, bigtri_trans=True, block_has_trans=(),
+                      sb_sizes=()):
+    """Shadow sums of R rays over the big-primitive pack and the Morton
+    blocks of a resident scene, the port's `pallas_occlude_triangles`:
+    returns what `occlude_triangles_stream` returns, under the same
+    contract for occluded rays. `bigtri_trans`: whether any big primitive
+    is transmissive; `sb_sizes`: the superblock partition under
+    `tri_saabb`. The caller folds in the spheres."""
+    R, dev = _check_rays("occlude_triangles", o, d, max_distance)
+    P = trb_pack.shape[0]
+    nb, B, _ = tri_cast_pack.shape
+    nsb = len(sb_sizes) or nb
+    _check(trb_pack, "trb_pack", torch.float32, (P, 32), dev)
+    _check(tri_cast_pack, "tri_cast_pack", torch.float32, (nb, B, 32), dev)
+    _check(tri_aabb, "tri_aabb", torch.float32, (nb, 8), dev)
+    _check(tri_saabb, "tri_saabb", torch.float32, (len(sb_sizes) or tri_saabb.shape[0], 8), dev)
+    if dev.type == "cpu":
+        return occlude_triangles_plain(trb_pack, tri_cast_pack, o, d, max_distance,
+                                       backface_culling)
+    httr = _block_httr(block_has_trans, nb, dev)
+    sb = _sb_start(sb_sizes, nb, dev)
+    o_soa = o.t().contiguous()
+    d_soa = d.t().contiguous()
+    dec, opq, fsub = _occlusion_outputs(R, dev)
+    _launch(
+        "occlude_triangles", _ptr(o_soa), _ptr(d_soa), _ptr(max_distance), R,
+        _ptr(trb_pack), P, int(bool(bigtri_trans)), _ptr(tri_cast_pack), nb, B,
+        _ptr(tri_aabb), _ptr(tri_saabb), _ptr(sb), nsb, _ptr(httr),
+        int(bool(backface_culling)), _ptr(dec), _ptr(opq), _ptr(fsub),
+    )
+    return dec, opq, fsub
 
 
 # ---------------------------------------------------------------------------

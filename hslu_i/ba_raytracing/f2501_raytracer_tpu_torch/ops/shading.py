@@ -18,7 +18,10 @@ these constants and asymmetries define the image and must not be "fixed":
 `calculate_lighting` sends the light sums through the `light_shade` kernel
 (ops/kernels.py) and adds ambient outside it, as the JAX package does; the
 node kernels (`shade_eval`, `shade_eval_rows`) run the same sums inside.
-`light_sums` here is the plain twins' lighting part.
+`light_sums` here is the plain twins' lighting part. For a streamed scene
+`calculate_lighting` runs the same light loop in plain PyTorch with the
+shadow rays of each light chunk sent through `occlude_rays` (the
+`occlude_triangles_stream` kernel), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import torch
 
 from ..config import RenderConfig
 from ..scene.device import DeviceScene
-from .intersect import Hit, _where0, occlude_rays, pow2, pow5
+from .intersect import Hit, _where0, occlude_packs, occlude_rays, pow2, pow5
 from .vecmath import F32_EPSILON, dot, normalized, reflected
 
 
@@ -70,6 +73,21 @@ def light_sums(light_pack, n_lights: int, sph_pack, trb_pack, tri_blk_pack,
     (ref raytracer_renderer.rs:731-874), from the kernel-packed scene
     tables; the plain twin of the `light_shade` kernel
     (`pallas_light_shade`). Returns (direct_rgb, specular_rgb), each (R, 3)."""
+
+    def occlude(o, d, max_distance):
+        return occlude_packs(sph_pack, trb_pack, tri_blk_pack, o, d, max_distance,
+                             backface_culling)
+
+    return _light_loop(light_pack, n_lights, occlude, point, normal, view_dir, color,
+                       shininess, valid, epsilon_distance)
+
+
+def _light_loop(light_pack, n_lights: int, occlude, point, normal, view_dir, color,
+                shininess, valid, epsilon_distance: float):
+    """The light loop of the plain path (JAX shading.py:109-205): lights in
+    chunks of C, one `occlude(o, d, max_distance)` call per chunk over the
+    R*C light-major shadow rays, the light math in plain PyTorch. Returns
+    (direct_rgb, specular_rgb) without ambient."""
     R = point.shape[0]
     material_color = color
 
@@ -97,12 +115,8 @@ def light_sums(light_pack, n_lights: int, sph_pack, trb_pack, tri_blk_pack,
         delta = lpos[:, None, :] - shadow_origin
         max_dist = torch.sqrt(dot(delta, delta))  # (C,R)
 
-        occluded, combined_opacity, color_filter = occlude_rays(
-            sph_pack, trb_pack, tri_blk_pack,
-            shadow_origin.reshape(-1, 3),
-            light_dir.reshape(-1, 3),
-            max_dist.reshape(-1),
-            backface_culling,
+        occluded, combined_opacity, color_filter = occlude(
+            shadow_origin.reshape(-1, 3), light_dir.reshape(-1, 3), max_dist.reshape(-1)
         )
         occluded = occluded.reshape(c, R)
         combined_opacity = combined_opacity.reshape(c, R)
@@ -175,10 +189,21 @@ def ambient(color, valid):
 def calculate_lighting(scene: DeviceScene, cfg: RenderConfig, hit: Hit, view_dir,
                        epsilon_distance: float):
     """Direct + specular lighting at a hit wavefront
-    (ref raytracer_renderer.rs:731-874) through the `light_shade` kernel,
-    ambient added outside it. Returns (direct_rgb incl. ambient,
-    specular_rgb)."""
+    (ref raytracer_renderer.rs:731-874), ambient added outside the sums:
+    through the `light_shade` kernel, or for a streamed scene through the
+    plain light loop with `occlude_rays` per light chunk (JAX
+    shading.py:77). Returns (direct_rgb incl. ambient, specular_rgb)."""
     from .kernels import light_shade
+
+    if scene.streaming:
+        def occlude(o, d, max_distance):
+            return occlude_rays(scene, o, d, max_distance, cfg.backface_culling)
+
+        direct, spec = _light_loop(
+            scene.light_pack, scene.n_lights, occlude, hit.point, hit.normal, view_dir,
+            hit.color, hit.shininess, hit.valid, epsilon_distance,
+        )
+        return ambient(hit.color, hit.valid) + direct, spec
 
     direct, spec = light_shade(
         scene.light_pack, scene.sph_pack, scene.trb_pack, scene.tri_blk_pack,

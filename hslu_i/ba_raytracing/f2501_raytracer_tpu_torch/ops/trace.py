@@ -20,6 +20,13 @@ in the JAX package:
 * configs without reflections or refractions: the primary node alone, lit
   through `light_shade` (`calculate_lighting`).
 
+A streamed scene (`scene.streaming`, past `cfg.stream_triangles`) takes the
+same three paths with the plain node: the cast through
+`cast_triangles_stream`, the lighting through `calculate_lighting`'s light
+loop over `occlude_rays` (`occlude_triangles_stream`), the children in plain
+PyTorch (`_node_children`); the pool then appends per-field children
+(`_pack_entry`), never the packed rows of `shade_eval_rows`.
+
 Depth-budget semantics copied exactly (they shape the image):
 * budget -1 encodes the reference's `None` (top level); the first reflection
   child then gets RAYTRACE_REFLECTION_MAX_DEPTH, the first refraction child
@@ -34,8 +41,8 @@ Depth-budget semantics copied exactly (they shape the image):
   (raytracer_renderer.rs:711-728) -- tracked via the `from_refl` flag
 
 Not ported yet (they raise NotImplementedError; ROADMAP.md Queue 1):
-packet_mode, resort_secondary, the gather/unique stage modes,
-commit_splits > 1 and streamed scenes.
+packet_mode, resort_secondary, the gather/unique stage modes and
+commit_splits > 1.
 """
 
 from __future__ import annotations
@@ -219,9 +226,11 @@ def _node_kw(scene, cfg: RenderConfig, eps_dist):
 def _eval_node(scene, cfg: RenderConfig, eps_dist, o, d, ior, weight, budget,
                from_refl, active):
     """Evaluate one shading-tree node for the whole wavefront (JAX
-    `_eval_node`, non-packet): with reflections or refractions through the
-    fused `shade_eval` kernel (JAX `_eval_node_fused`), else lit through
-    `calculate_lighting` (the `light_shade` kernel) with no children.
+    `_eval_node`, non-packet): with reflections or refractions on a resident
+    scene through the fused `shade_eval` kernel (JAX `_eval_node_fused`);
+    else the plain node (JAX trace.py:93-219): lit through
+    `calculate_lighting` (the `light_shade` kernel, or for a streamed scene
+    the light loop over `occlude_rays`), children from `_node_children`.
 
     Returns (contribution (R,3), primary_hit_valid (R,), refl_push, refr_push);
     a push is a dict of child fields + `mask`, or None for a disabled child
@@ -229,19 +238,20 @@ def _eval_node(scene, cfg: RenderConfig, eps_dist, o, d, ior, weight, budget,
     if cfg.packet_mode:
         raise NotImplementedError("packet_mode " + _NOT_IN_SLICE)
     hit, hval, point, d = _cast_active(scene, cfg, o, d, active)
-    if cfg.reflections or cfg.refractions:
+    if (cfg.reflections or cfg.refractions) and not scene.streaming:
         return _eval_node_fused(scene, cfg, eps_dist, hit, hval, point, d, ior,
                                 weight, budget, from_refl)
     direct, spec = calculate_lighting(
         scene, cfg, dataclasses.replace(hit, valid=hval, point=point), d, eps_dist
     )
-    contrib, _, _ = _node_children(
+    contrib, refl_push, refr_push = _node_children(
         point, hit.normal, hit.color, hit.metallic, hit.has_trans, hit.ior,
         hit.opacity, hit.boost, hit.t, hval, direct, spec, d, ior, weight,
-        budget, from_refl, eps_dist, reflections=False, refractions=False,
-        refl_max=0, refr_max=0, weight_cutoff=0.0,
+        budget, from_refl, eps_dist, reflections=cfg.reflections,
+        refractions=cfg.refractions, refl_max=int(cfg.reflection_max_depth),
+        refr_max=int(cfg.refraction_max_depth), weight_cutoff=float(cfg.weight_cutoff),
     )
-    return contrib, hval, None, None
+    return contrib, hval, refl_push, refr_push
 
 
 def _eval_node_fused(scene, cfg: RenderConfig, eps_dist, hit, hval, point, d, ior,
@@ -295,10 +305,10 @@ def _node_rows(scene, cfg: RenderConfig, eps_dist, o, d, ior, weight, budget,
                from_refl, active, pix):
     """A pool node evaluation as (contrib, hval, rows, masks) in the
     pool-append order [refr, refl]: packed by the kernel
-    (`_eval_node_rows`), or with `packed_stage=False` from the per-field
-    children (`_eval_node`, then `_pack_entry`; JAX trace.py:805-811,
-    866-871, 895-901)."""
-    if cfg.packed_stage:
+    (`_eval_node_rows`), or with `packed_stage=False` or a streamed scene
+    from the per-field children (`_eval_node`, then `_pack_entry`; JAX
+    trace.py:592-595, 805-811, 866-871, 895-901)."""
+    if cfg.packed_stage and not scene.streaming:
         return _eval_node_rows(scene, cfg, eps_dist, o, d, ior, weight, budget,
                                from_refl, active, pix)
     contrib, hval, refl, refr = _eval_node(scene, cfg, eps_dist, o, d, ior, weight,
@@ -521,8 +531,6 @@ def trace_rays(scene: DeviceScene, cfg: RenderConfig, origins, directions,
     pool_path = children and ratio > 1 and R >= cfg.kernel_ray_tile * ratio
     if cfg.packet_mode:
         raise NotImplementedError("packet_mode " + _NOT_IN_SLICE)
-    if scene.streaming:
-        raise NotImplementedError("streamed scenes " + _NOT_IN_SLICE)
     if pool_path and cfg.resort_secondary:
         raise NotImplementedError("resort_secondary " + _NOT_IN_SLICE)
     if pool_path and cfg.stage_mode != "scatter":

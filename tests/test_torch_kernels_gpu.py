@@ -1,5 +1,7 @@
-"""PyTorch port on the card: each CUDA kernel against its plain twin, the
-pool's chunk commit, and small renders against the CPU twins.
+"""PyTorch port on the card: each of the seven CUDA kernels against its plain
+twin (the streamed and occlusion kernels also on NaN and parked rays, rays
+that start on a block's box, max_distance <= 0, and run to run), the pool's
+chunk commit, and small renders against the CPU twins.
 
 Needs an NVIDIA GPU and nvcc; every test carries the `gpu` marker and skips
 from the `cuda` fixture when there is no card. This file imports neither JAX
@@ -10,6 +12,8 @@ runs without the repository's conftest:
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -22,7 +26,8 @@ from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch import (
 )
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.models import build
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops import kernels
-from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops.intersect import cast_rays
+from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.models import triangle_cloud
+from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops.intersect import cast_rays, occlude_rays
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops.trace import AIR, _commit
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.scene.builder import Scene
 
@@ -192,10 +197,158 @@ def test_shade_kernel_matches_twin(cuda):
     assert rfl_m.any() and rfr_m.any()
 
 
+def _cloud_scene(dev, n=20000):
+    """semesterbild plus a cloud of n small triangles, a quarter of it glass,
+    at the 1080p block size: big primitives, superblocks, and Morton blocks
+    with and without transmissive triangles."""
+    cfg = RenderConfig(width=1920, height=1080, scene_backface_culling=True, **REALISTIC)
+    scene = triangle_cloud.build_scene(cfg, n=n, edge_sigma=0.006, glass_share=0.25)
+    ds = build_device_scene(Scene.backface_culling(scene, np.array([0.0, 0.0, 1.0])), cfg,
+                            device=dev)
+    assert len(set(ds.block_has_trans)) == 2 and max(ds.sb_sizes) > 1
+    return cfg, ds
+
+
+def _hard_rays(cfg, ds, dev, n, seed):
+    """Random rays plus the cases a gate can get wrong: rays that start on a
+    face of a block's box and run along it (0 * inf in the slab test), NaN
+    rays, and parked lanes (origin 1e9)."""
+    o, d = _rays(cfg, n, seed)
+    box = ds.tri_aabb.cpu().numpy()
+    k = min(64, box.shape[0])
+    o[:k] = box[:k, 0:3]  # the box's min corner: on three faces at once
+    d[:k] = np.eye(3, dtype=np.float32)[np.arange(k) % 3]  # along an edge
+    o[k:2 * k] = 0.5 * (box[:k, 0:3] + box[:k, 3:6])
+    o[k:2 * k, 1] = box[:k, 4]  # on the max-y face, heading inward-diagonally
+    d[k:2 * k] = np.float32([0.6, 0.0, 0.8])
+    o[2 * k:2 * k + 8] = np.nan
+    d[2 * k + 8:2 * k + 16] = np.nan
+    o[2 * k + 16:2 * k + 32] = 1e9
+    d[2 * k + 16:2 * k + 32] = np.float32([0.0, 0.0, 1.0])
+    return torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+
+
+def _max_distances(n, seed, dev):
+    rng = np.random.default_rng(seed)
+    md = rng.uniform(0.02, 1.5, n).astype(np.float32)
+    md[3::13] = 0.0
+    md[7::29] = -1.0
+    md[11::53] = np.inf
+    md[17::101] = np.nan
+    return torch.from_numpy(md).to(dev)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("path", ["pool", "stack", "unpacked", "default", "soft_shadows"])
+@pytest.mark.parametrize("backface", [False, True])
+def test_cast_stream_kernel_matches_twin(cuda, backface):
+    cfg, ds = _cloud_scene(cuda)
+    o, d = _hard_rays(cfg, ds, cuda, 8192 + 37, 11)
+    kernels.reset_launch_counts()
+    t, idx = kernels.cast_triangles_stream(ds.tri_cast_pack, ds.tri_aabb, o, d,
+                                           backface_culling=backface)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["cast_triangles_stream"] == 1
+    t_ref, idx_ref = kernels.cast_triangles_stream_plain(ds.tri_cast_pack, o, d, backface)
+    # identical index and t: the same operations in the same order, and the
+    # widened gate never culls a block that holds a nearer hit
+    assert torch.equal(idx, idx_ref) and torch.equal(t, t_ref)
+    assert torch.isfinite(t).sum() > 100 and (~torch.isfinite(t)).any()
+    # the scene-level cast adds spheres and big primitives
+    hit = cast_rays(dataclasses.replace(ds, streaming=True), o, d, backface)
+    ref = cast_rays(ds, o, d, backface)
+    assert torch.equal(hit.valid, ref.valid) and torch.equal(hit.t, ref.t)
+    assert torch.equal(hit.obj_idx[hit.valid], ref.obj_idx[ref.valid])
+
+
+def _assert_occlusion(got, ref):
+    dec, opq, fsub = got
+    dec_ref, opq_ref, fsub_ref = ref
+    assert torch.equal(opq, opq_ref)
+    free = ~opq_ref
+    np.testing.assert_allclose(dec[free].cpu().numpy(), dec_ref[free].cpu().numpy(), atol=1e-5)
+    np.testing.assert_allclose(fsub[free].cpu().numpy(), fsub_ref[free].cpu().numpy(), atol=1e-5)
+    assert opq.any() and free.any() and (dec[free] > 0).any()
+    part = dec[free]
+    assert ((part > 0) & (part != part.round())).any()  # transmissive hits
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backface", [False, True])
+def test_occlude_stream_kernel_matches_twin(cuda, backface):
+    cfg, ds = _cloud_scene(cuda)
+    o, d = _hard_rays(cfg, ds, cuda, 8192 + 37, 12)
+    md = _max_distances(o.shape[0], 13, cuda)
+    args = (ds.tri_cast_pack, ds.tri_aabb, o, d, md)
+    kw = dict(backface_culling=backface, block_has_trans=ds.block_has_trans)
+    kernels.reset_launch_counts()
+    got = kernels.occlude_triangles_stream(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["occlude_triangles_stream"] == 1
+    _assert_occlusion(got, kernels.occlude_triangles_stream_plain(ds.tri_cast_pack, o, d, md,
+                                                                  backface))
+    dead = ~(md > 0)
+    assert not got[1][dead].any() and not got[0][dead].any() and not got[2][dead].any()
+    # the same bits on every run: no atomics, one thread per ray
+    for _ in range(2):
+        again = kernels.occlude_triangles_stream(*args, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # an empty flag tuple runs the shadow Fresnel on every block: same sums
+    every = kernels.occlude_triangles_stream(*args, backface_culling=backface)
+    assert all(torch.equal(a, b) for a, b in zip(got, every))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene", ["semesterbild", "cloud"])
+@pytest.mark.parametrize("backface", [False, True])
+def test_occlude_kernel_matches_twin(cuda, scene, backface):
+    cfg, ds = _scene(cuda) if scene == "semesterbild" else _cloud_scene(cuda)
+    o, d = _hard_rays(cfg, ds, cuda, 8192 + 37, 14)
+    md = _max_distances(o.shape[0], 15, cuda)
+    args = (ds.trb_pack, ds.tri_cast_pack, ds.tri_aabb, ds.tri_saabb, o, d, md)
+    kw = dict(backface_culling=backface, bigtri_trans=ds.bigtri_trans,
+              block_has_trans=ds.block_has_trans, sb_sizes=ds.sb_sizes)
+    kernels.reset_launch_counts()
+    got = kernels.occlude_triangles(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["occlude_triangles"] == 1
+    _assert_occlusion(got, kernels.occlude_triangles_plain(ds.trb_pack, ds.tri_cast_pack, o, d,
+                                                           md, backface))
+    for _ in range(2):
+        again = kernels.occlude_triangles(*args, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("streaming", [False, True], ids=["resident", "streamed"])
+def test_occlude_rays_card_matches_cpu(cuda, streaming):
+    """The scene-level entry point on the card (kernels) against the CPU
+    (twins) on the same rays."""
+    cfg, ds = _cloud_scene(cuda, n=4000)
+    ds = dataclasses.replace(ds, streaming=streaming)
+    cpu = dataclasses.replace(ds, **{
+        f.name: getattr(ds, f.name).cpu() for f in dataclasses.fields(ds)
+        if isinstance(getattr(ds, f.name), torch.Tensor)})
+    o, d = _hard_rays(cfg, ds, cuda, 2048, 16)
+    md = _max_distances(o.shape[0], 17, cuda)
+    kernels.reset_launch_counts()
+    got = occlude_rays(ds, o, d, md, True)
+    name = "occlude_triangles_stream" if streaming else "occlude_triangles"
+    assert {k for k, v in kernels.LAUNCHES.items() if v} == {name}
+    ref = occlude_rays(cpu, o.cpu(), d.cpu(), md.cpu(), True)
+    assert sum(kernels.LAUNCHES.values()) == 1
+    opq = ref[0].numpy()
+    np.testing.assert_array_equal(got[0].cpu().numpy(), opq)
+    np.testing.assert_allclose(got[1].cpu().numpy()[~opq], ref[1].numpy()[~opq], atol=1e-5)
+    np.testing.assert_allclose(got[2].cpu().numpy()[~opq], ref[2].numpy()[~opq], atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["pool", "stack", "unpacked", "default", "soft_shadows",
+                                  "streamed", "streamed_stack"])
 def test_small_render_matches_cpu_twins(cuda, path):
     features = {
+        "streamed": dict(REALISTIC, stream_triangles=1),
+        "streamed_stack": dict(REALISTIC, compaction_ratio=1, stream_triangles=1),
         "pool": REALISTIC,
         "stack": dict(REALISTIC, compaction_ratio=1),
         "unpacked": dict(REALISTIC, packed_stage=False),

@@ -104,8 +104,7 @@ def test_wrappers_check_inputs_and_count_only_kernel_launches():
     t, idx = kernels.cast_triangles(ds.trb_pack, ds.tri_cast_pack, ds.tri_aabb,
                                     ds.tri_saabb, o, d, sb_sizes=ds.sb_sizes)
     assert t.dtype == torch.float32 and idx.dtype == torch.int32 and t.shape == (64,)
-    assert kernels.LAUNCHES == {"cast_triangles": 0, "shade_eval_rows": 0,
-                                "shade_eval": 0, "light_shade": 0}
+    assert kernels.LAUNCHES == {name: 0 for name in kernels.KERNEL_SOURCES}
     with pytest.raises(TypeError):
         kernels.cast_triangles(ds.trb_pack, ds.tri_cast_pack, ds.tri_aabb,
                                ds.tri_saabb, o.double(), d, sb_sizes=ds.sb_sizes)
@@ -140,8 +139,10 @@ def test_kernel_build_is_keyed_by_sources(tmp_path, monkeypatch):
     """Each kernel builds from the package's csrc/ into the ignored build
     directory, under a name that changes with its source, header or flags."""
     assert sorted(kernels.KERNEL_SOURCES) == [
-        "cast_triangles", "light_shade", "shade_eval", "shade_eval_rows"]
-    assert set(kernels.COMMON_HEADERS) == {"rt_common.cuh", "rt_light.cuh", "rt_node.cuh"}
+        "cast_triangles", "cast_triangles_stream", "light_shade", "occlude_triangles",
+        "occlude_triangles_stream", "shade_eval", "shade_eval_rows"]
+    assert set(kernels.COMMON_HEADERS) == {
+        "rt_common.cuh", "rt_occlude.cuh", "rt_light.cuh", "rt_node.cuh"}
     for f in kernels.COMMON_HEADERS:
         assert os.path.exists(os.path.join(kernels.CSRC, f))
     paths = {}
@@ -164,6 +165,68 @@ def test_kernel_build_is_keyed_by_sources(tmp_path, monkeypatch):
     assert not any("fast_math" in f for f in kernels.NVCC_FLAGS)
     with open(os.path.join(ROOT, ".gitignore")) as fh:
         assert "build/torch_kernels/" in fh.read().split()
+
+
+def test_seven_kernels_each_with_source_wrapper_and_twin():
+    """One CUDA source, one C entry point, one wrapper, one launch count and
+    one plain twin per TPU kernel; every file of csrc/ is a kernel's source
+    or a header of the build hash, and includes nothing else."""
+    import re
+
+    assert len(kernels.KERNEL_SOURCES) == 7
+    assert set(kernels.LAUNCHES) == set(kernels._ARGTYPES) == set(kernels.KERNEL_SOURCES)
+    assert set(os.listdir(kernels.CSRC)) == (
+        set(kernels.KERNEL_SOURCES.values()) | set(kernels.COMMON_HEADERS))
+    for name, src in kernels.KERNEL_SOURCES.items():
+        assert callable(getattr(kernels, name)), name
+        assert callable(getattr(kernels, name + "_plain")), name
+        symbol, argtypes = kernels._ARGTYPES[name]
+        with open(os.path.join(kernels.CSRC, src)) as fh:
+            text = fh.read()
+        entry = re.search(r'extern "C" int (\w+)\(([^)]*)\)', text)
+        assert entry and entry.group(1) == symbol == "rt_" + name, name
+        assert len(entry.group(2).split(",")) == len(argtypes), name
+        assert "pallas_kernels.py" in text and "sm_90a" in text, name
+        assert "cudaGetLastError" in text, name
+    for f in os.listdir(kernels.CSRC):
+        with open(os.path.join(kernels.CSRC, f)) as fh:
+            text = fh.read()
+        for inc in re.findall(r'#include "([^"]+)"', text):
+            assert inc in kernels.COMMON_HEADERS, (f, inc)
+        assert "atomicAdd" not in text, f  # f32 sums keep one order
+
+
+def test_sources_name_no_jax():
+    """Neither the package nor chip_smoke.py imports JAX or the JAX package
+    (a static scan beside the import check above)."""
+    import re
+
+    pkg = os.path.join(ROOT, "hslu_i", "ba_raytracing", "f2501_raytracer_tpu_torch")
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _, names in os.walk(pkg):
+        files += [os.path.join(base, n) for n in names if n.endswith(".py")]
+    bad = re.compile(r"^\s*(import jax|from jax|import jaxlib|from jaxlib"
+                     r"|from hslu_i\.ba_raytracing\.f2501_raytracer_tpu[ .]"
+                     r"|import hslu_i\.ba_raytracing\.f2501_raytracer_tpu[ .\n])", re.M)
+    assert len(files) > 20
+    for f in files:
+        with open(f) as fh:
+            assert not bad.search(fh.read()), f
+
+
+def test_scene_level_wrappers_refuse_other_devices():
+    """A tensor that is neither on the CPU nor on a card reaches neither the
+    twin nor a kernel."""
+    pack = torch.zeros((2, 4, 32), device="meta")
+    box = torch.zeros((2, 8), device="meta")
+    o = torch.zeros((8, 3), device="meta")
+    md = torch.zeros((8,), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernels.cast_triangles_stream(pack, box, o, o)
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernels.occlude_triangles_stream(pack, box, o, o, md)
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernels.occlude_triangles(torch.zeros((8, 32), device="meta"), pack, box, box, o, o, md)
 
 
 def test_gpu_tests_are_marked():

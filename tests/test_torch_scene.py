@@ -100,6 +100,35 @@ def test_device_scene_from_arrays_round_trips():
                                  static, device="cpu")
 
 
+def test_streamed_scene_equals_jax_and_crosses_unchanged():
+    """`stream_triangles` lowered below the scene's triangle slots: both
+    builds set `streaming`, every field stays bit-equal, and the JAX scene
+    carried across as numpy keeps `streaming` and `block_has_trans`."""
+    kw = dict(width=64, height=48, triangle_block=32, stream_triangles=64, **REALISTIC)
+    jcfg = JaxConfig(**kw)
+    ref = jax_build(jax_model("semesterbild", jcfg), jcfg)
+    cfg = RenderConfig(**kw)
+    ds = build_device_scene(build("semesterbild", cfg), cfg, device="cpu")
+    ref_fields, ref_static = _jax_arrays(ref)
+    assert ref.streaming and ds.streaming and ds.n_triangles > cfg.stream_triangles
+    assert len(ds.block_has_trans) == ds.triangle_blocks >= 3
+    carried = device_scene_from_arrays(ref_fields, ref_static, device="cpu")
+    for scene in (ds, carried):
+        for name in ARRAY_FIELDS:
+            np.testing.assert_array_equal(getattr(scene, name).numpy(), ref_fields[name],
+                                          err_msg=name)
+        for name in STATIC_FIELDS:
+            assert getattr(scene, name) == ref_static[name], name
+    # the streamed kernels read the cast-order pack: the planar arrays' values
+    B = ds.tri_block
+    np.testing.assert_array_equal(
+        ds.tri_cast_pack[:, :, 0:12].numpy(), ds.tri_woop.numpy().transpose(0, 2, 1))
+    np.testing.assert_array_equal(ds.tri_cast_pack[:, :, 14].numpy(), ds.tri_httr_f.numpy())
+    np.testing.assert_array_equal(
+        ds.tri_cast_pack[:, :, 22:25].numpy(), ds.tri_absn.numpy().transpose(0, 2, 1))
+    assert ds.tri_cast_pack.shape == (ds.triangle_blocks, B, 32)
+
+
 def test_soft_shadow_light_pack_equals_jax():
     """The soft-shadow light cloud of the 1080p frame: 50 lights in a pack
     padded to 56 rows, every field bit-equal to the JAX build."""
