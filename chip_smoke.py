@@ -4,7 +4,7 @@
 
 Phases (any failure fails the run; nothing is caught; each prints its
 seconds):
-  1. the card's name and power limit; build all four CUDA kernels from
+  1. the card's name and power limit; build all seven CUDA kernels from
      hslu_i/ba_raytracing/f2501_raytracer_tpu_torch/csrc (one nvcc each, in
      parallel) and print the build time and ptxas resource lines;
   2. hold each kernel against its plain PyTorch twin on the card at its
@@ -14,7 +14,17 @@ seconds):
      iteration); light_shade at R = 131072 from a 1080p tile with 5 lights
      (`default`) and 50 lights (`soft_shadows`); shade_eval at R = 131072
      (the first wavefront of a 960x540 stack-path tile). Then the pool's
-     chunk commit three times on the same rows: identical bits;
+     chunk commit three times on the same rows: identical bits. Phase 2b:
+     cast_triangles_stream and occlude_triangles_stream on the synthetic
+     streaming validation scene (200,000 small matte triangles in a 10^3
+     box, R = 32768 random rays, max distance 4, backface culling on; and
+     the same cloud with a quarter of it glass), at the shapes of the
+     streamed frame (the primary node of a 1080p tile: 131072 rays and
+     their 655,360 shadow rays; one pool iteration: 2048 rays and 10,240
+     shadow rays); occlude_triangles on the 655,360 shadow rays of the
+     resident 1080p tile through `occlude_rays(scene, ...)`. Occlusion sums
+     are compared where `opq` is false and must have the same bits on every
+     run;
   3. render the full 1920x1080 `realistic` frame (bench.py's settings, the
      packed-row pool path) through RaytracerRenderer(cfg, device="cuda"):
      warm frame wall time, launch counts (cast_triangles and
@@ -28,7 +38,12 @@ seconds):
      `soft_shadows` (light_shade > 0, shade_eval_rows == 0), the 960x540
      stack-path frame (compaction_ratio 1; shade_eval > 0, shade_eval_rows
      == 0) and a 240x135 `packed_stage=False` frame (shade_eval > 0): warm
-     wall, launches, dropped, valid share, u32 checksum;
+     wall, launches, dropped, valid share, u32 checksum; then the streamed
+     frame: 1920x1080 `realistic` on semesterbild plus a seeded cloud of
+     120,000 small triangles (`streaming` set by the threshold), through
+     cast_triangles_stream and occlude_triangles_stream only: two warm
+     frames with one checksum, pool iterations, the share of primary rays
+     that hit the cloud, and one tile traced with torch.profiler;
   5. small frames of every path on the card and through the CPU twins in
      this process: < 0.5% of pixels may differ by more than 2e-3 in linear
      colour, and `valid` may differ only at knife edges (< 0.5%);
@@ -64,13 +79,21 @@ from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch import (  # noqa: E402
     RaytracerRenderer,
     RenderConfig,
 )
+from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch import build_device_scene  # noqa: E402
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.models import build  # noqa: E402
-from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops import kernels, trace  # noqa: E402
+from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.models.triangle_cloud import (  # noqa: E402
+    add_triangle_cloud,
+)
+from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops import kernels, shading, trace  # noqa: E402
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops.intersect import (  # noqa: E402
     _homogeneous,
     _sphere_ts,
     _tri_block_ts,
+    cast_rays,
+    occlude_packs,
+    occlude_rays,
 )
+from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.scene.builder import Scene  # noqa: E402
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops.vecmath import normalized  # noqa: E402
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.renderer import plan_frame  # noqa: E402
 
@@ -429,6 +452,209 @@ with phase("kernels"):
         f"sorted {commit_ms:.4f} ms, index_add_ {atomic_ms:.4f} ms")
     report["commit"] = dict(rows=n_rows, sorted_ms=commit_ms, index_add_ms=atomic_ms)
 
+# ---- phase 2b: the streamed cast and the two occlusion kernels ------------
+# f32 operations of one shadow pair test (rt_occlude.cuh::occl_tri: the Woop
+# test and the normal's cosine; the Fresnel of a transmissive hit is rare)
+OPS_OCCL = 46
+
+
+def crossed_blocks(boxes, o, d, t_limit, chunk=8192):
+    """How many (ray, block) pairs there are whose segment [0, t_limit]
+    crosses the block's box (in chunks of rays: the pair matrix of 655,360
+    rays and 3125 blocks does not fit)."""
+    return sum(int(gate_hits(boxes, o[s0:s0 + chunk], d[s0:s0 + chunk],
+                             t_limit[s0:s0 + chunk]).sum())
+               for s0 in range(0, o.shape[0], chunk))
+
+
+def timed_once(fn):
+    """(result, ms) of one synchronised call: the twins of the streamed
+    kernels take seconds (one PyTorch op per block and step)."""
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def validation_scene(glass_share):
+    """The synthetic scene of the streaming validation: 200,000 small
+    triangles, centres uniform in a 10^3 box, edges N(0, 0.08),
+    default_rng(7); at the 1080p block size (64)."""
+    s = Scene()
+    t0 = time.monotonic()
+    add_triangle_cloud(s, 200_000, (0.0, 0.0, 0.0), (10.0, 10.0, 10.0), 0.08, 7, glass_share)
+    scene = build_device_scene(s, cfg, device="cuda")
+    assert scene.streaming and scene.n_triangles > cfg.stream_triangles
+    n_trans = sum(scene.block_has_trans)
+    assert (0 < n_trans < scene.triangle_blocks) == (glass_share > 0), n_trans
+    log(f"validation scene (glass share {glass_share}): {scene.triangle_blocks} blocks of "
+        f"{scene.tri_block}, {n_trans} with transmissive triangles, built in "
+        f"{time.monotonic() - t0:.1f} s on the host")
+    return scene
+
+
+def check_cast_stream(label, scene, o, d, iters, backface):
+    tables = (scene.tri_cast_pack, scene.tri_aabb)
+    t, i = kernels.cast_triangles_stream(*tables, o, d, backface_culling=backface)
+    torch.cuda.synchronize()
+    (t_ref, i_ref), plain = timed_once(
+        lambda: kernels.cast_triangles_stream_plain(scene.tri_cast_pack, o, d, backface))
+    assert torch.equal(i, i_ref), f"cast_stream {label}: {int((i != i_ref).sum())} indices differ"
+    assert torch.equal(t, t_ref), f"cast_stream {label}: t differs by {max_err(t, t_ref)}"
+    ms = cuda_ms(lambda: kernels.cast_triangles_stream(*tables, o, d, backface_culling=backface),
+                 iters)
+    crossed = crossed_blocks(scene.tri_aabb, o, d, t)
+    record("cast_triangles_stream", label, o.shape[0], max_err(t, t_ref), ms, plain,
+           nbytes(o, d, *tables, t, i), OPS_TRI * scene.tri_block * crossed,
+           f"; hits {int(torch.isfinite(t).sum())}, {crossed / o.shape[0]:.1f} blocks crossed "
+           f"per ray of {scene.triangle_blocks}")
+
+
+def check_occlusion(name, label, scene, kernel_fn, twin_fn, o, d, md, tables, iters,
+                    real=None, big_rows=0):
+    """An occlusion kernel against its twin: `opq` identical, the sums within
+    1e-5 where `opq` is false, the same bits on three runs. `real` leaves out
+    the shadow rays of lanes without a hit: they start at the parking point
+    1e9, where f32 has a spacing of 64, so the ungated twin's pair tests and
+    the kernel's box tests both work on noise (the light loop discards
+    their results)."""
+    got = kernel_fn()
+    torch.cuda.synchronize()
+    ref, plain = timed_once(twin_fn)
+    (dec, opq, fsub), (dec_ref, opq_ref, fsub_ref) = got, ref
+    if real is None:
+        real = torch.ones_like(opq_ref)
+    n_diff = int(((opq != opq_ref) & real).sum())
+    assert n_diff == 0, f"{name} {label}: {n_diff} opq differ"
+    free = ~opq_ref & real
+    err = max(max_err(dec[free], dec_ref[free]), max_err(fsub[free], fsub_ref[free]))
+    assert err <= 1e-5, f"{name} {label}: sums off by {err}"
+    for _ in range(2):
+        assert all(torch.equal(a, b) for a, b in zip(got, kernel_fn())), \
+            f"{name} {label}: bits differ from run to run"
+    ms = cuda_ms(kernel_fn, iters)
+    # the pair tests this data needs: for a ray that reaches its light, the
+    # big rows and every block its segment crosses; for an occluded ray, one
+    live = free & (md > 0)
+    crossed = crossed_blocks(scene.tri_aabb, o[live], d[live], md[live])
+    n_opq = int((opq & real).sum())
+    tests = scene.tri_block * crossed + big_rows * int(live.sum()) + n_opq
+    record(name, label, o.shape[0], err, ms, plain, nbytes(o, d, md, *tables, *got),
+           OPS_OCCL * tests,
+           f"; real rays {int(real.sum())}, occluded {n_opq}, partly shaded "
+           f"{int(((dec > 0) & free).sum())}, {crossed / max(int(live.sum()), 1):.1f} blocks "
+           f"crossed per live ray")
+    return got
+
+
+def check_occl_stream(label, scene, o, d, md, iters, backface, real=None):
+    tables = (scene.tri_cast_pack, scene.tri_aabb)
+    return check_occlusion(
+        "occlude_triangles_stream", label, scene,
+        lambda: kernels.occlude_triangles_stream(
+            *tables, o, d, md, backface_culling=backface,
+            block_has_trans=scene.block_has_trans),
+        lambda: kernels.occlude_triangles_stream_plain(scene.tri_cast_pack, o, d, md, backface),
+        o, d, md, tables, iters, real=real)
+
+
+def shadow_rays(scene, c, o, d, active):
+    """What the streamed node sends to the occlusion kernel for this
+    wavefront: the (origin, direction, max distance, real) of every light
+    chunk, taken from the port's own light loop; `real` marks the rays of
+    lanes that hit something (light-major, as the rays are)."""
+    hit, hval, point, d = trace._cast_active(scene, c, o, d, active)
+    sent = []
+
+    def occlude(so, sd, md):
+        sent.append((so, sd, md, hval.repeat(so.shape[0] // hval.shape[0])))
+        return occlude_rays(scene, so, sd, md, c.backface_culling)
+
+    shading._light_loop(scene.light_pack, scene.n_lights, occlude, point, hit.normal, d,
+                        hit.color, hit.shininess, hval, eps)
+    return sent
+
+
+# the streamed frame's scene: semesterbild plus a cloud of 120,000 small
+# triangles, past the default threshold of 81,920
+t0 = time.monotonic()
+ds_cloud = renderer.device_scene(build("semesterbild_cloud", cfg))
+assert ds_cloud.streaming and ds_cloud.n_triangles > cfg.stream_triangles == 81920
+assert 0 < sum(ds_cloud.block_has_trans) < ds_cloud.triangle_blocks
+log(f"streamed scene: {ds_cloud.n_triangles} triangle slots in {ds_cloud.triangle_blocks} "
+    f"blocks of {ds_cloud.tri_block} ({sum(ds_cloud.block_has_trans)} with transmissive "
+    f"triangles), {ds_cloud.n_bigtris} big rows, {ds_cloud.n_lights} lights; built in "
+    f"{time.monotonic() - t0:.1f} s")
+
+with phase("stream_kernels"):
+    rng = np.random.default_rng(8)
+    n_val = 32768
+    o_val = torch.from_numpy(rng.uniform(0.0, 10.0, (n_val, 3)).astype(np.float32)).to(DEV)
+    d_val = torch.from_numpy(rng.normal(size=(n_val, 3)).astype(np.float32)).to(DEV)
+    d_val = normalized(d_val)
+    md_val = torch.full((n_val,), 4.0, device=DEV)
+    for label, share in (("V", 0.0), ("V_glass", 0.25)):
+        val = validation_scene(share)
+        check_cast_stream(label, val, o_val, d_val, 5, True)
+        check_occl_stream(label, val, o_val, d_val, md_val, 5, True)
+        del val
+
+    # the streamed frame's shapes: the primary node of 1080p tile 3 ...
+    bf = cfg.backface_culling
+    check_cast_stream("R", ds_cloud, o_prim, d_prim, 10, bf)
+    (so_R, sd_R, md_R, real_R), = shadow_rays(ds_cloud, cfg, o_prim, d_prim, ones)
+    assert so_R.shape[0] == ds_cloud.n_lights * R == 655360
+    check_occl_stream("R", ds_cloud, so_R, sd_R, md_R, 5, bf, real_R)
+    # ... and one pool iteration: the LIFO top of that tile's first pool
+    _, _, refl_p, refr_p = trace._eval_node(ds_cloud, cfg, eps, o_prim, d_prim,
+                                            *prim_state(R).values(), ones)
+    pix64 = torch.arange(R, dtype=torch.int64, device=DEV)
+    rows_s = torch.cat([trace._pack_entry(p, pix64) for p in (refr_p, refl_p)])
+    rows_s = rows_s[torch.cat([refr_p["mask"], refl_p["mask"]])]
+    assert rows_s.shape[0] >= W, rows_s.shape
+    e_s = trace._unpack_entry(rows_s[-W:].contiguous())
+    o_sw, d_sw = trace._park(e_s["o"], e_s["d"], active)
+    check_cast_stream("W", ds_cloud, o_sw.contiguous(), d_sw.contiguous(), 20, bf)
+    (so_W, sd_W, md_W, real_W), = shadow_rays(ds_cloud, cfg, e_s["o"], e_s["d"], active)
+    assert so_W.shape[0] == ds_cloud.n_lights * W == 10240
+    check_occl_stream("W", ds_cloud, so_W, sd_W, md_W, 20, bf, real_W)
+
+    # occlude_triangles: the 655,360 shadow rays of the resident tile
+    (so_4, sd_4, md_4, real_4), = shadow_rays(ds, cfg, o_prim, d_prim, ones)
+    assert so_4.shape[0] == 655360
+    tables_4 = (ds.trb_pack, ds.tri_cast_pack, ds.tri_aabb, ds.tri_saabb)
+    kw_4 = dict(backface_culling=bf, bigtri_trans=ds.bigtri_trans,
+                block_has_trans=ds.block_has_trans, sb_sizes=ds.sb_sizes)
+    check_occlusion(
+        "occlude_triangles", "R", ds,
+        lambda: kernels.occlude_triangles(*tables_4, so_4, sd_4, md_4, **kw_4),
+        lambda: kernels.occlude_triangles_plain(ds.trb_pack, ds.tri_cast_pack, so_4, sd_4,
+                                                md_4, bf),
+        so_4, sd_4, md_4, tables_4, 30, real=real_4,
+        big_rows=int((ds.trb_pack[:, 13] != 0).sum()))
+    # its main path is the entry point itself: one call, counted from zero,
+    # held against the pack-level scan of the light kernels' twin
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    opq_e, opacity_e, filter_e = occlude_rays(ds, so_4, sd_4, md_4, bf)
+    torch.cuda.synchronize()
+    entry_launches = dict(kernels.LAUNCHES)
+    assert {k for k, v in entry_launches.items() if v} == {"occlude_triangles"}, entry_launches
+    opq_p, opacity_p, filter_p = occlude_packs(ds.sph_pack, ds.trb_pack, ds.tri_blk_pack,
+                                                  so_4, sd_4, md_4, bf)
+    assert torch.equal(opq_e[real_4], opq_p[real_4])
+    free_4 = ~opq_p & real_4
+    err_e = max(max_err(opacity_e[free_4], opacity_p[free_4]),
+                max_err(filter_e[free_4], filter_p[free_4]))
+    assert err_e <= 1e-5, err_e
+    log(f"occlude_rays(scene, ...) on {so_4.shape[0]} rays: launches {entry_launches}, "
+        f"occluded {int((opq_e & real_4).sum())} of {int(real_4.sum())} real rays, "
+        f"max |entry - pack-level twin| {err_e:.3g}")
+
+
 
 def run_frame(r, scene):
     """One frame: (u32 pixels, wall s, launches, dropped)."""
@@ -488,11 +714,13 @@ with phase("realistic"):
     report["commit_ab"] = dict(wall_ms=walls, checksums={k: sorted(v) for k, v in sums.items()})
 
 # ---- phase 3b: where one tile's time goes (torch.profiler) ----------------
-with phase("profile"):
-    # tile 3 again, traced: host wall vs summed device time of every kernel
+def profile_tile(label, scene, node_kernel):
+    """Tile 3 of the 1080p frame on `scene`, traced: host wall against the
+    summed device time of every kernel; `node_kernel` is launched once per
+    node evaluation."""
     order3 = torch.from_numpy(np.ascontiguousarray(plan.order[3 * R: 4 * R])).to(DEV)
     offs = torch.zeros((1, 3), device=DEV)
-    per_tile = trace.make_raygen_per_tile(ds, cfg, offs, torch.ones(1, device=DEV), R)
+    per_tile = trace.make_raygen_per_tile(scene, cfg, offs, torch.ones(1, device=DEV), R)
     per_tile(order3)  # warm
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -502,21 +730,25 @@ with phase("profile"):
         per_tile(order3)
         torch.cuda.synchronize()
         tile_wall = (time.monotonic() - t0) * 1e3
-    iters = kernels.LAUNCHES["shade_eval_rows"] - 1  # minus the prologue
+    iters = kernels.LAUNCHES[node_kernel] - 1  # minus the prologue
     avg = prof.key_averages()
     busy = sum(e.self_device_time_total for e in avg) / 1e3
     n_launch = sum(e.count for e in avg if e.key == "cudaLaunchKernel")
     top = sorted(avg, key=lambda e: -e.self_device_time_total)[:6]
-    log(f"tile 3 traced: wall {tile_wall:.1f} ms, pool iterations {iters}, device busy "
+    log(f"{label} tile 3 traced: wall {tile_wall:.1f} ms, pool iterations {iters}, device busy "
         f"{busy:.1f} ms ({'not measured' if busy == 0 else f'idle {1 - busy / tile_wall:.1%}'}), "
         f"{n_launch} kernel launches ({n_launch / (iters + 1):.0f} per node evaluation)")
     for e in top:
         log(f"  {e.self_device_time_total / 1e3:8.2f} ms device  x{e.count:<6d} {e.key[:70]}")
-    report["tile_profile"] = dict(
+    return dict(
         wall_ms=tile_wall, iterations=iters, device_busy_ms=busy, launches=n_launch,
         top=[dict(key=e.key, device_ms=e.self_device_time_total / 1e3, count=e.count)
              for e in top],
     )
+
+
+with phase("profile"):
+    report["tile_profile"] = profile_tile("realistic", ds, "shade_eval_rows")
 
 # ---- phase 4: the other paths at their sizes -----------------------------
 with phase("paths"):
@@ -537,6 +769,30 @@ with phase("paths"):
                 r_unpacked.device_scene(build("semesterbild", cfg_unpacked)),
                 ("cast_triangles", "shade_eval"))
 
+# ---- phase 4b: the streamed frame at full width ---------------------------
+with phase("streamed"):
+    STREAMED = ("cast_triangles_stream", "occlude_triangles_stream")
+    fb_s1, _ = frame_phase("streamed", cfg, renderer, ds_cloud, STREAMED)
+    fb_s2, wall_s2, _, _ = run_frame(renderer, ds_cloud)
+    assert checksum(fb_s1) == checksum(fb_s2), "two warm streamed frames differ"
+    frames["streamed"]["wall_ms_second"] = wall_s2 * 1e3
+    n_nodes = frames["streamed"]["launches"]["cast_triangles_stream"]
+    assert frames["streamed"]["launches"]["occlude_triangles_stream"] == n_nodes
+    # which primary rays see the cloud (outside the counted frames)
+    first = ds_cloud.sphere_slots + ds_cloud.n_bigtris
+    cloud_hits = 0
+    for k in range(plan.n_tiles):
+        o_k, d_k = tile_rays(cfg, k)
+        hit = cast_rays(ds_cloud, o_k, d_k, cfg.backface_culling)
+        cloud_hits += int((hit.valid & (hit.obj_idx >= first)).sum())
+    cloud_share = cloud_hits / (plan.n_tiles * R)
+    assert 0.02 < cloud_share < 0.9, cloud_share
+    frames["streamed"].update(pool_iterations=n_nodes - plan.n_tiles, cloud_share=cloud_share)
+    log(f"second warm streamed frame: {wall_s2 * 1e3:.1f} ms, same u32 checksum; "
+        f"{n_nodes - plan.n_tiles} pool iterations in {plan.n_tiles} tiles; "
+        f"{cloud_share:.4f} of the primary rays hit the cloud")
+    report["tile_profile_streamed"] = profile_tile("streamed", ds_cloud, "cast_triangles_stream")
+
 
 def linear(f):
     return np.stack([(f >> s) & 0xFF for s in (16, 8, 0)], -1).astype(np.float32) / 255.0
@@ -550,6 +806,8 @@ SMALL = {
     "default": (240, 135, LIGHTING["default"]),
     "anti_aliasing": (120, 68, LIGHTING["anti_aliasing"]),
     "soft_shadows": (120, 68, LIGHTING["soft_shadows"]),
+    # forced past the threshold: the plain node over the streamed kernels
+    "streamed": (240, 135, dict(REALISTIC, stream_triangles=1)),
 }
 with phase("card_vs_cpu"):
     report["image_check"] = {}
@@ -559,7 +817,9 @@ with phase("card_vs_cpu"):
         for dev in ("cuda", "cpu"):
             r = RaytracerRenderer(c, device=dev)
             t0 = time.monotonic()
-            out[dev] = r.render_u32(r.device_scene(build("semesterbild", c)))
+            scene_small = r.device_scene(build("semesterbild", c))
+            assert scene_small.streaming == (label == "streamed")
+            out[dev] = r.render_u32(scene_small)
             assert r.last_dropped == 0
             out[dev + "_s"] = time.monotonic() - t0
         gpu, cpu = out["cuda"], out["cpu"]
@@ -576,28 +836,40 @@ with phase("card_vs_cpu"):
 
 # ---- phase 6: results ----------------------------------------------------
 # each kernel's launches: from the path it serves (the frame of phase 3/4)
+frames["occlude_rays"] = dict(launches=entry_launches)
+# name: (source, line of the TPU kernel body, path whose run gives the
+# launches, label of the main measurement, labels of the others)
 ENTRIES = {
-    "cast_triangles": ("cast_triangles.cu", 301, "realistic", "R", "W"),
-    "shade_eval_rows": ("shade_eval_rows.cu", 1858, "realistic", "R", "W"),
-    "light_shade": ("light_shade.cu", 1834, "default", "R", "R_soft"),
-    "shade_eval": ("shade_eval.cu", 1858, "stack", "R", None),
+    "cast_triangles": ("cast_triangles.cu", 301, "realistic", "R", ["W"]),
+    "cast_triangles_stream": ("cast_triangles_stream.cu", 473, "streamed", "R",
+                              ["W", "V", "V_glass"]),
+    "occlude_triangles_stream": ("occlude_triangles_stream.cu", 604, "streamed", "R",
+                                 ["W", "V", "V_glass"]),
+    "occlude_triangles": ("occlude_triangles.cu", 964, "occlude_rays", "R", []),
+    "shade_eval_rows": ("shade_eval_rows.cu", 1858, "realistic", "R", ["W"]),
+    "light_shade": ("light_shade.cu", 1834, "default", "R", ["R_soft"]),
+    "shade_eval": ("shade_eval.cu", 1858, "stack", "R", []),
 }
-EXTRA = {"W": "pool", "R_soft": "soft"}
+EXTRA = {"W": "pool", "R_soft": "soft", "V": "validation", "V_glass": "validation_glass"}
+assert set(ENTRIES) == set(kernels.KERNEL_SOURCES)
 line = []
-for name, (src, tpu_line, path, main, second) in ENTRIES.items():
+for name, (src, tpu_line, path, main, others) in ENTRIES.items():
     m = results[name][main]
+    launches = frames[path]["launches"][name]
+    assert launches > 0, f"{name} was not launched on its path ({path})"
     entry = dict(
         name=name, route="cuda", source=f"{PKG}/csrc/{src}",
-        replaces=f"{TPU_KERNELS}:{tpu_line}", launches=frames[path]["launches"][name],
+        replaces=f"{TPU_KERNELS}:{tpu_line}", launches=launches,
         max_abs_err=max(v["err"] for v in results[name].values()), ms=m["ms"],
         plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
-        library_ms=None, launches_path=path,
+        library_ms=None, launches_path=path, rays=m["R"],
     )
-    if second:
-        s = results[name][second]
-        sfx = EXTRA[second]
-        entry.update({f"ms_{sfx}": s["ms"], f"plain_ms_{sfx}": s["plain_ms"],
-                      f"bound_ms_{sfx}": s["bound_ms"], f"bound_by_{sfx}": s["bound_by"]})
+    for label in others:
+        o_res = results[name][label]
+        sfx = EXTRA[label]
+        entry.update({f"ms_{sfx}": o_res["ms"], f"plain_ms_{sfx}": o_res["plain_ms"],
+                      f"bound_ms_{sfx}": o_res["bound_ms"], f"bound_by_{sfx}": o_res["bound_by"],
+                      f"rays_{sfx}": o_res["R"]})
     line.append(entry)
 report["kernels"] = line
 report["frames"] = frames

@@ -61,21 +61,8 @@ __global__ void cast_triangles_kernel(const float* __restrict__ o,
   for (int g = 0; g < nsb; ++g) {
     const int b0 = sb_start[g], b1 = sb_start[g + 1];
     if (b1 - b0 > 1 && !rt_gate(saabb + g * 8, ox, oy, oz, ix, iy, iz, best_t)) continue;
-    for (int b = b0; b < b1; ++b) {
-      if (!rt_gate(aabb + b * 8, ox, oy, oz, ix, iy, iz, best_t)) continue;
-      const float* blk = pack + (size_t)b * B * 32;
-      for (int c = 0; c < B; ++c) {
-        const float* w = blk + c * 32;
-        float t;
-        bool valid = rt_tri_test(w, ox, oy, oz, dx, dy, dz, &t);
-        if (backface)
-          valid = valid && ((rt_dot_normal(w, dx, dy, dz) < 0.75f) || (w[14] != 0.0f));
-        if (valid && t < best_t) {
-          best_t = t;
-          best_idx = P + b * B + c;
-        }
-      }
-    }
+    rt_cast_blocks(pack, aabb, b0, b1, B, P, ox, oy, oz, dx, dy, dz, ix, iy, iz, backface != 0,
+                   &best_t, &best_idx);
   }
   t_out[r] = best_t;
   idx_out[r] = best_idx;

@@ -49,21 +49,8 @@ __global__ void cast_triangles_stream_kernel(const float* __restrict__ o,
 
   float best_t = RT_INF;
   int best_idx = 0x7fffffff;
-  for (int b = 0; b < nb; ++b) {
-    if (!rt_gate(aabb + b * 8, ox, oy, oz, ix, iy, iz, best_t)) continue;
-    const float* blk = pack + (size_t)b * B * 32;
-    for (int c = 0; c < B; ++c) {
-      const float* w = blk + c * 32;
-      float t;
-      bool valid = rt_tri_test(w, ox, oy, oz, dx, dy, dz, &t);
-      if (backface)
-        valid = valid && ((rt_dot_normal(w, dx, dy, dz) < 0.75f) || (w[14] != 0.0f));
-      if (valid && t < best_t) {
-        best_t = t;
-        best_idx = b * B + c;
-      }
-    }
-  }
+  rt_cast_blocks(pack, aabb, 0, nb, B, 0, ox, oy, oz, dx, dy, dz, ix, iy, iz, backface != 0,
+                 &best_t, &best_idx);
   t_out[r] = best_t;
   idx_out[r] = best_idx;
 }

@@ -1,6 +1,6 @@
-// Device helpers shared by the port's two CUDA kernels (cast_triangles.cu,
-// shade_eval_rows.cu). Every formula follows the plain PyTorch twin in
-// ops/intersect.py / ops/shading.py / ops/trace.py operation by operation,
+// Device helpers shared by all of the port's CUDA kernels. Every formula
+// follows the plain PyTorch twin in ops/intersect.py / ops/shading.py /
+// ops/trace.py operation by operation,
 // in the same order: the build uses --fmad=false and no fast math, so a
 // kernel and its twin round alike.
 //
@@ -84,6 +84,33 @@ __device__ __forceinline__ bool rt_gate(const float* __restrict__ box, float ox,
     rt_slab(lo - m, hi + m, o3[c], i3[c], &tn, &tf);
   }
   return (tf >= fmaxf(tn, 0.0f)) && (tn <= t_limit);
+}
+
+// Nearest hit over the Morton blocks [b0, b1) of `pack` (nb, B, 32) in
+// storage order, each behind the gate of its box in `aabb` against the
+// ray's own best t so far. Strict `<`: on equal t the earlier block and the
+// lower slot win. Slot (b, c) gets the index base + b*B + c.
+__device__ __forceinline__ void rt_cast_blocks(const float* __restrict__ pack,
+                                               const float* __restrict__ aabb, int b0, int b1,
+                                               int B, int base, float ox, float oy, float oz,
+                                               float dx, float dy, float dz, float ix,
+                                               float iy, float iz, bool backface,
+                                               float* best_t, int* best_idx) {
+  for (int b = b0; b < b1; ++b) {
+    if (!rt_gate(aabb + b * 8, ox, oy, oz, ix, iy, iz, *best_t)) continue;
+    const float* blk = pack + (size_t)b * B * 32;
+    for (int c = 0; c < B; ++c) {
+      const float* w = blk + c * 32;
+      float t;
+      bool valid = rt_tri_test(w, ox, oy, oz, dx, dy, dz, &t);
+      if (backface)
+        valid = valid && ((rt_dot_normal(w, dx, dy, dz) < 0.75f) || (w[14] != 0.0f));
+      if (valid && t < *best_t) {
+        *best_t = t;
+        *best_idx = base + b * B + c;
+      }
+    }
+  }
 }
 
 // x**5 in XLA's binary-exponentiation order, as ops/intersect.py::pow5

@@ -22,13 +22,12 @@ GLASS = Material.new((0.9, 0.95, 1.0), 0.0, 0.2, TransmissionProperties.new(0.35
 
 
 def add_triangle_cloud(scene: Scene, n: int, lo, hi, edge_sigma: float, seed: int,
-                       glass_share: float = 0.0) -> np.ndarray:
+                       glass_share: float = 0.0) -> None:
     """Add n triangles (c, c + e1, c + e2) to `scene`: c uniform in the box
     [lo, hi], e1 and e2 normal with deviation `edge_sigma`. The triangles
     whose centre lies in the first `glass_share` of the box along x are
     GLASS, the rest MATTE: the glass is in one place, so after the Morton
-    sort some blocks hold transmissive triangles and most hold none.
-    Returns the (n,) bool glass mask."""
+    sort some blocks hold transmissive triangles and most hold none."""
     rng = np.random.default_rng(seed)
     lo, hi = np.asarray(lo, np.float64), np.asarray(hi, np.float64)
     c = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
@@ -42,7 +41,6 @@ def add_triangle_cloud(scene: Scene, n: int, lo, hi, edge_sigma: float, seed: in
     for i in range(n):
         scene.add_triangle(
             TriangleData(c[i], v2[i], v3[i], normal[i], GLASS if glass[i] else MATTE))
-    return glass
 
 
 def build_scene(cfg: RenderConfig, n: int = 120_000, edge_sigma: float = 0.0022,

@@ -312,6 +312,19 @@ def _pack_occlusion(pack, o4, d, max_distance, backface_culling):
     return dec, opq, fsub
 
 
+def _add_pack_occlusion(sums, packs, o, d, max_distance, backface_culling):
+    """Add one `_pack_occlusion` result per pack, in order, to the running
+    (dec, opq, fsub)."""
+    dec, opq, fsub = sums
+    o4 = _homogeneous(o)
+    for pack in packs:
+        pdec, popq, pfsub = _pack_occlusion(pack, o4, d, max_distance, backface_culling)
+        dec = dec + pdec
+        opq = opq | popq
+        fsub = fsub + pfsub
+    return dec, opq, fsub
+
+
 def occlude_packs(sph_pack, trb_pack, tri_blk_pack, o, d, max_distance,
                   backface_culling: bool = False):
     """Shadow/occlusion test (ref raytracer.rs:24-106), plain PyTorch, over
@@ -319,14 +332,9 @@ def occlude_packs(sph_pack, trb_pack, tri_blk_pack, o, d, max_distance,
     blocks in `tri_blk_pack` order (the order the fused light kernels scan
     them in). The twin of those kernels' shadow scan; returns what
     `occlude_rays` returns."""
-    dec, opq, fsub = _sphere_occlusion(sph_pack, o, d, max_distance, backface_culling)
-    o4 = _homogeneous(o)
-    for pack in [trb_pack, *tri_blk_pack]:
-        pdec, popq, pfsub = _pack_occlusion(pack, o4, d, max_distance, backface_culling)
-        dec = dec + pdec
-        opq = opq | popq
-        fsub = fsub + pfsub
-    return _occlusion_result(dec, opq, fsub)
+    sums = _sphere_occlusion(sph_pack, o, d, max_distance, backface_culling)
+    return _occlusion_result(*_add_pack_occlusion(
+        sums, [trb_pack, *tri_blk_pack], o, d, max_distance, backface_culling))
 
 
 def _occlusion_result(dec, opq, fsub):
@@ -354,12 +362,8 @@ def occlude_rays(scene: DeviceScene, o, d, max_distance, backface_culling: bool 
 
     dec, opq, fsub = _sphere_occlusion(scene.sph_pack, o, d, max_distance, backface_culling)
     if scene.streaming:
-        bdec, bopq, bfsub = _pack_occlusion(
-            scene.trb_pack, _homogeneous(o), d, max_distance, backface_culling
-        )
-        dec = dec + bdec
-        opq = opq | bopq
-        fsub = fsub + bfsub
+        dec, opq, fsub = _add_pack_occlusion(
+            (dec, opq, fsub), [scene.trb_pack], o, d, max_distance, backface_culling)
         tdec, topq, tfsub = occlude_triangles_stream(
             scene.tri_cast_pack, scene.tri_aabb, o, d, max_distance,
             backface_culling=backface_culling, block_has_trans=scene.block_has_trans,

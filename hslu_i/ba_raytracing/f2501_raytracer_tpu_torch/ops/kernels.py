@@ -46,7 +46,7 @@ import time
 
 import torch
 
-from .intersect import BIG_IDX, _homogeneous, _pack_nearest, _pack_occlusion
+from .intersect import BIG_IDX, _add_pack_occlusion, _homogeneous, _pack_nearest
 from .shading import ambient, light_sums
 from .trace import POOL_COLS, _node_children, _pack_entry
 
@@ -226,23 +226,30 @@ def _sb_start(sb_sizes, nb, device):
     return _sb_cache[key]
 
 
+def _nearest_over_blocks(best_t, best_idx, tri_cast_pack, base, o4, d, backface_culling):
+    """Fold the Morton blocks of `tri_cast_pack` into a running nearest hit,
+    in order and with a strict `<` (an earlier block keeps a tie); slot
+    (b, c) gets the index base + b*B + c. The JAX `_tri_nearest_xla` scan."""
+    B = tri_cast_pack.shape[1]
+    for b, block in enumerate(tri_cast_pack):
+        tmin, targ = _pack_nearest(block, o4, d, backface_culling)
+        closer = tmin < best_t
+        best_t = torch.where(closer, tmin, best_t)
+        best_idx = torch.where(closer, base + b * B + targ, best_idx)
+    return best_t, best_idx.to(torch.int32)
+
+
 def cast_triangles_plain(trb_pack, tri_cast_pack, o, d, backface_culling=False):
     """Plain twin of the cast kernel: the JAX plain path's big-primitive and
     Morton-block nearest hits (`_bigtri_nearest_xla`, `_tri_nearest_xla`),
     over the same packs and in the kernel's index space (big primitive
     p -> p, Morton slot (b, c) -> P + b*B + c; miss: +inf, 2^31-1). No AABB
     gate: the kernel's widened gate never changes the result."""
-    P = trb_pack.shape[0]
-    nb, B, _ = tri_cast_pack.shape
     o4 = _homogeneous(o)
     best_t, bidx = _pack_nearest(trb_pack, o4, d, backface_culling)
     best_idx = torch.where(torch.isfinite(best_t), bidx, torch.full_like(bidx, BIG_IDX))
-    for b in range(nb):
-        tmin, targ = _pack_nearest(tri_cast_pack[b], o4, d, backface_culling)
-        closer = tmin < best_t
-        best_t = torch.where(closer, tmin, best_t)
-        best_idx = torch.where(closer, P + b * B + targ, best_idx)
-    return best_t, best_idx.to(torch.int32)
+    return _nearest_over_blocks(best_t, best_idx, tri_cast_pack, trb_pack.shape[0], o4, d,
+                                backface_culling)
 
 
 def cast_triangles(trb_pack, tri_cast_pack, tri_aabb, tri_saabb, o, d, *,
@@ -289,17 +296,11 @@ def cast_triangles_stream_plain(tri_cast_pack, o, d, backface_culling=False):
     `tri_cast_pack` in order, strict `<` across blocks, in the kernel's
     index space (slot (b, c) -> b*B + c; miss: +inf, 2^31-1). No AABB gate:
     the kernel's widened gate never changes the result."""
-    nb, B, _ = tri_cast_pack.shape
     R = o.shape[0]
-    o4 = _homogeneous(o)
     best_t = torch.full((R,), float("inf"), dtype=o.dtype, device=o.device)
     best_idx = torch.full((R,), BIG_IDX, dtype=torch.int64, device=o.device)
-    for b in range(nb):
-        tmin, targ = _pack_nearest(tri_cast_pack[b], o4, d, backface_culling)
-        closer = tmin < best_t
-        best_t = torch.where(closer, tmin, best_t)
-        best_idx = torch.where(closer, b * B + targ, best_idx)
-    return best_t, best_idx.to(torch.int32)
+    return _nearest_over_blocks(best_t, best_idx, tri_cast_pack, 0, _homogeneous(o), d,
+                                backface_culling)
 
 
 def _check_rays(name, o, d, max_distance=None):
@@ -362,16 +363,10 @@ def _block_httr(block_has_trans, nb, device):
 
 def _occlude_packs_plain(packs, o, d, max_distance, backface_culling):
     R = o.shape[0]
-    o4 = _homogeneous(o)
-    dec = torch.zeros((R,), dtype=o.dtype, device=o.device)
-    opq = torch.zeros((R,), dtype=torch.bool, device=o.device)
-    fsub = torch.zeros((R, 3), dtype=o.dtype, device=o.device)
-    for pack in packs:
-        pdec, popq, pfsub = _pack_occlusion(pack, o4, d, max_distance, backface_culling)
-        dec = dec + pdec
-        opq = opq | popq
-        fsub = fsub + pfsub
-    return dec, opq, fsub
+    zero = (torch.zeros((R,), dtype=o.dtype, device=o.device),
+            torch.zeros((R,), dtype=torch.bool, device=o.device),
+            torch.zeros((R, 3), dtype=o.dtype, device=o.device))
+    return _add_pack_occlusion(zero, packs, o, d, max_distance, backface_culling)
 
 
 def occlude_triangles_stream_plain(tri_cast_pack, o, d, max_distance,
