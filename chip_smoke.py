@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--report PATH]
+    python3 chip_smoke.py [--report PATH] [--stop-after PHASE] [--streamed-frames N]
 
 Phases (any failure fails the run; nothing is caught; each prints its
 seconds):
@@ -24,7 +24,11 @@ seconds):
      shadow rays); occlude_triangles on the 655,360 shadow rays of the
      resident 1080p tile through `occlude_rays(scene, ...)`. Occlusion sums
      are compared where `opq` is false and must have the same bits on every
-     run;
+     run. For the two streamed kernels (one warp per ray, a two-level box
+     gate) each line also gives the kernel's own time on the device
+     (torch.profiler), the superblocks and blocks a ray crosses, and the
+     time with the superblock level taken away (every box tested, 32 per
+     step), and their registers per thread are printed;
   3. render the full 1920x1080 `realistic` frame (bench.py's settings, the
      packed-row pool path) through RaytracerRenderer(cfg, device="cuda"):
      warm frame wall time, launch counts (cast_triangles and
@@ -43,7 +47,9 @@ seconds):
      120,000 small triangles (`streaming` set by the threshold), through
      cast_triangles_stream and occlude_triangles_stream only: two warm
      frames with one checksum, pool iterations, the share of primary rays
-     that hit the cloud, and one tile traced with torch.profiler;
+     that hit the cloud, and one tile traced with torch.profiler.
+     Every warm frame's checksum must be the one recorded for its path
+     (CHECKSUMS: an H100's, the same in every run);
   5. small frames of every path on the card and through the CPU twins in
      this process: < 0.5% of pixels may differ by more than 2e-3 in linear
      colour, and `valid` may differ only at knife edges (< 0.5%);
@@ -60,6 +66,7 @@ import contextlib
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -69,6 +76,13 @@ import torch
 
 parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
 parser.add_argument("--report", help="also write the measurements to this JSON file")
+parser.add_argument("--stop-after", metavar="PHASE",
+                    help="stop after this phase (build, kernels, stream_kernels, ...) with exit "
+                         "code 3 and no result lines: for a quick look at the kernels' times")
+parser.add_argument("--streamed-frames", type=int, metavar="N",
+                    help="after the resident kernels' checks, render only the streamed 1080p "
+                         "frame, once to warm up and N times more, print the wall times and "
+                         "exit with code 3: for comparing two checkouts in turns within one run")
 ARGS = parser.parse_args()
 
 if not torch.cuda.is_available():
@@ -135,6 +149,9 @@ def phase(name):
     s = time.monotonic() - t0
     report["phase_s"][name] = s
     log(f"[phase {name}: {s:.1f} s]")
+    if ARGS.stop_after == name:
+        log(f"stopped after phase {name} as asked: no result lines")
+        sys.exit(3)
 
 
 def cuda_ms(fn, iters, warmup=3):
@@ -148,6 +165,36 @@ def cuda_ms(fn, iters, warmup=3):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def device_ms(fn, iters):
+    """Device time of one call's CUDA kernels written in this repository
+    (torch.profiler; mean over `iters` calls): what CUDA events cannot show
+    for a kernel shorter than its wrapper's time on the host."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):  # a trace may miss launches, now and then all of them
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ours = [e for e in prof.key_averages() if "anonymous namespace" in e.key]
+        n = sum(e.count for e in ours)
+        assert n <= iters, [(e.key, e.count) for e in ours]
+        if n:
+            return sum(e.self_device_time_total for e in ours) / 1e3 / n
+    return None  # not measured: the CUDA events' time stands alone
+
+
+def run_frame(r, scene):
+    """One frame: (u32 pixels, wall s, launches, dropped)."""
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    fb = r.render_u32(scene)
+    torch.cuda.synchronize()
+    return fb, time.monotonic() - t0, dict(kernels.LAUNCHES), r.last_dropped
 
 
 def max_err(a, b):
@@ -183,10 +230,19 @@ with phase("build"):
     report["build_s"] = time.monotonic() - t0
     log(f"kernel build: {report['build_s']:.1f} s (parallel nvcc, {len(built)} kernels)")
     assert sorted(built) == sorted(kernels.KERNEL_SOURCES), built
+    report["ptxas"] = {}
     for name, info in built.items():
         for line in info["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+        report["ptxas"][name] = dict(
+            registers=[int(n) for n in re.findall(r"Used (\d+) registers", info["ptxas"])],
+            spill_bytes=sum(int(n) for n in re.findall(r"(\d+) bytes spill", info["ptxas"])))
+    for name in ("cast_triangles_stream", "occlude_triangles_stream"):
+        regs = report["ptxas"][name]
+        log(f"{name}: {regs['registers']} registers per thread at 128 threads per block, "
+            f"{regs['spill_bytes']} bytes spilled")
+        assert regs["registers"] and regs["spill_bytes"] == 0, regs
 
 # ---- scenes and tiles -----------------------------------------------------
 cfg = RenderConfig(width=1920, height=1080, **MAIN, **REALISTIC)
@@ -456,6 +512,8 @@ with phase("kernels"):
 # f32 operations of one shadow pair test (rt_occlude.cuh::occl_tri: the Woop
 # test and the normal's cosine; the Fresnel of a transmissive hit is rare)
 OPS_OCCL = 46
+# one widened slab test of a box (rt_common.cuh::rt_gate)
+OPS_BOX = 30
 
 
 def crossed_blocks(boxes, o, d, t_limit, chunk=8192):
@@ -496,31 +554,79 @@ def validation_scene(glass_share):
     return scene
 
 
+def stream_tables(scene):
+    return (scene.tri_cast_pack, scene.tri_aabb, scene.tri_saabb)
+
+
+def gate_work(scene, o, d, t_limit):
+    """What the two-level gate of the streamed kernels does for these rays:
+    (superblocks crossed, blocks crossed, the most blocks one ray crosses,
+    box tests: every superbox, then the boxes of the crossed superblocks)."""
+    sizes = torch.tensor(scene.sb_sizes, device=DEV)
+    n_sb = n_boxes = crossed = most = 0
+    chunk = 8192
+    for s0 in range(0, o.shape[0], chunk):
+        part = (o[s0:s0 + chunk], d[s0:s0 + chunk], t_limit[s0:s0 + chunk])
+        hit = gate_hits(scene.tri_saabb, *part)
+        n_sb += int(hit.sum())
+        n_boxes += int((hit * sizes[None, :]).sum())
+        per_ray = gate_hits(scene.tri_aabb, *part).sum(1)
+        crossed += int(per_ray.sum())
+        most = max(most, int(per_ray.max()))
+    return n_sb, crossed, most, o.shape[0] * len(scene.sb_sizes) + n_boxes
+
+
+def gate_note(scene, n_sent, n_rays, n_sb, crossed, most, flat_ms, dev_ms):
+    """The streamed kernels' part of a line: `n_sent` rays went to the
+    kernel, the gate's counts are over `n_rays` of them."""
+    alone = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+    return (f"; on the device alone {alone}; {kernels.rays_per_warp(n_sent)} rays per "
+            f"warp; per ray "
+            f"{n_sb / max(n_rays, 1):.2f} of {len(scene.sb_sizes)} superblocks and "
+            f"{crossed / max(n_rays, 1):.2f} of {scene.triangle_blocks} blocks crossed (at most "
+            f"{most}); without the superblock level {flat_ms:.4f} ms")
+
+
 def check_cast_stream(label, scene, o, d, iters, backface):
-    tables = (scene.tri_cast_pack, scene.tri_aabb)
-    t, i = kernels.cast_triangles_stream(*tables, o, d, backface_culling=backface)
+    tables = stream_tables(scene)
+    kw = dict(backface_culling=backface, sb_sizes=scene.sb_sizes)
+    t, i = kernels.cast_triangles_stream(*tables, o, d, **kw)
     torch.cuda.synchronize()
     (t_ref, i_ref), plain = timed_once(
         lambda: kernels.cast_triangles_stream_plain(scene.tri_cast_pack, o, d, backface))
     assert torch.equal(i, i_ref), f"cast_stream {label}: {int((i != i_ref).sum())} indices differ"
     assert torch.equal(t, t_ref), f"cast_stream {label}: t differs by {max_err(t, t_ref)}"
-    ms = cuda_ms(lambda: kernels.cast_triangles_stream(*tables, o, d, backface_culling=backface),
-                 iters)
-    crossed = crossed_blocks(scene.tri_aabb, o, d, t)
+    for _ in range(2):
+        t2, i2 = kernels.cast_triangles_stream(*tables, o, d, **kw)
+        assert torch.equal(t2, t) and torch.equal(i2, i), f"cast_stream {label}: runs differ"
+    # one level only: every block its own superblock, the same result
+    flat = lambda: kernels.cast_triangles_stream(  # noqa: E731
+        scene.tri_cast_pack, scene.tri_aabb, scene.tri_aabb, o, d, backface_culling=backface)
+    assert all(torch.equal(a, b) for a, b in zip(flat(), (t, i)))
+    ms = cuda_ms(lambda: kernels.cast_triangles_stream(*tables, o, d, **kw), iters)
+    flat_ms = cuda_ms(flat, iters)
+    dev_ms = device_ms(lambda: kernels.cast_triangles_stream(*tables, o, d, **kw), iters)
+    n_sb, crossed, most, box_tests = gate_work(scene, o, d, t)
     record("cast_triangles_stream", label, o.shape[0], max_err(t, t_ref), ms, plain,
-           nbytes(o, d, *tables, t, i), OPS_TRI * scene.tri_block * crossed,
-           f"; hits {int(torch.isfinite(t).sum())}, {crossed / o.shape[0]:.1f} blocks crossed "
-           f"per ray of {scene.triangle_blocks}")
+           nbytes(o, d, *tables, t, i),
+           OPS_TRI * scene.tri_block * crossed + OPS_BOX * box_tests,
+           f"; hits {int(torch.isfinite(t).sum())}"
+           + gate_note(scene, o.shape[0], o.shape[0], n_sb, crossed, most, flat_ms, dev_ms))
+    results["cast_triangles_stream"][label].update(
+        flat_gate_ms=flat_ms, device_ms=dev_ms, superblocks_per_ray=n_sb / max(o.shape[0], 1),
+        blocks_per_ray=crossed / max(o.shape[0], 1), most_blocks=most,
+        rays_per_warp=kernels.rays_per_warp(o.shape[0]))
 
 
 def check_occlusion(name, label, scene, kernel_fn, twin_fn, o, d, md, tables, iters,
-                    real=None, big_rows=0):
+                    real=None, big_rows=0, flat_fn=None):
     """An occlusion kernel against its twin: `opq` identical, the sums within
     1e-5 where `opq` is false, the same bits on three runs. `real` leaves out
     the shadow rays of lanes without a hit: they start at the parking point
     1e9, where f32 has a spacing of 64, so the ungated twin's pair tests and
     the kernel's box tests both work on noise (the light loop discards
-    their results)."""
+    their results). `flat_fn` (the streamed kernel): the same call without
+    the superblock level, which must give the same bits and is timed."""
     got = kernel_fn()
     torch.cuda.synchronize()
     ref, plain = timed_once(twin_fn)
@@ -539,26 +645,45 @@ def check_occlusion(name, label, scene, kernel_fn, twin_fn, o, d, md, tables, it
     # the pair tests this data needs: for a ray that reaches its light, the
     # big rows and every block its segment crosses; for an occluded ray, one
     live = free & (md > 0)
-    crossed = crossed_blocks(scene.tri_aabb, o[live], d[live], md[live])
+    n_live = int(live.sum())
     n_opq = int((opq & real).sum())
-    tests = scene.tri_block * crossed + big_rows * int(live.sum()) + n_opq
+    note = (f"; real rays {int(real.sum())}, occluded {n_opq}, partly shaded "
+            f"{int(((dec > 0) & free).sum())}")
+    if flat_fn is None:
+        crossed = crossed_blocks(scene.tri_aabb, o[live], d[live], md[live])
+        ops = 0
+        note += f", {crossed / max(n_live, 1):.1f} blocks crossed per live ray"
+    else:
+        # the streamed kernel: the two-level gate's box tests count too
+        assert all(torch.equal(a, b) for a, b in zip(got, flat_fn())), \
+            f"{name} {label}: the superblock level changes the result"
+        flat_ms = cuda_ms(flat_fn, iters)
+        dev_ms = device_ms(kernel_fn, iters)
+        n_sb, crossed, most, box_tests = gate_work(scene, o[live], d[live], md[live])
+        ops = OPS_BOX * box_tests
+        note += (f" (of the {n_live} live rays)"
+                 + gate_note(scene, o.shape[0], n_live, n_sb, crossed, most, flat_ms, dev_ms))
+    tests = scene.tri_block * crossed + big_rows * n_live + n_opq
     record(name, label, o.shape[0], err, ms, plain, nbytes(o, d, md, *tables, *got),
-           OPS_OCCL * tests,
-           f"; real rays {int(real.sum())}, occluded {n_opq}, partly shaded "
-           f"{int(((dec > 0) & free).sum())}, {crossed / max(int(live.sum()), 1):.1f} blocks "
-           f"crossed per live ray")
+           OPS_OCCL * tests + ops, note)
+    if flat_fn is not None:
+        results[name][label].update(
+            flat_gate_ms=flat_ms, device_ms=dev_ms, superblocks_per_ray=n_sb / max(n_live, 1),
+            blocks_per_ray=crossed / max(n_live, 1), most_blocks=most,
+            rays_per_warp=kernels.rays_per_warp(o.shape[0]))
     return got
 
 
 def check_occl_stream(label, scene, o, d, md, iters, backface, real=None):
-    tables = (scene.tri_cast_pack, scene.tri_aabb)
+    tables = stream_tables(scene)
+    kw = dict(backface_culling=backface, block_has_trans=scene.block_has_trans)
     return check_occlusion(
         "occlude_triangles_stream", label, scene,
-        lambda: kernels.occlude_triangles_stream(
-            *tables, o, d, md, backface_culling=backface,
-            block_has_trans=scene.block_has_trans),
+        lambda: kernels.occlude_triangles_stream(*tables, o, d, md, sb_sizes=scene.sb_sizes, **kw),
         lambda: kernels.occlude_triangles_stream_plain(scene.tri_cast_pack, o, d, md, backface),
-        o, d, md, tables, iters, real=real)
+        o, d, md, tables, iters, real=real,
+        flat_fn=lambda: kernels.occlude_triangles_stream(
+            scene.tri_cast_pack, scene.tri_aabb, scene.tri_aabb, o, d, md, **kw))
 
 
 def shadow_rays(scene, c, o, d, active):
@@ -588,6 +713,16 @@ log(f"streamed scene: {ds_cloud.n_triangles} triangle slots in {ds_cloud.triangl
     f"blocks of {ds_cloud.tri_block} ({sum(ds_cloud.block_has_trans)} with transmissive "
     f"triangles), {ds_cloud.n_bigtris} big rows, {ds_cloud.n_lights} lights; built in "
     f"{time.monotonic() - t0:.1f} s")
+
+if ARGS.streamed_frames:
+    walls = []
+    for _ in range(ARGS.streamed_frames + 1):
+        fb, wall, launches, dropped = run_frame(renderer, ds_cloud)
+        assert dropped == 0 and launches["cast_triangles_stream"] > 0, (dropped, launches)
+        walls.append(round(wall * 1e3, 1))
+    log(f"streamed (1920x1080) frames only: warm-up {walls[0]} ms, then {walls[1:]} ms; "
+        f"launches {launches}, u32 sha256 {checksum(fb)}; no result lines")
+    sys.exit(3)
 
 with phase("stream_kernels"):
     rng = np.random.default_rng(8)
@@ -656,17 +791,15 @@ with phase("stream_kernels"):
 
 
 
-def run_frame(r, scene):
-    """One frame: (u32 pixels, wall s, launches, dropped)."""
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    t0 = time.monotonic()
-    fb = r.render_u32(scene)
-    torch.cuda.synchronize()
-    return fb, time.monotonic() - t0, dict(kernels.LAUNCHES), r.last_dropped
-
-
 frames = {}
+# u32 checksums of the warm frames on an H100, the same in every run so far:
+# every f32 sum on these paths has one order (sorted commit, no atomics)
+CHECKSUMS = {
+    "realistic": "2f1bddf34a353be8", "default": "07ce4f9c48a3ac65",
+    "anti_aliasing": "669b1b29c139c6e7", "soft_shadows": "daf24ebea78bbc88",
+    "stack": "ee4a32cb7f8eaad1", "unpacked": "f131f2f6a579ad51",
+    "streamed": "af79d8e0ae102406",
+}
 
 
 def frame_phase(label, c, r, scene, expect):
@@ -682,6 +815,7 @@ def frame_phase(label, c, r, scene, expect):
         assert (v > 0) == (k in expect), (label, launches)
     assert dropped == 0, dropped
     assert valid > 0.5, valid
+    assert checksum(fb) == CHECKSUMS[label], (label, checksum(fb), CHECKSUMS[label])
     frames[label] = dict(size=f"{c.width}x{c.height}", wall_ms=wall * 1e3, launches=launches,
                          dropped=dropped, checksum=checksum(fb), valid_share=valid)
     return fb, wall
@@ -870,6 +1004,13 @@ for name, (src, tpu_line, path, main, others) in ENTRIES.items():
         entry.update({f"ms_{sfx}": o_res["ms"], f"plain_ms_{sfx}": o_res["plain_ms"],
                       f"bound_ms_{sfx}": o_res["bound_ms"], f"bound_by_{sfx}": o_res["bound_by"],
                       f"rays_{sfx}": o_res["R"]})
+    if "flat_gate_ms" in m:
+        entry.update(registers=report["ptxas"][name]["registers"])
+        for label in [main, *others]:
+            sfx = "" if label == main else "_" + EXTRA[label]
+            entry.update({k + sfx: results[name][label][k] for k in
+                          ("flat_gate_ms", "device_ms", "superblocks_per_ray", "blocks_per_ray",
+                           "most_blocks", "rays_per_warp")})
     line.append(entry)
 report["kernels"] = line
 report["frames"] = frames

@@ -113,6 +113,242 @@ __device__ __forceinline__ void rt_cast_blocks(const float* __restrict__ pack,
   }
 }
 
+// ---- warp-level helpers: a warp owns K rays (the streamed kernels) --------
+//
+// K is 1 where rays are few (a wavefront of the pool: every ray needs a warp
+// of its own to fill the card) and 8 where they are many: a block of rows is
+// then loaded once and tested against up to 8 rays, which cuts the L2
+// traffic of coherent rays (neighbouring pixels cross the same blocks) by up
+// to 8 and costs incoherent ones nothing, since a ray is still tested only
+// against the blocks its own segment crosses.
+
+#define RT_WARP 0xffffffffu
+#define RT_WARPS 4  // warps per thread block (8 measured 1-9% slower on an H100)
+
+// A ray's record in shared memory, read by all lanes from one address:
+// o 0-2, d 3-5, 1/d 6-8, max distance 9 (occlusion), 10-11 spare
+#define RT_RAY 12
+
+// Ray `r` into `rec`
+__device__ __forceinline__ void rt_ray_record(float* rec, const float* __restrict__ o,
+                                              const float* __restrict__ d, int r) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float dc = d[3 * r + c];
+    rec[c] = o[3 * r + c];
+    rec[3 + c] = dc;
+    rec[6 + c] = 1.0f / dc;
+  }
+}
+
+// The first 4*N4 floats of a 16-byte aligned row, as 16-byte loads
+template <int N4>
+__device__ __forceinline__ void rt_load4(const float* __restrict__ row, float* w) {
+  const float4* q = reinterpret_cast<const float4*>(row);
+#pragma unroll
+  for (int i = 0; i < N4; ++i) {
+    const float4 v = __ldg(q + i);
+    w[4 * i] = v.x;
+    w[4 * i + 1] = v.y;
+    w[4 * i + 2] = v.z;
+    w[4 * i + 3] = v.w;
+  }
+}
+
+// Rows staged in shared memory: the first RT_ROW4 16-byte words (20 floats:
+// all that a pair test reads) of up to RT_STAGE_ROWS rows, 80 bytes apart,
+// which lanes read without bank conflicts. A lane that loaded its own rows
+// from global memory would touch 32 cache lines per instruction; the copy
+// below reads each line of the block once for the whole warp.
+#define RT_ROW4 5
+#define RT_STAGE_ROWS 64
+
+// Copies the first RT_ROW4 words of rows [0, n) at `rows` into `stage`,
+// consecutive lanes taking consecutive words (cp.async: global to shared
+// without passing through registers), and waits for them. All 32 lanes.
+__device__ __forceinline__ void rt_stage_rows(float4* stage, const float* __restrict__ rows,
+                                              int n, int lane) {
+  __syncwarp();  // every lane has read what the stage held
+  for (int i = lane; i < n * RT_ROW4; i += 32) {
+    const float* src = rows + (i / RT_ROW4) * 32 + (i % RT_ROW4) * 4;
+    const unsigned dst = (unsigned)__cvta_generic_to_shared(stage + i);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(src) : "memory");
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncwarp();
+}
+
+// Row c of the stage
+__device__ __forceinline__ void rt_staged_row(const float4* stage, int c, float* w) {
+#pragma unroll
+  for (int i = 0; i < RT_ROW4; ++i) {
+    const float4 v = stage[c * RT_ROW4 + i];
+    w[4 * i] = v.x;
+    w[4 * i + 1] = v.y;
+    w[4 * i + 2] = v.z;
+    w[4 * i + 3] = v.w;
+  }
+}
+
+// A box row by two 16-byte loads. Returns false for a box whose min lies
+// above its max, the mark scene/device.py gives an empty block (and a
+// superblock of one): it holds nothing and counts as missed, where the slab
+// test alone would read it as the box between its swapped faces.
+__device__ __forceinline__ bool rt_load_box(const float* __restrict__ row, float* box) {
+  rt_load4<2>(row, box);
+  return !(box[0] > box[3] || box[1] > box[4] || box[2] > box[5]);
+}
+
+// rt_gate for a ray record
+__device__ __forceinline__ bool rt_gate_ray(const float* box, const float* ray,
+                                            float t_limit) {
+  return rt_gate(box, ray[0], ray[1], ray[2], ray[6], ray[7], ray[8], t_limit);
+}
+
+// Which of the rays in `rays` (a bit per ray) cross `box` within their limit
+template <int K, class Limit>
+__device__ __forceinline__ unsigned rt_gate_rays(const float* box, const float* rays,
+                                                 unsigned which, Limit limit) {
+  unsigned crossing = 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if ((which >> k & 1u) && rt_gate_ray(box, rays + k * RT_RAY, limit(k))) crossing |= 1u << k;
+  return crossing;
+}
+
+// The two-level box gate of a warp that owns K rays (`alive`: a bit per ray
+// still in play; `limit(k)`: ray k's segment end). Lane l tests the superbox
+// 32i + l of `saabb` against every live ray; the superblocks that any ray
+// crosses are taken in storage order, 32 >> sb_shift of them per step, lane
+// l testing block (l & (2^sb_shift - 1)) of superblock (l >> sb_shift) (no
+// superblock holds more than 2^sb_shift blocks); `visit(b, who, flag,
+// first)` then runs, warp-uniform, for every block b in storage order that
+// the rays `who` cross; `flag` is block_flag[b] (0 without a table), loaded
+// beside the box so that visit need not wait for it, and `first` says that
+// b is the first block since the boxes were tested. A limit may shrink
+// inside visit (the cast's best t) and visit may take rays out of `alive`:
+// later gates see both. Both levels are conservative (a superbox is the
+// union of its boxes), so a ray visits every block that holds a hit within
+// its limit. All 32 lanes call this together.
+template <int K, class Limit, class Visit>
+__device__ __forceinline__ void rt_warp_blocks(const float* __restrict__ aabb,
+                                               const float* __restrict__ saabb,
+                                               const int* __restrict__ sb_start, int nsb,
+                                               int sb_shift,
+                                               const float* __restrict__ block_flag, int lane,
+                                               const float* rays, const unsigned& alive,
+                                               Limit limit, Visit visit) {
+  const int per_step = 32 >> sb_shift;
+  const int slot = lane >> sb_shift, member = lane & ((1 << sb_shift) - 1);
+  float box[8];
+  for (int g0 = 0; g0 < nsb && alive; g0 += 32) {
+    const int g = g0 + lane;
+    int first = 0, count = 0;
+    unsigned sees = 0;  // the rays that cross this lane's superbox
+    if (g < nsb) {
+      first = sb_start[g];
+      count = sb_start[g + 1] - first;
+      if (rt_load_box(saabb + (size_t)g * 8, box)) sees = rt_gate_rays<K>(box, rays, alive, limit);
+    }
+    unsigned groups = __ballot_sync(RT_WARP, sees != 0);
+    while (groups && alive) {
+      // this step's superblocks: the lowest per_step set bits of `groups`
+      unsigned mine = 0xffffffffu;
+      for (int i = 0; i < per_step && groups; ++i) {
+        if (i == slot) mine = __ffs(groups) - 1;
+        groups &= groups - 1;
+      }
+      const int src = (mine == 0xffffffffu) ? 0 : (int)mine;
+      const int b = __shfl_sync(RT_WARP, first, src) + member;
+      const int n = __shfl_sync(RT_WARP, count, src);
+      const unsigned cand = __shfl_sync(RT_WARP, sees, src) & alive;
+      unsigned in_box = 0;  // the rays that cross this lane's box
+      float flag = 0.0f;
+      if (mine != 0xffffffffu && member < n && cand) {
+        if (block_flag) flag = block_flag[b];
+        if (rt_load_box(aabb + (size_t)b * 8, box)) in_box = rt_gate_rays<K>(box, rays, cand, limit);
+      }
+      unsigned blocks = __ballot_sync(RT_WARP, in_box != 0);
+      bool first_visit = true;
+      while (blocks && alive) {
+        const int owner = __ffs(blocks) - 1;
+        blocks &= blocks - 1;
+        const int bb = __shfl_sync(RT_WARP, b, owner);
+        const unsigned who = __shfl_sync(RT_WARP, in_box, owner) & alive;
+        const float bb_flag = __shfl_sync(RT_WARP, flag, owner);
+        if (!who) continue;
+        visit(bb, who, bb_flag, first_visit);
+        first_visit = false;
+      }
+    }
+  }
+}
+
+// One Morton block of `pack` (nb, B, 32; B a multiple of 32) for the casts
+// of a warp's rays `who`: the rows go through `stage` (RT_STAGE_ROWS *
+// RT_ROW4 words of the warp's own), lane l tests rows l, l + 32, ... against
+// each ray, keeping per ray its own best (t, slot) under a strict `<`, so
+// within a lane the lower slot keeps a tie. Afterwards
+// best_t[k] is the warp's best t, and a ray whose best t shrank is marked in
+// *stale: the boxes were tested against the old one, so such a ray is first
+// tested again against this block's box and left out if the segment
+// [0, best_t[k]] now misses it. A valid t is > 0, so its bits order as an
+// unsigned integer and one `redux` instruction takes the minimum.
+template <int K>
+__device__ __forceinline__ void rt_warp_cast_block(const float* __restrict__ pack,
+                                                   const float* __restrict__ aabb, int b, int B,
+                                                   int lane, const float* rays, unsigned who,
+                                                   bool backface, float* lane_t, int* lane_idx,
+                                                   float* best_t, unsigned* stale,
+                                                   float4* stage) {
+  if (who & *stale) {
+    float box[8];
+    rt_load4<2>(aabb + (size_t)b * 8, box);
+    who = (who & ~*stale) |
+          rt_gate_rays<K>(box, rays, who & *stale, [&](int k) { return best_t[k]; });
+    if (!who) return;
+  }
+  const float* blk = pack + (size_t)b * B * 32;
+  for (int c0 = 0; c0 < B; c0 += RT_STAGE_ROWS) {
+    const int n = min(RT_STAGE_ROWS, B - c0);
+    rt_stage_rows(stage, blk + c0 * 32, n, lane);
+    for (int c = lane; c < n; c += 32) {
+      float w[4 * RT_ROW4];
+      rt_staged_row(stage, c, w);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (!(who >> k & 1u)) continue;
+        const float* ray = rays + k * RT_RAY;
+        float t;
+        bool valid = rt_tri_test(w, ray[0], ray[1], ray[2], ray[3], ray[4], ray[5], &t);
+        if (backface)
+          valid = valid && ((rt_dot_normal(w, ray[3], ray[4], ray[5]) < 0.75f) || (w[14] != 0.0f));
+        if (valid && t < lane_t[k]) {
+          lane_t[k] = t;
+          lane_idx[k] = b * B + c0 + c;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (!(who >> k & 1u)) continue;
+    const float t = __uint_as_float(__reduce_min_sync(RT_WARP, __float_as_uint(lane_t[k])));
+    if (t < best_t[k]) *stale |= 1u << k;
+    best_t[k] = t;
+  }
+}
+
+// The warp's nearest hit from its lanes' bests: the smallest t and, among
+// the lanes that hold it, the lowest slot. With blocks visited in any order
+// and skipped only when they cannot hold a hit within the best t so far,
+// that is the plain scan's answer: the earlier block and the lower slot win
+// a tie. A miss is (+inf, 2^31-1).
+__device__ __forceinline__ int rt_warp_nearest(float lane_t, int lane_idx, float best_t) {
+  const unsigned mine = (lane_t == best_t) ? (unsigned)lane_idx : 0x7fffffffu;
+  return (int)__reduce_min_sync(RT_WARP, mine);
+}
+
 // x**5 in XLA's binary-exponentiation order, as ops/intersect.py::pow5
 __device__ __forceinline__ float rt_pow5(float x) {
   const float x2 = x * x;

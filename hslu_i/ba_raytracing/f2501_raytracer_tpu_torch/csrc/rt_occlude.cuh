@@ -8,8 +8,9 @@
 //                                     0 for an opaque occluder)
 //   opq = any opaque hit
 //   fr, fg, fb = sum(absorption)
-// One thread owns a ray and scans in storage order, so a ray's f32 sums are
-// the same bits on every run (no atomics, no cross-thread reduction).
+// A ray's hits are added in storage order, whether one thread owns the ray
+// (occl_pack, occl_blocks) or a warp does (occl_warp_block), so its f32 sums
+// are the same bits on every run and in both forms: no atomics, no tree.
 #pragma once
 
 #include "rt_common.cuh"
@@ -82,6 +83,94 @@ __device__ __forceinline__ bool occl_blocks(const float* __restrict__ pack,
       return true;
   }
   return false;
+}
+
+// A warp's shadow sums in shared memory, 8 floats per ray: the total (dec,
+// fr, fg, fb) and the current block's partial sums. They are touched only
+// where a transmissive triangle is hit, which is rare.
+#define OCCL_SUMS 8
+
+// One Morton block (B rows, a multiple of 32) for the shadow rays `who` of a
+// warp: the rows go through `stage` (rt_common.cuh::rt_stage_rows), lane l
+// tests rows l, l + 32, ... against each ray with occl_tri's arithmetic (ray
+// record slot 9 is the max distance). An opaque hit sets the ray's bit in
+// *opq and takes it out of *alive.
+// Otherwise the hit rows' contributions are added in slot order into the
+// block's partial sums (the ballot's bits from the lowest, each lane's
+// values by shuffle), and the partial sums to the ray's total, as occl_pack
+// adds them: bit for bit the sums of the one-thread scan, on every run.
+template <int K>
+__device__ __forceinline__ void occl_warp_block(const float* __restrict__ blk, int B, int lane,
+                                                const float* rays, float* sums, unsigned who,
+                                                bool backface, bool trans_section,
+                                                unsigned* alive, unsigned* opq,
+                                                float4* stage) {
+  unsigned touched = 0;  // rays with partial sums in this block
+  for (int c0 = 0; c0 < B; c0 += RT_STAGE_ROWS) {
+    const int n = min(RT_STAGE_ROWS, B - c0);
+    rt_stage_rows(stage, blk + c0 * 32, n, lane);
+    for (int c = lane; c < n; c += 32) {
+      const float* row = blk + (c0 + c) * 32;
+      float w[4 * RT_ROW4];
+      rt_staged_row(stage, c, w);
+      const bool httr = w[14] != 0.0f;
+      float m[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};  // row floats 20-27
+      bool have_m = false;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (!(who >> k & 1u)) continue;
+        const float* ray = rays + k * RT_RAY;
+        float t;
+        bool valid = rt_tri_test(w, ray[0], ray[1], ray[2], ray[3], ray[4], ray[5], &t);
+        const float cos_nv = -rt_dot_normal(w, ray[3], ray[4], ray[5]);
+        if (backface) valid = valid && ((-cos_nv < 0.75f) || httr);
+        const bool hit = valid && t <= ray[9];
+        unsigned hits = __ballot_sync(RT_WARP, hit);
+        if (!hits) continue;
+        if (__any_sync(RT_WARP, hit && !httr)) {
+          *opq |= 1u << k;
+          *alive &= ~(1u << k);
+          who &= ~(1u << k);
+          continue;
+        }
+        float one_minus_io = 1.0f;
+        if (hit) {
+          if (!have_m) rt_load4<2>(row + 20, m);
+          have_m = true;
+          float io = 0.0f;  // all-opaque rows: every hit decrements opacity fully
+          if (trans_section && httr) io = w[19] * rt_shadow_tr_red(cos_nv, w[18], m[0], m[1], true);
+          one_minus_io = 1.0f - io;
+        }
+        float* part = sums + k * OCCL_SUMS + 4;
+        const bool fresh = !(touched >> k & 1u);
+        float p0 = fresh ? 0.0f : part[0], p1 = fresh ? 0.0f : part[1];
+        float p2 = fresh ? 0.0f : part[2], p3 = fresh ? 0.0f : part[3];
+        while (hits) {
+          const int src = __ffs(hits) - 1;
+          hits &= hits - 1;
+          p0 += __shfl_sync(RT_WARP, one_minus_io, src);
+          p1 += __shfl_sync(RT_WARP, m[2], src);
+          p2 += __shfl_sync(RT_WARP, m[3], src);
+          p3 += __shfl_sync(RT_WARP, m[4], src);
+        }
+        __syncwarp();  // every lane has read the partial sums
+        if (lane == 0) {
+          part[0] = p0;
+          part[1] = p1;
+          part[2] = p2;
+          part[3] = p3;
+        }
+        __syncwarp();
+        touched |= 1u << k;
+      }
+    }
+  }
+  if (lane < K && (touched >> lane & 1u)) {
+    float* tot = sums + lane * OCCL_SUMS;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) tot[i] += tot[4 + i];
+  }
+  if (touched) __syncwarp();
 }
 
 __device__ __forceinline__ void occl_store(const Occl& tot, int r, float* __restrict__ dec,

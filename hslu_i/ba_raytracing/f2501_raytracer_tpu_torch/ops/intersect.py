@@ -199,7 +199,8 @@ def cast_rays(scene: DeviceScene, o, d, backface_culling: bool = False) -> Hit:
         best_t = torch.where(closer, bt, best_t)
         best_idx = torch.where(closer, S + bidx, best_idx)
         tt, tidx = cast_triangles_stream(
-            scene.tri_cast_pack, scene.tri_aabb, o, d, backface_culling=backface_culling,
+            scene.tri_cast_pack, scene.tri_aabb, scene.tri_saabb, o, d,
+            backface_culling=backface_culling, sb_sizes=scene.sb_sizes,
         )
         tri_base = S + scene.n_bigtris
     else:
@@ -365,8 +366,9 @@ def occlude_rays(scene: DeviceScene, o, d, max_distance, backface_culling: bool 
         dec, opq, fsub = _add_pack_occlusion(
             (dec, opq, fsub), [scene.trb_pack], o, d, max_distance, backface_culling)
         tdec, topq, tfsub = occlude_triangles_stream(
-            scene.tri_cast_pack, scene.tri_aabb, o, d, max_distance,
+            scene.tri_cast_pack, scene.tri_aabb, scene.tri_saabb, o, d, max_distance,
             backface_culling=backface_culling, block_has_trans=scene.block_has_trans,
+            sb_sizes=scene.sb_sizes,
         )
     else:
         tdec, topq, tfsub = occlude_triangles(

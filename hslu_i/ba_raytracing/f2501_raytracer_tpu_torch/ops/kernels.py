@@ -141,12 +141,14 @@ _SCENE = [_P, _I, _P, _I, _P, _I, _I, _P, _P, _I, _I, _I]
 _ARGTYPES = {
     "cast_triangles": ("rt_cast_triangles", [
         _P, _P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P]),
-    # o, d, R, pack, nb, B, aabb, backface, t, idx, stream
+    # o, d, R, pack, nb, B, aabb, saabb, sb_start, nsb, sb_shift, rays_per_warp,
+    # backface, t, idx, stream
     "cast_triangles_stream": ("rt_cast_triangles_stream", [
-        _P, _P, _I, _P, _I, _I, _P, _I, _P, _P, _P]),
-    # o, d, maxd, R, pack, nb, B, aabb, block_httr, backface, dec, opq, fsub, stream
+        _P, _P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]),
+    # o, d, maxd, R, pack, nb, B, aabb, saabb, sb_start, nsb, sb_shift, rays_per_warp,
+    # block_httr, backface, dec, opq, fsub, stream
     "occlude_triangles_stream": ("rt_occlude_triangles_stream", [
-        _P, _P, _P, _I, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P]),
+        _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P]),
     # o, d, maxd, R, trb, P, bigtri_trans, pack, nb, B, aabb, saabb, sb_start,
     # nsb, block_httr, backface, dec, opq, fsub, stream
     "occlude_triangles": ("rt_occlude_triangles", [
@@ -317,24 +319,68 @@ def _check_rays(name, o, d, max_distance=None):
     return R, dev
 
 
-def cast_triangles_stream(tri_cast_pack, tri_aabb, o, d, *, backface_culling=False):
-    """Nearest Morton-slot hit of R rays over the blocks of `tri_cast_pack`
-    (nb, B, 32), for scenes past `stream_triangles`: (t (R,) f32, local slot
-    (R,) int32), the port's `pallas_cast_triangles_stream`. The caller folds
-    in spheres and big primitives."""
-    R, dev = _check_rays("cast_triangles_stream", o, d)
+def _check_stream_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes, dev):
+    """Check the scene tables of a streamed kernel: the Morton blocks, their
+    boxes, and the superboxes over `sb_sizes` consecutive blocks each (empty:
+    one per block). Returns (nb, B)."""
     nb, B, _ = tri_cast_pack.shape
     _check(tri_cast_pack, "tri_cast_pack", torch.float32, (nb, B, 32), dev)
     _check(tri_aabb, "tri_aabb", torch.float32, (nb, 8), dev)
+    _check(tri_saabb, "tri_saabb", torch.float32, (len(sb_sizes) or nb, 8), dev)
+    if sb_sizes and (sum(sb_sizes) != nb or min(sb_sizes) < 1):
+        raise ValueError(f"superblock sizes {tuple(sb_sizes)} do not cover {nb} blocks")
+    return nb, B
+
+
+# From this many rays on, a warp of the streamed kernels owns 8 rays instead
+# of one: 8 * 132 SMs * 32 warps, so every SM of an H100 still has 32 warps
+# to hide its loads behind. Below it (a wavefront of the pool) every ray
+# needs a warp of its own to fill the card.
+PACKET_MIN_RAYS = 8 * 132 * 32
+
+
+def rays_per_warp(n_rays: int) -> int:
+    return 8 if n_rays >= PACKET_MIN_RAYS else 1
+
+
+def _warp_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes):
+    """What the warp-per-ray kernels need beyond the checked shapes: B a
+    multiple of 32 (a lane per row), tables aligned for 16-byte loads, and
+    superblocks of at most 32 blocks. Returns (superblock starts on the
+    device, number of superblocks, log2 of the lanes per superblock)."""
+    nb, B, _ = tri_cast_pack.shape
+    if B % 32:
+        raise ValueError(f"tri_cast_pack: blocks of {B} rows; the kernel needs a multiple of 32")
+    for name, t in (("tri_cast_pack", tri_cast_pack), ("tri_aabb", tri_aabb),
+                    ("tri_saabb", tri_saabb)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: not aligned to 16 bytes")
+    largest = max(sb_sizes, default=1)
+    if largest > 32:
+        raise ValueError(f"a superblock of {largest} blocks; the kernel takes at most 32")
+    return (_sb_start(sb_sizes, nb, tri_cast_pack.device), len(sb_sizes) or nb,
+            (largest - 1).bit_length())
+
+
+def cast_triangles_stream(tri_cast_pack, tri_aabb, tri_saabb, o, d, *,
+                          backface_culling=False, sb_sizes=()):
+    """Nearest Morton-slot hit of R rays over the blocks of `tri_cast_pack`
+    (nb, B, 32), for scenes past `stream_triangles`: (t (R,) f32, local slot
+    (R,) int32), the port's `pallas_cast_triangles_stream`. `tri_saabb`,
+    `sb_sizes`: the scene's superboxes and their partition of the blocks, as
+    `cast_triangles` takes them. The caller folds in spheres and big
+    primitives."""
+    R, dev = _check_rays("cast_triangles_stream", o, d)
+    nb, B = _check_stream_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes, dev)
     if dev.type == "cpu":
         return cast_triangles_stream_plain(tri_cast_pack, o, d, backface_culling)
-    o_soa = o.t().contiguous()  # (3, R): coalesced per-ray loads
-    d_soa = d.t().contiguous()
+    sb, nsb, sb_shift = _warp_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes)
     t_out = torch.empty((R,), dtype=torch.float32, device=dev)
     idx_out = torch.empty((R,), dtype=torch.int32, device=dev)
     _launch(
-        "cast_triangles_stream", _ptr(o_soa), _ptr(d_soa), R, _ptr(tri_cast_pack), nb, B,
-        _ptr(tri_aabb), int(bool(backface_culling)), _ptr(t_out), _ptr(idx_out),
+        "cast_triangles_stream", _ptr(o), _ptr(d), R, _ptr(tri_cast_pack), nb, B,
+        _ptr(tri_aabb), _ptr(tri_saabb), _ptr(sb), nsb, sb_shift, rays_per_warp(R),
+        int(bool(backface_culling)), _ptr(t_out), _ptr(idx_out),
     )
     return t_out, idx_out
 
@@ -393,34 +439,34 @@ def _occlusion_outputs(R, dev):
             torch.empty((R, 3), dtype=torch.float32, device=dev))
 
 
-def occlude_triangles_stream(tri_cast_pack, tri_aabb, o, d, max_distance, *,
-                             backface_culling=False, block_has_trans=()):
+def occlude_triangles_stream(tri_cast_pack, tri_aabb, tri_saabb, o, d, max_distance, *,
+                             backface_culling=False, block_has_trans=(), sb_sizes=()):
     """Shadow sums of R rays over the Morton blocks of `tri_cast_pack`, for
     scenes past `stream_triangles`, the port's
     `pallas_occlude_triangles_stream`: (opacity_decrement_sum (R,) f32,
     any_opaque (R,) bool, filter_sub (R,3) f32) over the hits with
     t <= max_distance. `block_has_trans`: the scene's per-block
-    any-transmissive flags (empty: every block runs the shadow Fresnel).
-    The caller folds in spheres and big primitives.
+    any-transmissive flags (empty: every block runs the shadow Fresnel);
+    `tri_saabb`, `sb_sizes`: the superboxes and their partition of the
+    blocks, as `occlude_triangles` takes them. The caller folds in spheres
+    and big primitives.
 
     `any_opaque` is exact. The two sums are specified where `any_opaque` is
     False: the kernel stops a ray's scan at its first opaque hit, the twin
     scans on, and no caller reads the sums of an occluded ray."""
     R, dev = _check_rays("occlude_triangles_stream", o, d, max_distance)
-    nb, B, _ = tri_cast_pack.shape
-    _check(tri_cast_pack, "tri_cast_pack", torch.float32, (nb, B, 32), dev)
-    _check(tri_aabb, "tri_aabb", torch.float32, (nb, 8), dev)
+    nb, B = _check_stream_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes, dev)
     if dev.type == "cpu":
         return occlude_triangles_stream_plain(tri_cast_pack, o, d, max_distance,
                                               backface_culling)
+    sb, nsb, sb_shift = _warp_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes)
     httr = _block_httr(block_has_trans, nb, dev)
-    o_soa = o.t().contiguous()
-    d_soa = d.t().contiguous()
     dec, opq, fsub = _occlusion_outputs(R, dev)
     _launch(
-        "occlude_triangles_stream", _ptr(o_soa), _ptr(d_soa), _ptr(max_distance), R,
-        _ptr(tri_cast_pack), nb, B, _ptr(tri_aabb), _ptr(httr),
-        int(bool(backface_culling)), _ptr(dec), _ptr(opq), _ptr(fsub),
+        "occlude_triangles_stream", _ptr(o), _ptr(d), _ptr(max_distance), R,
+        _ptr(tri_cast_pack), nb, B, _ptr(tri_aabb), _ptr(tri_saabb), _ptr(sb), nsb,
+        sb_shift, rays_per_warp(R), _ptr(httr), int(bool(backface_culling)), _ptr(dec),
+        _ptr(opq), _ptr(fsub),
     )
     return dec, opq, fsub
 

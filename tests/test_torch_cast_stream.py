@@ -123,7 +123,8 @@ def test_stream_twin_index_space_matches_pallas(setup):
         jds.tri_aabb, jnp.asarray(o), jnp.asarray(d), ray_tile=128, interpret=True,
     )
     t, i = kernels.cast_triangles_stream(
-        tds.tri_cast_pack, tds.tri_aabb, torch.from_numpy(o), torch.from_numpy(d)
+        tds.tri_cast_pack, tds.tri_aabb, tds.tri_saabb, torch.from_numpy(o),
+        torch.from_numpy(d), sb_sizes=tds.sb_sizes,
     )
     assert t.dtype == torch.float32 and i.dtype == torch.int32
     ref_t, ref_i = np.asarray(ref_t), np.asarray(ref_i)
@@ -137,12 +138,34 @@ def test_stream_twin_index_space_matches_pallas(setup):
 def test_stream_wrapper_checks_inputs(setup):
     _, _, tds, o, d = setup
     o, d = torch.from_numpy(o), torch.from_numpy(d)
+    pack, box, sbox, sizes = tds.tri_cast_pack, tds.tri_aabb, tds.tri_saabb, tds.sb_sizes
+    nb = tds.triangle_blocks
+    assert sum(sizes) == nb and sbox.shape == (len(sizes), 8)
     with pytest.raises(TypeError):
-        kernels.cast_triangles_stream(tds.tri_cast_pack, tds.tri_aabb, o.double(), d)
+        kernels.cast_triangles_stream(pack, box, sbox, o.double(), d, sb_sizes=sizes)
     with pytest.raises(ValueError):
-        kernels.cast_triangles_stream(tds.tri_cast_pack, tds.tri_aabb, o[:, :2], d)
+        kernels.cast_triangles_stream(pack, box, sbox, o[:, :2], d, sb_sizes=sizes)
     with pytest.raises(ValueError):
-        kernels.cast_triangles_stream(tds.tri_cast_pack, tds.tri_aabb[:-1], o, d)
+        kernels.cast_triangles_stream(pack, box[:-1], sbox, o, d, sb_sizes=sizes)
     with pytest.raises(ValueError):
-        kernels.cast_triangles_stream(tds.tri_cast_pack, tds.tri_aabb,
-                                      o.t().contiguous().t(), d)
+        kernels.cast_triangles_stream(pack, box, sbox, o.t().contiguous().t(), d, sb_sizes=sizes)
+    # the superboxes: one row per entry of sb_sizes, which must cover the blocks
+    with pytest.raises(ValueError):
+        kernels.cast_triangles_stream(pack, box, sbox[:, :6], o, d, sb_sizes=sizes)
+    with pytest.raises(ValueError):
+        kernels.cast_triangles_stream(pack, box, sbox, o, d)  # no partition: nb superboxes
+    with pytest.raises(ValueError, match="do not cover"):
+        kernels.cast_triangles_stream(pack, box, sbox, o, d,
+                                      sb_sizes=sizes[:-1] + (sizes[-1] + 1,))
+    with pytest.raises(ValueError, match="do not cover"):
+        kernels.cast_triangles_stream(pack, box, box[:2], o, d, sb_sizes=(nb + 1, -1))
+    # without a superblock level every block is its own superblock; the CPU
+    # route takes any block size (these scenes have blocks of 32 rows and
+    # narrower ones below)
+    ref = kernels.cast_triangles_stream(pack, box, sbox, o, d, sb_sizes=sizes)
+    flat = kernels.cast_triangles_stream(pack, box, box, o, d)
+    assert torch.equal(ref[0], flat[0]) and torch.equal(ref[1], flat[1])
+    t, i = kernels.cast_triangles_stream(pack[:, :24].contiguous(), box, sbox, o, d,
+                                         sb_sizes=sizes)
+    assert t.shape == (o.shape[0],) and int(i[torch.isfinite(t)].max()) < nb * 24
+    assert sum(kernels.LAUNCHES.values()) == 0

@@ -1,6 +1,7 @@
 """PyTorch port on the card: each of the seven CUDA kernels against its plain
 twin (the streamed and occlusion kernels also on NaN and parked rays, rays
-that start on a block's box, max_distance <= 0, and run to run), the pool's
+that start on a block's box, axis-aligned rays, max_distance <= 0, ragged
+ray counts, coincident triangles, empty blocks, and run to run), the pool's
 chunk commit, and small renders against the CPU twins.
 
 Needs an NVIDIA GPU and nvcc; every test carries the `gpu` marker and skips
@@ -238,26 +239,126 @@ def _max_distances(n, seed, dev):
     return torch.from_numpy(md).to(dev)
 
 
+def _stream_tables(dev, case):
+    """(cfg, scene, (tri_cast_pack, tri_aabb, tri_saabb), sb_sizes, the slots
+    of the coincident triangles) of one case of the streamed kernels' tests:
+    cloud    the scene of `_cloud_scene`: superblocks of 8 blocks;
+    flat     the same with no superblock level (one superbox per block);
+    empty    built with `min_tri_blocks=7`: trailing empty blocks, each with
+             an inverted box in a superblock of its own;
+    ties     the cloud with its most-hit triangle copied into an earlier and
+             a later slot of its block and into two other blocks, the boxes
+             grown to hold it: coincident triangles, where the earlier block
+             and the lower slot must win."""
+    if case == "empty":
+        cfg = RenderConfig(width=1920, height=1080, scene_backface_culling=True, **REALISTIC)
+        scene = triangle_cloud.build_scene(cfg, n=20000, edge_sigma=0.006, glass_share=0.25)
+        ds = build_device_scene(Scene.backface_culling(scene, np.array([0.0, 0.0, 1.0])), cfg,
+                                min_tri_blocks=7, device=dev)
+        empty = (ds.tri_aabb[:, 0] > ds.tri_aabb[:, 3]).cpu().numpy()
+        assert empty.any() and not ds.tri_cast_pack[torch.from_numpy(empty).to(dev)][..., 13].any()
+        assert all(n == 1 for n in ds.sb_sizes[-int(empty.sum()):])
+    else:
+        cfg, ds = _cloud_scene(dev)
+    pack, aabb, saabb, sizes = ds.tri_cast_pack, ds.tri_aabb, ds.tri_saabb, ds.sb_sizes
+    same = []
+    if case == "flat":
+        saabb, sizes = aabb, ()
+    if case == "ties":
+        o, d = (torch.from_numpy(a).to(dev) for a in _rays(cfg, 8192 + 37, 11))
+        _, idx = kernels.cast_triangles_stream_plain(pack, o[256:1024], d[256:1024], False)
+        B = pack.shape[1]
+        slots, counts = torch.unique(idx[idx < pack.shape[0] * B], return_counts=True)
+        src = int(slots[counts.argmax()])
+        b, c = divmod(src, B)
+        assert 2 <= b < pack.shape[0] - 2
+        pack, aabb, saabb = pack.clone(), aabb.clone(), saabb.clone()
+        starts = np.concatenate([[0], np.cumsum(sizes)])
+        same = [src]
+        for b2, c2 in ((b, (c + 5) % B), (b, (c - 7) % B), (b - 2, 9), (b + 2, 40)):
+            pack[b2, c2] = pack[b, c]
+            same.append(b2 * B + c2)
+            g = int(np.searchsorted(starts, b2, side="right") - 1)
+            for box in (aabb[b2], saabb[g]):
+                box[0:3] = torch.minimum(box[0:3], aabb[b, 0:3])
+                box[3:6] = torch.maximum(box[3:6], aabb[b, 3:6])
+    return cfg, ds, (pack.contiguous(), aabb, saabb), sizes, sorted(same)
+
+
+STREAM_CASES = ["cloud", "flat", "empty", "ties"]
+STREAM_WIDTHS = (0, 1, 7, 2049)  # ragged warps and thread blocks; then all rays
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", STREAM_CASES)
 @pytest.mark.parametrize("backface", [False, True])
-def test_cast_stream_kernel_matches_twin(cuda, backface):
-    cfg, ds = _cloud_scene(cuda)
-    o, d = _hard_rays(cfg, ds, cuda, 8192 + 37, 11)
-    kernels.reset_launch_counts()
-    t, idx = kernels.cast_triangles_stream(ds.tri_cast_pack, ds.tri_aabb, o, d,
-                                           backface_culling=backface)
-    torch.cuda.synchronize()
-    assert kernels.LAUNCHES["cast_triangles_stream"] == 1
-    t_ref, idx_ref = kernels.cast_triangles_stream_plain(ds.tri_cast_pack, o, d, backface)
-    # identical index and t: the same operations in the same order, and the
-    # widened gate never culls a block that holds a nearer hit
-    assert torch.equal(idx, idx_ref) and torch.equal(t, t_ref)
+def test_cast_stream_kernel_matches_twin(cuda, monkeypatch, backface, case):
+    cfg, ds, tables, sizes, same = _stream_tables(cuda, case)
+    o_all, d_all = _hard_rays(cfg, ds, cuda, 8192 + 37, 11)
+    for n in STREAM_WIDTHS + (o_all.shape[0],):
+        o, d = o_all[:n].contiguous(), d_all[:n].contiguous()
+        kernels.reset_launch_counts()
+        t, idx = kernels.cast_triangles_stream(*tables, o, d, backface_culling=backface,
+                                               sb_sizes=sizes)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["cast_triangles_stream"] == 1
+        t_ref, idx_ref = kernels.cast_triangles_stream_plain(tables[0], o, d, backface)
+        # identical index and t: the same operations in the same order, the
+        # widened gate never culls a block that holds a nearer hit, and on equal
+        # t the earlier block and the lower slot win
+        assert t.shape == (n,) and idx.dtype == torch.int32
+        assert torch.equal(idx, idx_ref) and torch.equal(t, t_ref)
+        for _ in range(2):  # the same bits on every run
+            again = kernels.cast_triangles_stream(*tables, o, d, backface_culling=backface,
+                                                  sb_sizes=sizes)
+            assert torch.equal(again[0], t) and torch.equal(again[1], idx)
     assert torch.isfinite(t).sum() > 100 and (~torch.isfinite(t)).any()
-    # the scene-level cast adds spheres and big primitives
-    hit = cast_rays(dataclasses.replace(ds, streaming=True), o, d, backface)
-    ref = cast_rays(ds, o, d, backface)
-    assert torch.equal(hit.valid, ref.valid) and torch.equal(hit.t, ref.t)
-    assert torch.equal(hit.obj_idx[hit.valid], ref.obj_idx[ref.valid])
+    # eight rays per warp (the form that many rays take): the same answer, at
+    # ray counts that leave the last warp and the last thread block ragged
+    assert kernels.rays_per_warp(o_all.shape[0]) == 1
+    monkeypatch.setattr(kernels, "PACKET_MIN_RAYS", 1)
+    for n in (1, 7, 2049, o_all.shape[0]):
+        t8, idx8 = kernels.cast_triangles_stream(
+            *tables, o_all[:n].contiguous(), d_all[:n].contiguous(),
+            backface_culling=backface, sb_sizes=sizes)
+        assert torch.equal(t8, t[:n]) and torch.equal(idx8, idx[:n])
+    if case == "ties":
+        # of five coincident triangles only the first in storage order is hit
+        assert (idx == same[0]).any()
+        assert not torch.isin(idx, torch.tensor(same[1:], device=cuda, dtype=idx.dtype)).any()
+    if case == "cloud":
+        # the scene-level cast adds spheres and big primitives
+        hit = cast_rays(dataclasses.replace(ds, streaming=True), o_all, d_all, backface)
+        ref = cast_rays(ds, o_all, d_all, backface)
+        assert torch.equal(hit.valid, ref.valid) and torch.equal(hit.t, ref.t)
+        assert torch.equal(hit.obj_idx[hit.valid], ref.obj_idx[ref.valid])
+
+
+@pytest.mark.gpu
+def test_stream_wrappers_refuse_what_the_kernels_cannot_take(cuda):
+    """On the card: blocks whose row count is no multiple of 32 (a lane per
+    row), tables off a 16-byte boundary, superblocks of more than 32 blocks.
+    The CPU route takes any block size."""
+    cfg, ds, (pack, aabb, saabb), sizes, _ = _stream_tables(cuda, "cloud")
+    o, d = _hard_rays(cfg, ds, cuda, 256, 11)
+    md = _max_distances(256, 13, cuda)
+    narrow = pack[:, :48].contiguous()
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="multiple of 32"):
+        kernels.cast_triangles_stream(narrow, aabb, saabb, o, d, sb_sizes=sizes)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        kernels.occlude_triangles_stream(narrow, aabb, saabb, o, d, md, sb_sizes=sizes)
+    t, _ = kernels.cast_triangles_stream(narrow.cpu(), aabb.cpu(), saabb.cpu(), o.cpu(), d.cpu(),
+                                         sb_sizes=sizes)
+    assert t.shape == (256,)
+    shifted = torch.empty(aabb.numel() + 1, device=cuda)[1:].view_as(aabb).copy_(aabb)
+    with pytest.raises(ValueError, match="16 bytes"):
+        kernels.cast_triangles_stream(pack, shifted, saabb, o, d, sb_sizes=sizes)
+    nb = pack.shape[0]
+    big = (40, nb - 40)
+    with pytest.raises(ValueError, match="at most 32"):
+        kernels.cast_triangles_stream(pack, aabb, saabb[:2].contiguous(), o, d, sb_sizes=big)
+    assert sum(kernels.LAUNCHES.values()) == 0  # a refusal launches nothing
 
 
 def _assert_occlusion(got, ref):
@@ -273,28 +374,58 @@ def _assert_occlusion(got, ref):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", STREAM_CASES)
 @pytest.mark.parametrize("backface", [False, True])
-def test_occlude_stream_kernel_matches_twin(cuda, backface):
-    cfg, ds = _cloud_scene(cuda)
-    o, d = _hard_rays(cfg, ds, cuda, 8192 + 37, 12)
-    md = _max_distances(o.shape[0], 13, cuda)
-    args = (ds.tri_cast_pack, ds.tri_aabb, o, d, md)
-    kw = dict(backface_culling=backface, block_has_trans=ds.block_has_trans)
-    kernels.reset_launch_counts()
-    got = kernels.occlude_triangles_stream(*args, **kw)
-    torch.cuda.synchronize()
-    assert kernels.LAUNCHES["occlude_triangles_stream"] == 1
-    _assert_occlusion(got, kernels.occlude_triangles_stream_plain(ds.tri_cast_pack, o, d, md,
-                                                                  backface))
-    dead = ~(md > 0)
-    assert not got[1][dead].any() and not got[0][dead].any() and not got[2][dead].any()
-    # the same bits on every run: no atomics, one thread per ray
-    for _ in range(2):
-        again = kernels.occlude_triangles_stream(*args, **kw)
-        assert all(torch.equal(a, b) for a, b in zip(got, again))
+def test_occlude_stream_kernel_matches_twin(cuda, monkeypatch, backface, case):
+    cfg, ds, tables, sizes, same = _stream_tables(cuda, case)
+    o_all, d_all = _hard_rays(cfg, ds, cuda, 8192 + 37, 12)
+    md_all = _max_distances(o_all.shape[0], 13, cuda)
+    # the per-block transmissive flags, from the rows (a copied glass
+    # triangle makes its new block transmissive)
+    has_trans = tuple((tables[0][:, :, 14] != 0).any(dim=1).tolist())
+    assert has_trans == ds.block_has_trans or case == "ties"
+    kw = dict(backface_culling=backface, block_has_trans=has_trans, sb_sizes=sizes)
+    for n in STREAM_WIDTHS + (o_all.shape[0],):
+        args = (*tables, o_all[:n].contiguous(), d_all[:n].contiguous(), md_all[:n].contiguous())
+        kernels.reset_launch_counts()
+        got = kernels.occlude_triangles_stream(*args, **kw)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["occlude_triangles_stream"] == 1
+        ref = kernels.occlude_triangles_stream_plain(tables[0], *args[3:], backface)
+        assert got[0].shape == (n,) and got[1].dtype == torch.bool and got[2].shape == (n, 3)
+        if n > 2049:
+            _assert_occlusion(got, ref)
+        else:
+            free = ~ref[1]
+            assert torch.equal(got[1], ref[1])
+            assert torch.allclose(got[0][free], ref[0][free], rtol=0, atol=1e-5)
+            assert torch.allclose(got[2][free], ref[2][free], rtol=0, atol=1e-5)
+        dead = ~(args[5] > 0)  # max_distance <= 0 or NaN: zeros
+        assert not got[1][dead].any() and not got[0][dead].any() and not got[2][dead].any()
+        # the same bits on every run: no atomics, sums in slot order
+        for _ in range(2):
+            again = kernels.occlude_triangles_stream(*args, **kw)
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
     # an empty flag tuple runs the shadow Fresnel on every block: same sums
-    every = kernels.occlude_triangles_stream(*args, backface_culling=backface)
+    every = kernels.occlude_triangles_stream(*args, backface_culling=backface, sb_sizes=sizes)
     assert all(torch.equal(a, b) for a, b in zip(got, every))
+    if case == "cloud":
+        # no superblock level: the same blocks in the same order, the same bits
+        flat = kernels.occlude_triangles_stream(
+            tables[0], tables[1], tables[1], *args[3:], backface_culling=backface,
+            block_has_trans=has_trans)
+        assert all(torch.equal(a, b) for a, b in zip(got, flat))
+    # eight rays per warp (the form that many rays take): `opq` and, where it
+    # is false, the bits of the sums are those of one ray per warp
+    assert kernels.rays_per_warp(o_all.shape[0]) == 1
+    monkeypatch.setattr(kernels, "PACKET_MIN_RAYS", 1)
+    for n in (1, 7, 2049, o_all.shape[0]):
+        dec8, opq8, fsub8 = kernels.occlude_triangles_stream(
+            *tables, *(a[:n].contiguous() for a in args[3:]), **kw)
+        free = ~opq8
+        assert torch.equal(opq8, got[1][:n])
+        assert torch.equal(dec8[free], got[0][:n][free])
+        assert torch.equal(fsub8[free], got[2][:n][free])
 
 
 @pytest.mark.gpu

@@ -144,14 +144,31 @@ def test_occlusion_wrappers_check_inputs(setup):
         kernels.occlude_triangles(*res, o, d, md[:-1], **kw)
     with pytest.raises(ValueError):
         kernels.occlude_triangles(tds.trb_pack[:, :16], *res[1:], o, d, md, **kw)
-    strm = (tds.tri_cast_pack, tds.tri_aabb)
-    dec, opq, fsub = kernels.occlude_triangles_stream(
-        *strm, o, d, md, block_has_trans=tds.block_has_trans)
+    strm = (tds.tri_cast_pack, tds.tri_aabb, tds.tri_saabb)
+    skw = dict(block_has_trans=tds.block_has_trans, sb_sizes=tds.sb_sizes)
+    dec, opq, fsub = kernels.occlude_triangles_stream(*strm, o, d, md, **skw)
     assert dec.dtype == torch.float32 and opq.dtype == torch.bool and fsub.shape == (o.shape[0], 3)
     with pytest.raises(TypeError):
-        kernels.occlude_triangles_stream(*strm, o.double(), d, md)
+        kernels.occlude_triangles_stream(*strm, o.double(), d, md, **skw)
     with pytest.raises(ValueError):
-        kernels.occlude_triangles_stream(tds.tri_cast_pack, tds.tri_aabb[:, :6], o, d, md)
+        kernels.occlude_triangles_stream(tds.tri_cast_pack, tds.tri_aabb[:, :6], tds.tri_saabb,
+                                         o, d, md, **skw)
+    # the superboxes: one row per entry of sb_sizes, which must cover the blocks
+    nb = tds.triangle_blocks
+    with pytest.raises(ValueError):
+        kernels.occlude_triangles_stream(*strm[:2], tds.tri_saabb[:, :6], o, d, md, **skw)
+    with pytest.raises(ValueError, match="do not cover"):
+        kernels.occlude_triangles_stream(*strm, o, d, md, block_has_trans=tds.block_has_trans,
+                                         sb_sizes=(nb + 1,) + tds.sb_sizes[1:])
+    if len(tds.sb_sizes) != nb:
+        with pytest.raises(ValueError):  # no partition: one superbox per block
+            kernels.occlude_triangles_stream(*strm, o, d, md)
+    # no superblock level, and (on the CPU route) blocks of any row count
+    flat = kernels.occlude_triangles_stream(*strm[:2], tds.tri_aabb, o, d, md)
+    assert all(torch.equal(a, b) for a, b in zip((dec, opq, fsub), flat))
+    narrow = kernels.occlude_triangles_stream(tds.tri_cast_pack[:, :24].contiguous(), *strm[1:],
+                                              o, d, md, **skw)
+    assert narrow[1].shape == (o.shape[0],)
     # the per-block transmissive table: one entry per block, all ones when empty
     nb = tds.triangle_blocks
     table = kernels._block_httr(tds.block_has_trans, nb, torch.device("cpu"))

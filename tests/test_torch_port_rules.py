@@ -196,6 +196,23 @@ def test_seven_kernels_each_with_source_wrapper_and_twin():
         assert "atomicAdd" not in text, f  # f32 sums keep one order
 
 
+@pytest.mark.parametrize("name", ["cast_triangles_stream", "occlude_triangles_stream"])
+def test_streamed_kernels_use_no_atomics(name):
+    """The warp-per-ray kernels reduce across lanes with ballots, shuffles
+    and `redux`, in a fixed order: their code (comments set aside), and that
+    of the headers it includes, names no atomic operation."""
+    import re
+
+    files = [kernels.KERNEL_SOURCES[name], "rt_common.cuh", "rt_occlude.cuh"]
+    code = ""
+    for f in files:
+        with open(os.path.join(kernels.CSRC, f)) as fh:
+            code += re.sub(r"//[^\n]*", "", fh.read())
+    assert "atomic" not in code.lower()
+    for needed in ("__ballot_sync", "__shfl_sync", "threadIdx.x >> 5"):
+        assert needed in code, needed
+
+
 def test_sources_name_no_jax():
     """Neither the package nor chip_smoke.py imports JAX or the JAX package
     (a static scan beside the import check above)."""
@@ -222,9 +239,9 @@ def test_scene_level_wrappers_refuse_other_devices():
     o = torch.zeros((8, 3), device="meta")
     md = torch.zeros((8,), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        kernels.cast_triangles_stream(pack, box, o, o)
+        kernels.cast_triangles_stream(pack, box, box, o, o)
     with pytest.raises(ValueError, match="unsupported device"):
-        kernels.occlude_triangles_stream(pack, box, o, o, md)
+        kernels.occlude_triangles_stream(pack, box, box, o, o, md)
     with pytest.raises(ValueError, match="unsupported device"):
         kernels.occlude_triangles(torch.zeros((8, 32), device="meta"), pack, box, box, o, o, md)
 

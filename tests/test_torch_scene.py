@@ -129,6 +129,60 @@ def test_streamed_scene_equals_jax_and_crosses_unchanged():
     assert ds.tri_cast_pack.shape == (ds.triangle_blocks, B, 32)
 
 
+def _superblock_scene(name):
+    if name == "cloud":
+        # the streamed frame's scene at a tenth of its cloud, at the 1080p
+        # block size, forced past the threshold
+        from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.models import triangle_cloud
+
+        cfg = RenderConfig(width=1920, height=1080, scene_backface_culling=True,
+                           stream_triangles=4096, **REALISTIC)
+        scene = Scene.backface_culling(triangle_cloud.build_scene(cfg, n=12_000),
+                                       np.array([0.0, 0.0, 1.0]))
+        return build_device_scene(scene, cfg, device="cpu")
+    if name == "cloud_padded":
+        cfg = RenderConfig(width=64, height=48, triangle_block=32, stream_triangles=64,
+                           **REALISTIC)
+        return build_device_scene(build("semesterbild", cfg), cfg, min_tri_blocks=7,
+                                  device="cpu")
+    jcfg = JaxConfig(width=64, height=48, triangle_block=32, stream_triangles=64, **REALISTIC)
+    fields, static = _jax_arrays(jax_build(jax_model("semesterbild", jcfg), jcfg))
+    return device_scene_from_arrays(fields, static, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["cloud", "cloud_padded", "carried_from_jax"])
+def test_streamed_scene_carries_superboxes_over_its_blocks(name):
+    """What the streamed kernels' two-level gate reads: `sb_sizes` partitions
+    the blocks of `tri_cast_pack` in storage order, `tri_saabb` has one row
+    per group, and every superbox contains the boxes of its blocks. An empty
+    block has an inverted box, no valid row, and a group of its own."""
+    ds = _superblock_scene(name)
+    nb = ds.triangle_blocks
+    assert ds.streaming and ds.tri_cast_pack.shape[0] == nb == ds.tri_aabb.shape[0]
+    assert sum(ds.sb_sizes) == nb and min(ds.sb_sizes) >= 1
+    assert tuple(ds.tri_saabb.shape) == (len(ds.sb_sizes), 8)
+    assert len(ds.sb_sizes) < nb and max(ds.sb_sizes) <= 32
+    box, sbox = ds.tri_aabb.numpy(), ds.tri_saabb.numpy()
+    empty = (box[:, 0:3] > box[:, 3:6]).any(axis=1)
+    assert not ds.tri_cast_pack.numpy()[empty][..., 13].any()
+    assert empty.any() == (name == "cloud_padded")
+    start = 0
+    for g, n in enumerate(ds.sb_sizes):
+        inside = slice(start, start + n)
+        if empty[inside].any():
+            assert n == 1 and (sbox[g, 0:3] > sbox[g, 3:6]).all()
+        else:
+            assert (sbox[g, 0:3] <= box[inside, 0:3]).all()
+            assert (sbox[g, 3:6] >= box[inside, 3:6]).all()
+            # and is no larger than their union
+            np.testing.assert_array_equal(sbox[g, 0:3], box[inside, 0:3].min(axis=0))
+            np.testing.assert_array_equal(sbox[g, 3:6], box[inside, 3:6].max(axis=0))
+        start += n
+    # every valid triangle's Woop row lies in a block whose box is not inverted
+    valid = ds.tri_cast_pack.numpy()[..., 13] != 0
+    assert valid[~empty].any(axis=1).all()
+
+
 def test_soft_shadow_light_pack_equals_jax():
     """The soft-shadow light cloud of the 1080p frame: 50 lights in a pack
     padded to 56 rows, every field bit-equal to the JAX build."""
