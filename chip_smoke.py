@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--report PATH] [--stop-after PHASE] [--streamed-frames N]
+    python3 chip_smoke.py [--report PATH]
 
 Phases (any failure fails the run; nothing is caught; each prints its
 seconds):
@@ -26,9 +26,9 @@ seconds):
      are compared where `opq` is false and must have the same bits on every
      run. For the two streamed kernels (one warp per ray, a two-level box
      gate) each line also gives the kernel's own time on the device
-     (torch.profiler), the superblocks and blocks a ray crosses, and the
-     time with the superblock level taken away (every box tested, 32 per
-     step), and their registers per thread are printed;
+     (torch.profiler), the superblocks and blocks a ray crosses and the
+     operations of the gate's box tests (this design's own work, kept out
+     of `bound_ms`), and their registers per thread are printed;
   3. render the full 1920x1080 `realistic` frame (bench.py's settings, the
      packed-row pool path) through RaytracerRenderer(cfg, device="cuda"):
      warm frame wall time, launch counts (cast_triangles and
@@ -76,13 +76,6 @@ import torch
 
 parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
 parser.add_argument("--report", help="also write the measurements to this JSON file")
-parser.add_argument("--stop-after", metavar="PHASE",
-                    help="stop after this phase (build, kernels, stream_kernels, ...) with exit "
-                         "code 3 and no result lines: for a quick look at the kernels' times")
-parser.add_argument("--streamed-frames", type=int, metavar="N",
-                    help="after the resident kernels' checks, render only the streamed 1080p "
-                         "frame, once to warm up and N times more, print the wall times and "
-                         "exit with code 3: for comparing two checkouts in turns within one run")
 ARGS = parser.parse_args()
 
 if not torch.cuda.is_available():
@@ -149,9 +142,6 @@ def phase(name):
     s = time.monotonic() - t0
     report["phase_s"][name] = s
     log(f"[phase {name}: {s:.1f} s]")
-    if ARGS.stop_after == name:
-        log(f"stopped after phase {name} as asked: no result lines")
-        sys.exit(3)
 
 
 def cuda_ms(fn, iters, warmup=3):
@@ -228,7 +218,9 @@ with phase("build"):
     t0 = time.monotonic()
     built = kernels.build_kernels()
     report["build_s"] = time.monotonic() - t0
-    log(f"kernel build: {report['build_s']:.1f} s (parallel nvcc, {len(built)} kernels)")
+    n_cached = sum(info["cached"] for info in built.values())
+    log(f"kernel build: {report['build_s']:.1f} s (parallel nvcc, {len(built)} kernels, "
+        f"{n_cached} of them found built: their ptxas lines are those of that build)")
     assert sorted(built) == sorted(kernels.KERNEL_SOURCES), built
     report["ptxas"] = {}
     for name, info in built.items():
@@ -561,7 +553,10 @@ def stream_tables(scene):
 def gate_work(scene, o, d, t_limit):
     """What the two-level gate of the streamed kernels does for these rays:
     (superblocks crossed, blocks crossed, the most blocks one ray crosses,
-    box tests: every superbox, then the boxes of the crossed superblocks)."""
+    f32 operations of its box tests: every superbox, then the boxes of the
+    crossed superblocks). The box tests are this design's work, not the
+    function's (a deeper hierarchy would test fewer): they stay out of the
+    bound."""
     sizes = torch.tensor(scene.sb_sizes, device=DEV)
     n_sb = n_boxes = crossed = most = 0
     chunk = 8192
@@ -573,18 +568,23 @@ def gate_work(scene, o, d, t_limit):
         per_ray = gate_hits(scene.tri_aabb, *part).sum(1)
         crossed += int(per_ray.sum())
         most = max(most, int(per_ray.max()))
-    return n_sb, crossed, most, o.shape[0] * len(scene.sb_sizes) + n_boxes
+    return n_sb, crossed, most, OPS_BOX * (o.shape[0] * len(scene.sb_sizes) + n_boxes)
 
 
-def gate_note(scene, n_sent, n_rays, n_sb, crossed, most, flat_ms, dev_ms):
-    """The streamed kernels' part of a line: `n_sent` rays went to the
-    kernel, the gate's counts are over `n_rays` of them."""
+def gate_note(name, label, scene, n_sent, n_rays, n_sb, crossed, most, gate_ops, dev_ms):
+    """The streamed kernels' part of a line, also kept with the results:
+    `n_sent` rays went to the kernel, the gate's counts are over `n_rays` of
+    them."""
+    results[name][label].update(
+        device_ms=dev_ms, superblocks_per_ray=n_sb / max(n_rays, 1),
+        blocks_per_ray=crossed / max(n_rays, 1), most_blocks=most, gate_ops=gate_ops,
+        rays_per_warp=kernels.rays_per_warp(n_sent))
     alone = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
-    return (f"; on the device alone {alone}; {kernels.rays_per_warp(n_sent)} rays per "
-            f"warp; per ray "
-            f"{n_sb / max(n_rays, 1):.2f} of {len(scene.sb_sizes)} superblocks and "
-            f"{crossed / max(n_rays, 1):.2f} of {scene.triangle_blocks} blocks crossed (at most "
-            f"{most}); without the superblock level {flat_ms:.4f} ms")
+    log(f"  on the device alone {alone}; {kernels.rays_per_warp(n_sent)} rays per warp; per ray "
+        f"{n_sb / max(n_rays, 1):.2f} of {len(scene.sb_sizes)} superblocks and "
+        f"{crossed / max(n_rays, 1):.2f} of {scene.triangle_blocks} blocks crossed (at most "
+        f"{most}); the gate's box tests {gate_ops:.3g} operations "
+        f"({gate_ops / PEAK_F32 * 1e3:.4f} ms at the card's peak, not in the bound)")
 
 
 def check_cast_stream(label, scene, o, d, iters, backface):
@@ -599,34 +599,26 @@ def check_cast_stream(label, scene, o, d, iters, backface):
     for _ in range(2):
         t2, i2 = kernels.cast_triangles_stream(*tables, o, d, **kw)
         assert torch.equal(t2, t) and torch.equal(i2, i), f"cast_stream {label}: runs differ"
-    # one level only: every block its own superblock, the same result
-    flat = lambda: kernels.cast_triangles_stream(  # noqa: E731
-        scene.tri_cast_pack, scene.tri_aabb, scene.tri_aabb, o, d, backface_culling=backface)
-    assert all(torch.equal(a, b) for a, b in zip(flat(), (t, i)))
     ms = cuda_ms(lambda: kernels.cast_triangles_stream(*tables, o, d, **kw), iters)
-    flat_ms = cuda_ms(flat, iters)
     dev_ms = device_ms(lambda: kernels.cast_triangles_stream(*tables, o, d, **kw), iters)
-    n_sb, crossed, most, box_tests = gate_work(scene, o, d, t)
+    n_sb, crossed, most, gate_ops = gate_work(scene, o, d, t)
+    # the pair tests this data needs: the rows of every block the segment crosses
     record("cast_triangles_stream", label, o.shape[0], max_err(t, t_ref), ms, plain,
-           nbytes(o, d, *tables, t, i),
-           OPS_TRI * scene.tri_block * crossed + OPS_BOX * box_tests,
-           f"; hits {int(torch.isfinite(t).sum())}"
-           + gate_note(scene, o.shape[0], o.shape[0], n_sb, crossed, most, flat_ms, dev_ms))
-    results["cast_triangles_stream"][label].update(
-        flat_gate_ms=flat_ms, device_ms=dev_ms, superblocks_per_ray=n_sb / max(o.shape[0], 1),
-        blocks_per_ray=crossed / max(o.shape[0], 1), most_blocks=most,
-        rays_per_warp=kernels.rays_per_warp(o.shape[0]))
+           nbytes(o, d, *tables, t, i), OPS_TRI * scene.tri_block * crossed,
+           f"; hits {int(torch.isfinite(t).sum())}")
+    gate_note("cast_triangles_stream", label, scene, o.shape[0], o.shape[0], n_sb, crossed, most,
+              gate_ops, dev_ms)
 
 
 def check_occlusion(name, label, scene, kernel_fn, twin_fn, o, d, md, tables, iters,
-                    real=None, big_rows=0, flat_fn=None):
+                    real=None, big_rows=0, streamed=False):
     """An occlusion kernel against its twin: `opq` identical, the sums within
     1e-5 where `opq` is false, the same bits on three runs. `real` leaves out
     the shadow rays of lanes without a hit: they start at the parking point
     1e9, where f32 has a spacing of 64, so the ungated twin's pair tests and
     the kernel's box tests both work on noise (the light loop discards
-    their results). `flat_fn` (the streamed kernel): the same call without
-    the superblock level, which must give the same bits and is timed."""
+    their results). `streamed`: the kernel with a warp per ray, whose gate
+    and time on the device alone are printed too."""
     got = kernel_fn()
     torch.cuda.synchronize()
     ref, plain = timed_once(twin_fn)
@@ -649,28 +641,18 @@ def check_occlusion(name, label, scene, kernel_fn, twin_fn, o, d, md, tables, it
     n_opq = int((opq & real).sum())
     note = (f"; real rays {int(real.sum())}, occluded {n_opq}, partly shaded "
             f"{int(((dec > 0) & free).sum())}")
-    if flat_fn is None:
-        crossed = crossed_blocks(scene.tri_aabb, o[live], d[live], md[live])
-        ops = 0
-        note += f", {crossed / max(n_live, 1):.1f} blocks crossed per live ray"
-    else:
-        # the streamed kernel: the two-level gate's box tests count too
-        assert all(torch.equal(a, b) for a, b in zip(got, flat_fn())), \
-            f"{name} {label}: the superblock level changes the result"
-        flat_ms = cuda_ms(flat_fn, iters)
+    if streamed:
         dev_ms = device_ms(kernel_fn, iters)
-        n_sb, crossed, most, box_tests = gate_work(scene, o[live], d[live], md[live])
-        ops = OPS_BOX * box_tests
-        note += (f" (of the {n_live} live rays)"
-                 + gate_note(scene, o.shape[0], n_live, n_sb, crossed, most, flat_ms, dev_ms))
+        n_sb, crossed, most, gate_ops = gate_work(scene, o[live], d[live], md[live])
+        note += f", {n_live} live"
+    else:
+        crossed = crossed_blocks(scene.tri_aabb, o[live], d[live], md[live])
+        note += f", {crossed / max(n_live, 1):.1f} blocks crossed per live ray"
     tests = scene.tri_block * crossed + big_rows * n_live + n_opq
     record(name, label, o.shape[0], err, ms, plain, nbytes(o, d, md, *tables, *got),
-           OPS_OCCL * tests + ops, note)
-    if flat_fn is not None:
-        results[name][label].update(
-            flat_gate_ms=flat_ms, device_ms=dev_ms, superblocks_per_ray=n_sb / max(n_live, 1),
-            blocks_per_ray=crossed / max(n_live, 1), most_blocks=most,
-            rays_per_warp=kernels.rays_per_warp(o.shape[0]))
+           OPS_OCCL * tests, note)
+    if streamed:
+        gate_note(name, label, scene, o.shape[0], n_live, n_sb, crossed, most, gate_ops, dev_ms)
     return got
 
 
@@ -681,9 +663,7 @@ def check_occl_stream(label, scene, o, d, md, iters, backface, real=None):
         "occlude_triangles_stream", label, scene,
         lambda: kernels.occlude_triangles_stream(*tables, o, d, md, sb_sizes=scene.sb_sizes, **kw),
         lambda: kernels.occlude_triangles_stream_plain(scene.tri_cast_pack, o, d, md, backface),
-        o, d, md, tables, iters, real=real,
-        flat_fn=lambda: kernels.occlude_triangles_stream(
-            scene.tri_cast_pack, scene.tri_aabb, scene.tri_aabb, o, d, md, **kw))
+        o, d, md, tables, iters, real=real, streamed=True)
 
 
 def shadow_rays(scene, c, o, d, active):
@@ -713,16 +693,6 @@ log(f"streamed scene: {ds_cloud.n_triangles} triangle slots in {ds_cloud.triangl
     f"blocks of {ds_cloud.tri_block} ({sum(ds_cloud.block_has_trans)} with transmissive "
     f"triangles), {ds_cloud.n_bigtris} big rows, {ds_cloud.n_lights} lights; built in "
     f"{time.monotonic() - t0:.1f} s")
-
-if ARGS.streamed_frames:
-    walls = []
-    for _ in range(ARGS.streamed_frames + 1):
-        fb, wall, launches, dropped = run_frame(renderer, ds_cloud)
-        assert dropped == 0 and launches["cast_triangles_stream"] > 0, (dropped, launches)
-        walls.append(round(wall * 1e3, 1))
-    log(f"streamed (1920x1080) frames only: warm-up {walls[0]} ms, then {walls[1:]} ms; "
-        f"launches {launches}, u32 sha256 {checksum(fb)}; no result lines")
-    sys.exit(3)
 
 with phase("stream_kernels"):
     rng = np.random.default_rng(8)
@@ -788,7 +758,6 @@ with phase("stream_kernels"):
     log(f"occlude_rays(scene, ...) on {so_4.shape[0]} rays: launches {entry_launches}, "
         f"occluded {int((opq_e & real_4).sum())} of {int(real_4.sum())} real rays, "
         f"max |entry - pack-level twin| {err_e:.3g}")
-
 
 
 frames = {}
@@ -1004,13 +973,13 @@ for name, (src, tpu_line, path, main, others) in ENTRIES.items():
         entry.update({f"ms_{sfx}": o_res["ms"], f"plain_ms_{sfx}": o_res["plain_ms"],
                       f"bound_ms_{sfx}": o_res["bound_ms"], f"bound_by_{sfx}": o_res["bound_by"],
                       f"rays_{sfx}": o_res["R"]})
-    if "flat_gate_ms" in m:
+    if "gate_ops" in m:
         entry.update(registers=report["ptxas"][name]["registers"])
         for label in [main, *others]:
             sfx = "" if label == main else "_" + EXTRA[label]
             entry.update({k + sfx: results[name][label][k] for k in
-                          ("flat_gate_ms", "device_ms", "superblocks_per_ray", "blocks_per_ray",
-                           "most_blocks", "rays_per_warp")})
+                          ("device_ms", "superblocks_per_ray", "blocks_per_ray", "most_blocks",
+                           "gate_ops", "rays_per_warp")})
     line.append(entry)
 report["kernels"] = line
 report["frames"] = frames

@@ -321,13 +321,13 @@ def _check_rays(name, o, d, max_distance=None):
 
 def _check_stream_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes, dev):
     """Check the scene tables of a streamed kernel: the Morton blocks, their
-    boxes, and the superboxes over `sb_sizes` consecutive blocks each (empty:
-    one per block). Returns (nb, B)."""
+    boxes, and the superboxes over `sb_sizes` consecutive blocks each.
+    Returns (nb, B)."""
     nb, B, _ = tri_cast_pack.shape
     _check(tri_cast_pack, "tri_cast_pack", torch.float32, (nb, B, 32), dev)
     _check(tri_aabb, "tri_aabb", torch.float32, (nb, 8), dev)
-    _check(tri_saabb, "tri_saabb", torch.float32, (len(sb_sizes) or nb, 8), dev)
-    if sb_sizes and (sum(sb_sizes) != nb or min(sb_sizes) < 1):
+    _check(tri_saabb, "tri_saabb", torch.float32, (len(sb_sizes), 8), dev)
+    if sum(sb_sizes) != nb or min(sb_sizes, default=1) < 1:
         raise ValueError(f"superblock sizes {tuple(sb_sizes)} do not cover {nb} blocks")
     return nb, B
 
@@ -355,15 +355,15 @@ def _warp_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes):
                     ("tri_saabb", tri_saabb)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: not aligned to 16 bytes")
-    largest = max(sb_sizes, default=1)
+    largest = max(sb_sizes, default=1)  # no superblocks: a scene without blocks
     if largest > 32:
         raise ValueError(f"a superblock of {largest} blocks; the kernel takes at most 32")
-    return (_sb_start(sb_sizes, nb, tri_cast_pack.device), len(sb_sizes) or nb,
+    return (_sb_start(sb_sizes, nb, tri_cast_pack.device), len(sb_sizes),
             (largest - 1).bit_length())
 
 
-def cast_triangles_stream(tri_cast_pack, tri_aabb, tri_saabb, o, d, *,
-                          backface_culling=False, sb_sizes=()):
+def cast_triangles_stream(tri_cast_pack, tri_aabb, tri_saabb, o, d, *, sb_sizes,
+                          backface_culling=False):
     """Nearest Morton-slot hit of R rays over the blocks of `tri_cast_pack`
     (nb, B, 32), for scenes past `stream_triangles`: (t (R,) f32, local slot
     (R,) int32), the port's `pallas_cast_triangles_stream`. `tri_saabb`,
@@ -440,7 +440,7 @@ def _occlusion_outputs(R, dev):
 
 
 def occlude_triangles_stream(tri_cast_pack, tri_aabb, tri_saabb, o, d, max_distance, *,
-                             backface_culling=False, block_has_trans=(), sb_sizes=()):
+                             sb_sizes, backface_culling=False, block_has_trans=()):
     """Shadow sums of R rays over the Morton blocks of `tri_cast_pack`, for
     scenes past `stream_triangles`, the port's
     `pallas_occlude_triangles_stream`: (opacity_decrement_sum (R,) f32,

@@ -152,19 +152,15 @@ def test_stream_wrapper_checks_inputs(setup):
     # the superboxes: one row per entry of sb_sizes, which must cover the blocks
     with pytest.raises(ValueError):
         kernels.cast_triangles_stream(pack, box, sbox[:, :6], o, d, sb_sizes=sizes)
-    with pytest.raises(ValueError):
-        kernels.cast_triangles_stream(pack, box, sbox, o, d)  # no partition: nb superboxes
+    with pytest.raises(TypeError):
+        kernels.cast_triangles_stream(pack, box, sbox, o, d)  # the partition is required
     with pytest.raises(ValueError, match="do not cover"):
         kernels.cast_triangles_stream(pack, box, sbox, o, d,
                                       sb_sizes=sizes[:-1] + (sizes[-1] + 1,))
     with pytest.raises(ValueError, match="do not cover"):
         kernels.cast_triangles_stream(pack, box, box[:2], o, d, sb_sizes=(nb + 1, -1))
-    # without a superblock level every block is its own superblock; the CPU
-    # route takes any block size (these scenes have blocks of 32 rows and
-    # narrower ones below)
-    ref = kernels.cast_triangles_stream(pack, box, sbox, o, d, sb_sizes=sizes)
-    flat = kernels.cast_triangles_stream(pack, box, box, o, d)
-    assert torch.equal(ref[0], flat[0]) and torch.equal(ref[1], flat[1])
+    # the CPU route takes any block size (these scenes have blocks of 32
+    # rows and narrower ones below)
     t, i = kernels.cast_triangles_stream(pack[:, :24].contiguous(), box, sbox, o, d,
                                          sb_sizes=sizes)
     assert t.shape == (o.shape[0],) and int(i[torch.isfinite(t)].max()) < nb * 24

@@ -160,12 +160,9 @@ def test_occlusion_wrappers_check_inputs(setup):
     with pytest.raises(ValueError, match="do not cover"):
         kernels.occlude_triangles_stream(*strm, o, d, md, block_has_trans=tds.block_has_trans,
                                          sb_sizes=(nb + 1,) + tds.sb_sizes[1:])
-    if len(tds.sb_sizes) != nb:
-        with pytest.raises(ValueError):  # no partition: one superbox per block
-            kernels.occlude_triangles_stream(*strm, o, d, md)
-    # no superblock level, and (on the CPU route) blocks of any row count
-    flat = kernels.occlude_triangles_stream(*strm[:2], tds.tri_aabb, o, d, md)
-    assert all(torch.equal(a, b) for a, b in zip((dec, opq, fsub), flat))
+    with pytest.raises(TypeError):  # the partition is required
+        kernels.occlude_triangles_stream(*strm, o, d, md)
+    # on the CPU route, blocks of any row count
     narrow = kernels.occlude_triangles_stream(tds.tri_cast_pack[:, :24].contiguous(), *strm[1:],
                                               o, d, md, **skw)
     assert narrow[1].shape == (o.shape[0],)

@@ -239,9 +239,9 @@ def test_scene_level_wrappers_refuse_other_devices():
     o = torch.zeros((8, 3), device="meta")
     md = torch.zeros((8,), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        kernels.cast_triangles_stream(pack, box, box, o, o)
+        kernels.cast_triangles_stream(pack, box, box, o, o, sb_sizes=(1, 1))
     with pytest.raises(ValueError, match="unsupported device"):
-        kernels.occlude_triangles_stream(pack, box, box, o, o, md)
+        kernels.occlude_triangles_stream(pack, box, box, o, o, md, sb_sizes=(1, 1))
     with pytest.raises(ValueError, match="unsupported device"):
         kernels.occlude_triangles(torch.zeros((8, 32), device="meta"), pack, box, box, o, o, md)
 
