@@ -194,6 +194,14 @@ def max_err(a, b):
     return float((a[fin] - b[fin]).abs().max()) if fin.any() else 0.0
 
 
+def same_bits(a, b):
+    """Equal bit for bit, NaN included (the child fields of a ray without a
+    hit may be NaN in the kernels and their twins alike)."""
+    if a.dtype != torch.float32:
+        return torch.equal(a, b)
+    return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
 def checksum(fb):
     return hashlib.sha256(fb.tobytes()).hexdigest()[:16]
 
@@ -206,6 +214,11 @@ def bound_ms(byts, ops):
     by, op = byts / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
     return max(by, op), ("bytes" if by >= op else "operations")
 
+
+# the kernels with a warp per ray, whose lines also give the time on the
+# device alone (torch.profiler) and the registers per thread
+WARP_KERNELS = ("cast_triangles", "cast_triangles_stream", "occlude_triangles_stream",
+                "shade_eval_rows")
 
 # ---- phase 1: card and build -------------------------------------------
 with phase("build"):
@@ -229,11 +242,13 @@ with phase("build"):
                 log(f"  ptxas {name}: {line.strip()}")
         report["ptxas"][name] = dict(
             registers=[int(n) for n in re.findall(r"Used (\d+) registers", info["ptxas"])],
-            spill_bytes=sum(int(n) for n in re.findall(r"(\d+) bytes spill", info["ptxas"])))
-    for name in ("cast_triangles_stream", "occlude_triangles_stream"):
+            spill_bytes=sum(int(n) for n in re.findall(r"(\d+) bytes spill", info["ptxas"])),
+            cached=info["cached"])
+    for name in WARP_KERNELS:
         regs = report["ptxas"][name]
         log(f"{name}: {regs['registers']} registers per thread at 128 threads per block, "
-            f"{regs['spill_bytes']} bytes spilled")
+            f"{regs['spill_bytes']} bytes spilled "
+            f"({'a cached build' if regs['cached'] else 'this run'}'s ptxas)")
         assert regs["registers"] and regs["spill_bytes"] == 0, regs
 
 # ---- scenes and tiles -----------------------------------------------------
@@ -356,6 +371,14 @@ def record(name, label, n, err, ms, plain, byts, ops, extra=""):
     results[name][label] = dict(R=n, err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
 
 
+def alone(res, n_rays, dev_ms):
+    """The time on the device alone of a resident kernel with a warp per
+    ray (the CUDA events above also time the wrapper's host work)."""
+    res.update(device_ms=dev_ms, rays_per_warp=kernels.rays_per_warp(n_rays))
+    log(f"  on the device alone {'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}; "
+        f"{kernels.rays_per_warp(n_rays)} rays per warp")
+
+
 def check_cast(label, o, d, iters):
     cast_args = (ds.trb_pack, ds.tri_cast_pack, ds.tri_aabb, ds.tri_saabb)
     t, i = kernels.cast_triangles(*cast_args, o, d, sb_sizes=ds.sb_sizes)
@@ -365,10 +388,15 @@ def check_cast(label, o, d, iters):
     err = max_err(t, t_ref)
     fin = torch.isfinite(t_ref)
     assert torch.allclose(t[fin], t_ref[fin], rtol=1e-6, atol=0), f"cast {label}: t off by {err}"
-    ms = cuda_ms(lambda: kernels.cast_triangles(*cast_args, o, d, sb_sizes=ds.sb_sizes), iters)
+    for _ in range(2):
+        t2, i2 = kernels.cast_triangles(*cast_args, o, d, sb_sizes=ds.sb_sizes)
+        assert same_bits(t2, t) and torch.equal(i2, i), f"cast {label}: runs differ"
+    fn = lambda: kernels.cast_triangles(*cast_args, o, d, sb_sizes=ds.sb_sizes)  # noqa: E731
+    ms = cuda_ms(fn, iters)
     plain = cuda_ms(lambda: kernels.cast_triangles_plain(ds.trb_pack, ds.tri_cast_pack, o, d), 3, 1)
     record("cast_triangles", label, o.shape[0], err, ms, plain,
            nbytes(o, d, *cast_args, t, i), cast_ops(ds, o, d, t))
+    alone(results["cast_triangles"][label], o.shape[0], device_ms(fn, iters))
 
 
 def close(label, pairs):
@@ -391,12 +419,27 @@ def check_rows(label, args, iters):
     assert n_mask == 0, f"shade_eval_rows {label}: {n_mask} child masks differ"
     err = close(f"shade_eval_rows {label}", [
         (contrib, c_ref), (rfl[rfl_m], rfl_ref[rfl_m]), (rfr[rfr_m], rfr_ref[rfr_m])])
-    ms = cuda_ms(lambda: kernels.shade_eval_rows(*args, **kw), iters)
+    # the same bits as the node kernel with one thread per ray (shade_eval)
+    # on the same inputs, and on every run
+    f_contrib, f_rfl, f_rfr = kernels.shade_eval(*args[:-1], **kw)
+    assert same_bits(contrib, f_contrib), f"shade_eval_rows {label}: contrib bits"
+    for rows_, m_, f in ((rfl, rfl_m, f_rfl), (rfr, rfr_m, f_rfr)):
+        assert torch.equal(m_, f["mask"]), f"shade_eval_rows {label}: masks"
+        assert same_bits(rows_[:, 0:9], torch.cat([f["o"], f["d"], f["w"]], 1)), label
+        assert same_bits(rows_[:, 10], f["budget"].float()), label
+    assert same_bits(rfr[:, 9], f_rfr["ior"]), label
+    for _ in range(2):
+        again = kernels.shade_eval_rows(*args, **kw)
+        assert all(same_bits(a, b) for a, b in zip(got, again)), f"{label}: runs differ"
+    fn = lambda: kernels.shade_eval_rows(*args, **kw)  # noqa: E731
+    ms = cuda_ms(fn, iters)
     plain = cuda_ms(lambda: kernels.shade_eval_rows_plain(*args, **kw), 2, 1)
     point, normal, hval = args[5], args[6], args[10] != 0
     record("shade_eval_rows", label, point.shape[0], err, ms, plain, nbytes(*args, *got),
            shade_ops(ds, point, normal, hval, OPS_EPILOGUE),
-           f"; children refl {int(rfl_m.sum())} refr {int(rfr_m.sum())}")
+           f"; children refl {int(rfl_m.sum())} refr {int(rfr_m.sum())}; bit-identical to "
+           f"shade_eval")
+    alone(results["shade_eval_rows"][label], point.shape[0], device_ms(fn, iters))
     return got
 
 
@@ -973,11 +1016,12 @@ for name, (src, tpu_line, path, main, others) in ENTRIES.items():
         entry.update({f"ms_{sfx}": o_res["ms"], f"plain_ms_{sfx}": o_res["plain_ms"],
                       f"bound_ms_{sfx}": o_res["bound_ms"], f"bound_by_{sfx}": o_res["bound_by"],
                       f"rays_{sfx}": o_res["R"]})
-    if "gate_ops" in m:
-        entry.update(registers=report["ptxas"][name]["registers"])
+    if name in WARP_KERNELS:
+        entry.update(registers=report["ptxas"][name]["registers"],
+                     registers_cached=report["ptxas"][name]["cached"])
         for label in [main, *others]:
             sfx = "" if label == main else "_" + EXTRA[label]
-            entry.update({k + sfx: results[name][label][k] for k in
+            entry.update({k + sfx: v for k, v in results[name][label].items() if k in
                           ("device_ms", "superblocks_per_ray", "blocks_per_ray", "most_blocks",
                            "gate_ops", "rays_per_warp")})
     line.append(entry)

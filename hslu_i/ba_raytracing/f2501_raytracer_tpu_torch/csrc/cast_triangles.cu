@@ -8,79 +8,131 @@
 // tri_cast_pack (nb blocks of B rows), strict `<` across candidates in that
 // order, so equal t keeps the lowest index. Index space as the TPU kernel:
 // big primitive p -> p, Morton slot (b, c) -> P + b*B + c; a miss is
-// t = +inf, idx = 2^31-1. Superblocks (sb_start) and blocks are skipped by
-// the AABB slab gate against the ray's own current best t.
+// t = +inf, idx = 2^31-1. Rays are read as given, (R, 3).
 //
-// What bounds it on this card: operations. Each (ray, triangle) pair costs
-// ~40 f32 operations and one divide; the inputs are 24 B per ray and a few
-// KB of scene, so bytes are negligible. The semesterbild scene at 1080p has
-// P = 48 and nb = 2 blocks of 64, ~180 pairs per ray before gating.
+// What bounds it on this card: operations, ~40 f32 operations and a divide
+// per (ray, triangle) pair; the inputs are 24 B per ray and a few KB of
+// scene. The semesterbild scene at 1080p has P = 48 and 2 blocks of 64,
+// ~180 pairs per ray before gating. The path sends it a tile's primary rays
+// (R = 131072, 16 launches per 1080p frame) and, 2496 times per frame, a
+// pool wavefront of W = 2048 rays. With one thread per ray a wavefront was
+// 16 thread blocks on 132 SMs, and a ray's time one thread's chain of ~180
+// dependent pair tests: the latency of that chain bounded it.
 //
-// Design: one thread per ray, rays in SoA (3, R) so loads coalesce. Every
-// thread of a warp walks the same triangle rows at the same time, so a row
-// load is one broadcast transaction (L1-resident; the scene is not staged
-// in shared memory, so scenes of any size work). The gate is per thread
-// (a warp-level vote would only change which threads idle). The gate box is
-// widened by a tiny margin (rt_common.cuh) so it never culls a block that
-// holds a nearer hit: the result equals the ungated plain twin exactly.
+// Design: a warp owns a ray (or, from rays_per_warp's threshold on, 8
+// consecutive rays), 4 warps per thread block, so a wavefront is 2048 warps.
+// The big rows are staged once per thread block into shared memory, 80
+// bytes a row (rt_common.cuh: RT_ROW4 words; lanes read their own rows
+// without bank conflicts), and lane l tests rows l and l + 32; the warp's
+// minimum t is then the limit of the two-level box gate over tri_saabb /
+// sb_start (rt_warp_blocks), and each crossed block's rows are staged and
+// split over the lanes (rt_warp_cast_block). Each lane keeps its own best
+// (t, index) per ray under a strict `<`; one lexicographic minimum over the
+// lanes (rt_warp_nearest) is the one-thread scan's answer, ties included: a
+// big primitive's index is below every Morton index, and an earlier block's
+// below a later one's. The gate boxes are widened (rt_common.cuh), so the
+// result equals the ungated plain twin bit for bit. Shared memory: P * 80 B
+// of big rows, 20 KB of staged block rows and up to 1.5 KB of ray records
+// per thread block.
 #include "rt_common.cuh"
 
 namespace {
 
-__global__ void cast_triangles_kernel(const float* __restrict__ o,
-                                      const float* __restrict__ d, int R,
-                                      const float* __restrict__ trb, int P,
-                                      const float* __restrict__ pack, int nb, int B,
-                                      const float* __restrict__ aabb,
-                                      const float* __restrict__ saabb,
-                                      const int* __restrict__ sb_start, int nsb,
-                                      int backface, float* __restrict__ t_out,
-                                      int* __restrict__ idx_out) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
-  const float ox = o[r], oy = o[R + r], oz = o[2 * R + r];
-  const float dx = d[r], dy = d[R + r], dz = d[2 * R + r];
+template <int K>
+__global__ void __launch_bounds__(32 * RT_WARPS, 2) cast_triangles_kernel(
+    const float* __restrict__ o, const float* __restrict__ d, int R,
+    const float* __restrict__ trb, int P, const float* __restrict__ pack, int B,
+    const float* __restrict__ aabb, const float* __restrict__ saabb,
+    const int* __restrict__ sb_start, int nsb, int sb_shift, int backface,
+    float* __restrict__ t_out, int* __restrict__ idx_out) {
+  extern __shared__ float4 s_big[];  // P rows of RT_ROW4 words
+  __shared__ float s_rays[RT_WARPS][K * RT_RAY];
+  __shared__ float4 s_stage[RT_WARPS][RT_STAGE_ROWS * RT_ROW4];
+  rt_stage_block_rows(s_big, trb, P);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r0 = (blockIdx.x * RT_WARPS + warp) * K;
+  if (r0 >= R) return;  // by whole warps: the shuffles below need all 32 lanes
+  float* rays = s_rays[warp];
+  if (lane < K && r0 + lane < R) rt_ray_record(rays + lane * RT_RAY, o, d, r0 + lane);
+  __syncwarp();
+  const unsigned alive = (r0 + K <= R) ? (1u << K) - 1u : (1u << (R - r0)) - 1u;
+  const bool bf = backface != 0;
 
-  float best_t = RT_INF;
-  int best_idx = 0x7fffffff;
-
-  // big primitives: walls / floors, never culled
-  for (int p = 0; p < P; ++p) {
-    const float* w = trb + p * 32;
-    float t;
-    bool valid = rt_tri_test(w, ox, oy, oz, dx, dy, dz, &t);
-    if (backface) valid = valid && ((rt_dot_normal(w, dx, dy, dz) < 0.75f) || (w[14] != 0.0f));
-    if (valid && t < best_t) {
-      best_t = t;
-      best_idx = p;
+  float lane_t[K], best_t[K];
+  int lane_idx[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    lane_t[k] = RT_INF;
+    lane_idx[k] = 0x7fffffff;
+  }
+  // big primitives (walls, floors): never culled
+  for (int c = lane; c < P; c += 32) {
+    float w[4 * RT_ROW4];
+    rt_staged_row(s_big, c, w);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (!(alive >> k & 1u)) continue;
+      const float* ray = rays + k * RT_RAY;
+      float t;
+      bool valid = rt_tri_test(w, ray[0], ray[1], ray[2], ray[3], ray[4], ray[5], &t);
+      if (bf) valid = valid && ((rt_dot_normal(w, ray[3], ray[4], ray[5]) < 0.75f) || (w[14] != 0.0f));
+      if (valid && t < lane_t[k]) {
+        lane_t[k] = t;
+        lane_idx[k] = c;
+      }
     }
   }
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    best_t[k] = __uint_as_float(__reduce_min_sync(RT_WARP, __float_as_uint(lane_t[k])));
 
-  // Morton blocks, front to back, behind superblock and block gates
-  const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
-  for (int g = 0; g < nsb; ++g) {
-    const int b0 = sb_start[g], b1 = sb_start[g + 1];
-    if (b1 - b0 > 1 && !rt_gate(saabb + g * 8, ox, oy, oz, ix, iy, iz, best_t)) continue;
-    rt_cast_blocks(pack, aabb, b0, b1, B, P, ox, oy, oz, dx, dy, dz, ix, iy, iz, backface != 0,
-                   &best_t, &best_idx);
+  // Morton blocks, behind the superblock and block gates against the best t
+  unsigned stale = 0;  // rays whose best t shrank since the boxes were tested
+  rt_warp_blocks<K>(
+      aabb, saabb, sb_start, nsb, sb_shift, nullptr, lane, rays, alive,
+      [&](int k) { return best_t[k]; },
+      [&](int b, unsigned who, float, bool first) {
+        if (first) stale = 0;
+        rt_warp_cast_block<K>(pack, aabb, b, B, P, lane, rays, who, bf, lane_t, lane_idx, best_t,
+                              &stale, s_stage[warp]);
+      });
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int best_idx = rt_warp_nearest(lane_t[k], lane_idx[k], best_t[k]);
+    if (lane == k && r0 + k < R) {
+      t_out[r0 + k] = best_t[k];
+      idx_out[r0 + k] = best_idx;
+    }
   }
-  t_out[r] = best_t;
-  idx_out[r] = best_idx;
+}
+
+template <int K>
+void launch(const float* o, const float* d, int R, const float* trb, int P, const float* pack,
+            int B, const float* aabb, const float* saabb, const int* sb_start, int nsb,
+            int sb_shift, int backface, float* t_out, int* idx_out, cudaStream_t stream) {
+  const int per_block = RT_WARPS * K;
+  cast_triangles_kernel<K><<<(R + per_block - 1) / per_block, 32 * RT_WARPS,
+                             sizeof(float4) * RT_ROW4 * P, stream>>>(
+      o, d, R, trb, P, pack, B, aabb, saabb, sb_start, nsb, sb_shift, backface, t_out, idx_out);
 }
 
 }  // namespace
 
+// rays_per_warp: 1 or 8
 extern "C" int rt_cast_triangles(const float* o, const float* d, int R, const float* trb,
                                  int P, const float* pack, int nb, int B,
                                  const float* aabb, const float* saabb,
-                                 const int* sb_start, int nsb, int backface, float* t_out,
-                                 int* idx_out, void* stream) {
+                                 const int* sb_start, int nsb, int sb_shift, int rays_per_warp,
+                                 int backface, float* t_out, int* idx_out, void* stream) {
+  (void)nb;
+  if (rays_per_warp != 1 && rays_per_warp != 8) return (int)cudaErrorInvalidValue;
   if (R > 0) {
-    const int threads = 128;
-    const int blocks = (R + threads - 1) / threads;
-    cast_triangles_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        o, d, R, trb, P, pack, nb, B, aabb, saabb, sb_start, nsb, backface, t_out,
-        idx_out);
+    if (rays_per_warp == 8)
+      launch<8>(o, d, R, trb, P, pack, B, aabb, saabb, sb_start, nsb, sb_shift, backface, t_out,
+                idx_out, (cudaStream_t)stream);
+    else
+      launch<1>(o, d, R, trb, P, pack, B, aabb, saabb, sb_start, nsb, sb_shift, backface, t_out,
+                idx_out, (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
 }

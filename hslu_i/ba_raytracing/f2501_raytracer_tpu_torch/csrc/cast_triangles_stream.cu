@@ -80,7 +80,7 @@ __global__ void __launch_bounds__(32 * RT_WARPS, 2) cast_triangles_stream_kernel
       [&](int k) { return best_t[k]; },
       [&](int b, unsigned who, float, bool first) {
         if (first) stale = 0;
-        rt_warp_cast_block<K>(pack, aabb, b, B, lane, rays, who, backface != 0, lane_t,
+        rt_warp_cast_block<K>(pack, aabb, b, B, 0, lane, rays, who, backface != 0, lane_t,
                               lane_idx, best_t, &stale, s_stage[warp]);
       });
 #pragma unroll

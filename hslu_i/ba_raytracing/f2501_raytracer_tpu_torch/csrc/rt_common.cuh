@@ -86,34 +86,8 @@ __device__ __forceinline__ bool rt_gate(const float* __restrict__ box, float ox,
   return (tf >= fmaxf(tn, 0.0f)) && (tn <= t_limit);
 }
 
-// Nearest hit over the Morton blocks [b0, b1) of `pack` (nb, B, 32) in
-// storage order, each behind the gate of its box in `aabb` against the
-// ray's own best t so far. Strict `<`: on equal t the earlier block and the
-// lower slot win. Slot (b, c) gets the index base + b*B + c.
-__device__ __forceinline__ void rt_cast_blocks(const float* __restrict__ pack,
-                                               const float* __restrict__ aabb, int b0, int b1,
-                                               int B, int base, float ox, float oy, float oz,
-                                               float dx, float dy, float dz, float ix,
-                                               float iy, float iz, bool backface,
-                                               float* best_t, int* best_idx) {
-  for (int b = b0; b < b1; ++b) {
-    if (!rt_gate(aabb + b * 8, ox, oy, oz, ix, iy, iz, *best_t)) continue;
-    const float* blk = pack + (size_t)b * B * 32;
-    for (int c = 0; c < B; ++c) {
-      const float* w = blk + c * 32;
-      float t;
-      bool valid = rt_tri_test(w, ox, oy, oz, dx, dy, dz, &t);
-      if (backface)
-        valid = valid && ((rt_dot_normal(w, dx, dy, dz) < 0.75f) || (w[14] != 0.0f));
-      if (valid && t < *best_t) {
-        *best_t = t;
-        *best_idx = base + b * B + c;
-      }
-    }
-  }
-}
-
-// ---- warp-level helpers: a warp owns K rays (the streamed kernels) --------
+// ---- warp-level helpers: a warp owns K rays (the cast, node and streamed
+// kernels) ------------------------------------------------------------------
 //
 // K is 1 where rays are few (a wavefront of the pool: every ray needs a warp
 // of its own to fill the card) and 8 where they are many: a block of rows is
@@ -176,6 +150,17 @@ __device__ __forceinline__ void rt_stage_rows(float4* stage, const float* __rest
   }
   asm volatile("cp.async.wait_all;" ::: "memory");
   __syncwarp();
+}
+
+// The first RT_ROW4 words of rows [0, n) at `rows` into `stage`, by every
+// thread of the thread block, which must all call this (it synchronises)
+// before any of them returns: a table that all of the block's warps read
+// (the big-primitive pack).
+__device__ __forceinline__ void rt_stage_block_rows(float4* stage, const float* __restrict__ rows,
+                                                    int n) {
+  for (int i = threadIdx.x; i < n * RT_ROW4; i += blockDim.x)
+    stage[i] = __ldg(reinterpret_cast<const float4*>(rows + (i / RT_ROW4) * 32) + i % RT_ROW4);
+  __syncthreads();
 }
 
 // Row c of the stage
@@ -287,8 +272,9 @@ __device__ __forceinline__ void rt_warp_blocks(const float* __restrict__ aabb,
 // One Morton block of `pack` (nb, B, 32; B a multiple of 32) for the casts
 // of a warp's rays `who`: the rows go through `stage` (RT_STAGE_ROWS *
 // RT_ROW4 words of the warp's own), lane l tests rows l, l + 32, ... against
-// each ray, keeping per ray its own best (t, slot) under a strict `<`, so
-// within a lane the lower slot keeps a tie. Afterwards
+// each ray, keeping per ray its own best (t, index) under a strict `<`, so
+// within a lane the lower slot keeps a tie; slot (b, c) has the index
+// base + b*B + c. Afterwards
 // best_t[k] is the warp's best t, and a ray whose best t shrank is marked in
 // *stale: the boxes were tested against the old one, so such a ray is first
 // tested again against this block's box and left out if the segment
@@ -297,7 +283,8 @@ __device__ __forceinline__ void rt_warp_blocks(const float* __restrict__ aabb,
 template <int K>
 __device__ __forceinline__ void rt_warp_cast_block(const float* __restrict__ pack,
                                                    const float* __restrict__ aabb, int b, int B,
-                                                   int lane, const float* rays, unsigned who,
+                                                   int base, int lane, const float* rays,
+                                                   unsigned who,
                                                    bool backface, float* lane_t, int* lane_idx,
                                                    float* best_t, unsigned* stale,
                                                    float4* stage) {
@@ -325,7 +312,7 @@ __device__ __forceinline__ void rt_warp_cast_block(const float* __restrict__ pac
           valid = valid && ((rt_dot_normal(w, ray[3], ray[4], ray[5]) < 0.75f) || (w[14] != 0.0f));
         if (valid && t < lane_t[k]) {
           lane_t[k] = t;
-          lane_idx[k] = b * B + c0 + c;
+          lane_idx[k] = base + b * B + c0 + c;
         }
       }
     }
@@ -340,10 +327,10 @@ __device__ __forceinline__ void rt_warp_cast_block(const float* __restrict__ pac
 }
 
 // The warp's nearest hit from its lanes' bests: the smallest t and, among
-// the lanes that hold it, the lowest slot. With blocks visited in any order
+// the lanes that hold it, the lowest index. With blocks visited in any order
 // and skipped only when they cannot hold a hit within the best t so far,
-// that is the plain scan's answer: the earlier block and the lower slot win
-// a tie. A miss is (+inf, 2^31-1).
+// that is the plain scan's answer: the earlier pack, the earlier block and
+// the lower slot win a tie. A miss is (+inf, 2^31-1).
 __device__ __forceinline__ int rt_warp_nearest(float lane_t, int lane_idx, float best_t) {
   const unsigned mine = (lane_t == best_t) ? (unsigned)lane_idx : 0x7fffffffu;
   return (int)__reduce_min_sync(RT_WARP, mine);

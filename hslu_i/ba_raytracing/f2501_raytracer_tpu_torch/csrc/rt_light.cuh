@@ -1,6 +1,6 @@
 // Direct + specular lighting with the hard-shadow scan, shared by the
-// port's three shading kernels (light_shade.cu, shade_eval.cu,
-// shade_eval_rows.cu).
+// port's three shading kernels (light_shade.cu, shade_eval.cu: one thread
+// per ray; shade_eval_rows.cu: a warp per ray, rt_warp_shadow_scan).
 //
 // Replaces the shading core of the TPU kernels in
 // hslu_i/ba_raytracing/f2501_raytracer_tpu/ops/pallas_kernels.py:
@@ -56,6 +56,40 @@ __device__ __forceinline__ Tables rt_stage_tables(const ShadeScene& sc, bool sta
   return Tables{smem, smem + nl, smem + nl + ns};
 }
 
+// Shadow terms of the sphere row q for the shadow ray (so, ld, maxd) (JAX
+// intersect.py::_sphere_occlusion): whether it is hit within maxd, and then
+// *om_io = 1 - opacity * T_red (0 for an opaque sphere's 1 - 0: 1).
+__device__ __forceinline__ bool occl_sphere(const float* q, float sox, float soy, float soz,
+                                            float ldx, float ldy, float ldz, float maxd,
+                                            bool bf, float* om_io) {
+  const float ocx = sox - q[0], ocy = soy - q[1], ocz = soz - q[2];
+  const float b = 2.0f * ((ldx * ocx + ldy * ocy) + ldz * ocz);
+  const float c = ((ocx * ocx + ocy * ocy) + ocz * ocz) - q[3];
+  const float disc = b * b - 4.0f * c;
+  const bool disc_pos = disc >= 0.0f;
+  const float sq = sqrtf(fmaxf(disc, 0.0f));
+  const float t0 = (-b - sq) * 0.5f;
+  const float t1 = (-b + sq) * 0.5f;
+  const bool t0v = (t0 >= 0.0f) && disc_pos;
+  const bool t1v = (t1 >= 0.0f) && disc_pos;
+  const bool use0 = t0v && (!t1v || (t0 < t1));
+  const bool use1 = t1v && !use0;
+  const float t = use0 ? t0 : (use1 ? t1 : RT_INF);
+  bool sval = (use0 || use1) && (q[12] != 0.0f);
+  const float ts = sval ? t : 0.0f;
+  const float nvx = (sox + ldx * ts) - q[0];
+  const float nvy = (soy + ldy * ts) - q[1];
+  const float nvz = (soz + ldz * ts) - q[2];
+  const float inv_n = 1.0f / sqrtf((nvx * nvx + nvy * nvy) + nvz * nvz);
+  const float cs = (ldx * (nvx * inv_n) + ldy * (nvy * inv_n)) + ldz * (nvz * inv_n);
+  const bool httr = q[8] != 0.0f;
+  if (bf) sval = sval && ((cs < 0.75f) || httr);
+  if (!(sval && t <= maxd)) return false;
+  const float io = httr ? q[5] * rt_shadow_tr_red(-cs, q[4], q[6], q[7], true) : 0.0f;
+  *om_io = 1.0f - io;
+  return true;
+}
+
 // Full shadow scan for one light; returns the totals (opq set => the rest
 // was skipped and the sums are not used). Per-pack partial sums are added
 // to the total in the plain path's order: spheres, big primitives, then
@@ -65,35 +99,13 @@ __device__ Occl rt_shadow_scan(const ShadeScene& sc, const Tables& tb, float sox
                                float maxd) {
   const bool bf = sc.backface != 0;
   Occl tot = {0.0f, 0.0f, 0.0f, 0.0f, false};
-  // spheres (JAX intersect.py::_sphere_occlusion)
+  // spheres, straight into the total
   for (int s = 0; s < sc.S; ++s) {
     const float* q = tb.sph + s * 16;
-    const float ocx = sox - q[0], ocy = soy - q[1], ocz = soz - q[2];
-    const float b = 2.0f * ((ldx * ocx + ldy * ocy) + ldz * ocz);
-    const float c = ((ocx * ocx + ocy * ocy) + ocz * ocz) - q[3];
-    const float disc = b * b - 4.0f * c;
-    const bool disc_pos = disc >= 0.0f;
-    const float sq = sqrtf(fmaxf(disc, 0.0f));
-    const float t0 = (-b - sq) * 0.5f;
-    const float t1 = (-b + sq) * 0.5f;
-    const bool t0v = (t0 >= 0.0f) && disc_pos;
-    const bool t1v = (t1 >= 0.0f) && disc_pos;
-    const bool use0 = t0v && (!t1v || (t0 < t1));
-    const bool use1 = t1v && !use0;
-    const float t = use0 ? t0 : (use1 ? t1 : RT_INF);
-    bool sval = (use0 || use1) && (q[12] != 0.0f);
-    const float ts = sval ? t : 0.0f;
-    const float nvx = (sox + ldx * ts) - q[0];
-    const float nvy = (soy + ldy * ts) - q[1];
-    const float nvz = (soz + ldz * ts) - q[2];
-    const float inv_n = 1.0f / sqrtf((nvx * nvx + nvy * nvy) + nvz * nvz);
-    const float cs = (ldx * (nvx * inv_n) + ldy * (nvy * inv_n)) + ldz * (nvz * inv_n);
-    const bool httr = q[8] != 0.0f;
-    if (bf) sval = sval && ((cs < 0.75f) || httr);
-    if (!(sval && t <= maxd)) continue;
-    const float io = httr ? q[5] * rt_shadow_tr_red(-cs, q[4], q[6], q[7], true) : 0.0f;
-    tot.dec += 1.0f - io;
-    tot.opq = tot.opq || !httr;
+    float om_io;
+    if (!occl_sphere(q, sox, soy, soz, ldx, ldy, ldz, maxd, bf, &om_io)) continue;
+    tot.dec += om_io;
+    tot.opq = tot.opq || !(q[8] != 0.0f);
     tot.fr += q[9];
     tot.fg += q[10];
     tot.fb += q[11];
@@ -118,66 +130,174 @@ __device__ Occl rt_shadow_scan(const ShadeScene& sc, const Tables& tb, float sox
   return tot;
 }
 
+// The superblock partition of the block gate of rt_warp_shadow_scan
+// (rt_common.cuh::rt_warp_blocks over sc.blk_aabb).
+struct WarpGate {
+  const float* saabb;
+  const int* sb_start;
+  int nsb, sb_shift;
+};
+
+// rt_shadow_scan with a warp's lanes sharing the work, for the shadow rays
+// `need` of the warp's K rays (records in `rays`: rt_common.cuh's RT_RAY
+// layout, max distance in slot 9). Spheres: lane s tests sphere s; big
+// primitives: lane l tests rows l and l + 32 of `big` (the pack staged in
+// the 80-byte layout); Morton blocks: the crossed ones, in storage order,
+// through rt_warp_blocks and occl_warp_block. Transmissive hits are added in
+// the one-thread scan's order (spheres into the total, each pack's partial
+// sums then into the total), so the sums are rt_shadow_scan's bits; a ray
+// with an opaque hit leaves the scan at once. Returns the rays that have an
+// opaque occluder; the others' totals are sums[k * OCCL_SUMS + 0..3]. All
+// 32 lanes.
+template <int K>
+__device__ __forceinline__ unsigned rt_warp_shadow_scan(const ShadeScene& sc, const WarpGate& g,
+                                                        const float4* big, int lane,
+                                                        const float* rays, float* sums,
+                                                        unsigned need, float4* stage) {
+  const bool bf = sc.backface != 0;
+  unsigned alive = need, opq = 0;
+  for (int k = 0; k < K; ++k) {
+    if (!(alive >> k & 1u)) continue;
+    const float* ray = rays + k * RT_RAY;
+    float t0 = 0.0f, t1 = 0.0f, t2 = 0.0f, t3 = 0.0f;
+    bool blocked = false;
+    for (int s0 = 0; s0 < sc.S && !blocked; s0 += 32) {
+      const int s = s0 + lane;
+      float q[16] = {0.0f};
+      float om_io = 1.0f;
+      bool hit = false;
+      if (s < sc.S) {
+        rt_load4<4>(sc.sph + s * 16, q);
+        hit = occl_sphere(q, ray[0], ray[1], ray[2], ray[3], ray[4], ray[5], ray[9], bf, &om_io);
+      }
+      unsigned hits = __ballot_sync(RT_WARP, hit);
+      if (!hits) continue;
+      blocked = __any_sync(RT_WARP, hit && !(q[8] != 0.0f));
+      while (hits && !blocked) {
+        const int src = __ffs(hits) - 1;
+        hits &= hits - 1;
+        t0 += __shfl_sync(RT_WARP, om_io, src);
+        t1 += __shfl_sync(RT_WARP, q[9], src);
+        t2 += __shfl_sync(RT_WARP, q[10], src);
+        t3 += __shfl_sync(RT_WARP, q[11], src);
+      }
+    }
+    if (blocked) {
+      opq |= 1u << k;
+      alive &= ~(1u << k);
+    } else if (lane == 0) {
+      float* tot = sums + k * OCCL_SUMS;
+      tot[0] = t0;
+      tot[1] = t1;
+      tot[2] = t2;
+      tot[3] = t3;
+    }
+  }
+  __syncwarp();  // the totals are written
+  if (alive) {
+    unsigned who = alive, touched = 0;
+    occl_warp_rows<K>(big, sc.trb, sc.P, sc.trans_rows, lane, rays, sums, &who, bf, &alive, &opq,
+                      &touched);
+    occl_warp_fold<K>(sums, lane, touched);
+  }
+  rt_warp_blocks<K>(
+      sc.blk_aabb, g.saabb, g.sb_start, g.nsb, g.sb_shift, nullptr, lane, rays, alive,
+      [&](int k) { return rays[k * RT_RAY + 9]; },
+      [&](int b, unsigned who, float, bool) {
+        occl_warp_block<K>(sc.blk + (size_t)b * sc.B * 32, sc.B, lane, rays, sums, who, bf,
+                           b < sc.n_trans_blocks, &alive, &opq, stage);
+      });
+  __syncwarp();  // every lane has read the records; the totals are written
+  return opq;
+}
+
+// One point light seen from a surface point: the shadow ray (so, ld, maxd),
+// the distance term and cos_in (PointLight::calculate_contribution_at,
+// light.rs:261-300).
+struct LightRay {
+  float ldx, ldy, ldz, sox, soy, soz, maxd, ldist, cos_in;
+};
+
+__device__ __forceinline__ LightRay rt_light_ray(const float* L, float eps, float px, float py,
+                                                 float pz, float nx, float ny, float nz) {
+  LightRay q;
+  const float ltx = L[0] - px, lty = L[1] - py, ltz = L[2] - pz;
+  const float lt2 = (ltx * ltx + lty * lty) + ltz * ltz;
+  const float inv_lt = 1.0f / sqrtf(lt2);
+  q.ldx = ltx * inv_lt;
+  q.ldy = lty * inv_lt;
+  q.ldz = ltz * inv_lt;
+  q.sox = px + q.ldx * eps;
+  q.soy = py + q.ldy * eps;
+  q.soz = pz + q.ldz * eps;
+  const float dex = L[0] - q.sox, dey = L[1] - q.soy, dez = L[2] - q.soz;
+  q.maxd = sqrtf((dex * dex + dey * dey) + dez * dez);
+  q.ldist = sqrtf(lt2) + RT_EPS;
+  q.cos_in = ((ltx * nx + lty * ny) + ltz * nz) / q.ldist;
+  return q;
+}
+
+// One reachable light's direct and specular terms, added to acc[0..2] /
+// acc[3..5]; (dec, fr, fg, fb): the shadow sums of its scan.
+__device__ __forceinline__ void rt_light_add(const float* L, const LightRay& q, float dec,
+                                             float fr, float fg, float fb, float nx, float ny,
+                                             float nz, float dx, float dy, float dz, float mcr,
+                                             float mcg, float mcb, bool has_spec,
+                                             float spec_exp, float* acc) {
+  const float combined = fminf(fmaxf(1.0f - dec, 0.0f), 1.0f);
+  const float att = 0.95f * ((RT_EPS + q.ldist) + q.ldist * q.ldist);
+  const float att_sig = (tanhf(att) + 1.0f) / 2.0f;
+  const float ci = q.cos_in * L[6] * fminf(fmaxf(att_sig, 0.0f), 1.0f);
+  // shadow filter division quirk (raytracer_renderer.rs:807-811)
+  const float lcsr = (mcr * L[3]) / (1.0f - fr);
+  const float lcsg = (mcg * L[4]) / (1.0f - fg);
+  const float lcsb = (mcb * L[5]) / (1.0f - fb);
+  const float dln = (nx * q.ldx + ny * q.ldy) + nz * q.ldz;
+  const float diffuse = fmaxf(dln, 0.0f);
+  const float c2 = 2.0f * dln;
+  const float srx = q.ldx - c2 * nx, sry = q.ldy - c2 * ny, srz = q.ldz - c2 * nz;
+  const float inv_sr = 1.0f / sqrtf((srx * srx + sry * sry) + srz * srz);
+  const float sdot = fmaxf(((srx * inv_sr) * dx + (sry * inv_sr) * dy) + (srz * inv_sr) * dz, 0.0f);
+  const float spec_f = has_spec ? powf(sdot, spec_exp) : 0.0f;
+  const float lf = diffuse * ci * combined;
+  const float sf = ci * combined * spec_f;
+  if (diffuse > 0.0f) {
+    acc[0] += mcr * lcsr * lf;
+    acc[1] += mcg * lcsg * lf;
+    acc[2] += mcb * lcsb * lf;
+    if (has_spec) {
+      acc[3] += L[3] * sf;
+      acc[4] += L[4] * sf;
+      acc[5] += L[5] * sf;
+    }
+  }
+}
+
 // Direct and specular light of one ray over the first n_lights lights,
 // WITHOUT ambient (ops/shading.py::light_sums; ref raytracer_renderer.rs:
-// 731-874). view = the ray direction (the reference's specular "view"
-// points at the surface). dir / spc: (3,) outputs, 0 for an invalid ray.
+// 731-874), one thread per ray. view = the ray direction (the reference's
+// specular "view" points at the surface). dir / spc: (3,) outputs, 0 for an
+// invalid ray.
 __device__ void rt_light_sums(const ShadeScene& sc, const Tables& tb, float eps, bool hval,
                               float px, float py, float pz, float nx, float ny, float nz,
                               float dx, float dy, float dz, float mcr, float mcg, float mcb,
                               float shin, float* dir, float* spc) {
-  float lr = 0.0f, lg = 0.0f, lb = 0.0f, sr = 0.0f, sg = 0.0f, sb = 0.0f;
+  float acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   if (hval) {
     const bool has_spec = shin > 0.0f;
     const float spec_exp = fmaxf(shin * 512.0f, 1.0f);
     for (int l = 0; l < sc.n_lights; ++l) {
       const float* L = tb.lights + l * 8;
-      const float ltx = L[0] - px, lty = L[1] - py, ltz = L[2] - pz;
-      const float lt2 = (ltx * ltx + lty * lty) + ltz * ltz;
-      const float inv_lt = 1.0f / sqrtf(lt2);
-      const float ldx = ltx * inv_lt, ldy = lty * inv_lt, ldz = ltz * inv_lt;
-      const float sox = px + ldx * eps, soy = py + ldy * eps, soz = pz + ldz * eps;
-      const float dex = L[0] - sox, dey = L[1] - soy, dez = L[2] - soz;
-      const float maxd = sqrtf((dex * dex + dey * dey) + dez * dez);
-      // PointLight::calculate_contribution_at (light.rs:261-300)
-      const float ldist = sqrtf(lt2) + RT_EPS;
-      const float cos_in = ((ltx * nx + lty * ny) + ltz * nz) / ldist;
-      if (!(cos_in > 0.0f)) continue;  // intensity and color are exactly 0
-      const Occl occ = rt_shadow_scan(sc, tb, sox, soy, soz, ldx, ldy, ldz, maxd);
+      const LightRay q = rt_light_ray(L, eps, px, py, pz, nx, ny, nz);
+      if (!(q.cos_in > 0.0f)) continue;  // intensity and color are exactly 0
+      const Occl occ = rt_shadow_scan(sc, tb, q.sox, q.soy, q.soz, q.ldx, q.ldy, q.ldz, q.maxd);
       if (occ.opq) continue;  // can_reach is false: the light adds nothing
-      const float combined = fminf(fmaxf(1.0f - occ.dec, 0.0f), 1.0f);
-      const float att = 0.95f * ((RT_EPS + ldist) + ldist * ldist);
-      const float att_sig = (tanhf(att) + 1.0f) / 2.0f;
-      const float ci = cos_in * L[6] * fminf(fmaxf(att_sig, 0.0f), 1.0f);
-      // shadow filter division quirk (raytracer_renderer.rs:807-811)
-      const float lcsr = (mcr * L[3]) / (1.0f - occ.fr);
-      const float lcsg = (mcg * L[4]) / (1.0f - occ.fg);
-      const float lcsb = (mcb * L[5]) / (1.0f - occ.fb);
-      const float dln = (nx * ldx + ny * ldy) + nz * ldz;
-      const float diffuse = fmaxf(dln, 0.0f);
-      const float c2 = 2.0f * dln;
-      const float srx = ldx - c2 * nx, sry = ldy - c2 * ny, srz = ldz - c2 * nz;
-      const float inv_sr = 1.0f / sqrtf((srx * srx + sry * sry) + srz * srz);
-      const float sdot = fmaxf(((srx * inv_sr) * dx + (sry * inv_sr) * dy) + (srz * inv_sr) * dz, 0.0f);
-      const float spec_f = has_spec ? powf(sdot, spec_exp) : 0.0f;
-      const float lf = diffuse * ci * combined;
-      const float sf = ci * combined * spec_f;
-      if (diffuse > 0.0f) {
-        lr += mcr * lcsr * lf;
-        lg += mcg * lcsg * lf;
-        lb += mcb * lcsb * lf;
-        if (has_spec) {
-          sr += L[3] * sf;
-          sg += L[4] * sf;
-          sb += L[5] * sf;
-        }
-      }
+      rt_light_add(L, q, occ.dec, occ.fr, occ.fg, occ.fb, nx, ny, nz, dx, dy, dz, mcr, mcg, mcb,
+                   has_spec, spec_exp, acc);
     }
   }
-  dir[0] = lr;
-  dir[1] = lg;
-  dir[2] = lb;
-  spc[0] = sr;
-  spc[1] = sg;
-  spc[2] = sb;
+  for (int k = 0; k < 3; ++k) {
+    dir[k] = acc[k];
+    spc[k] = acc[3 + k];
+  }
 }

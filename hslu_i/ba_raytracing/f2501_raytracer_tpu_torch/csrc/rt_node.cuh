@@ -1,9 +1,11 @@
-// One shading-tree node per thread: lighting (rt_light.cuh), the distance
+// One shading-tree node: lighting (rt_light.cuh), the distance
 // attenuation, the transmissive combine rule, and the reflection /
 // refraction children (Fresnel, TIR, adaptive depth budgets, weight
-// cutoff). Shared by the two node kernels, which differ only in how they
-// write the children: shade_eval_rows.cu as packed (R, 16) pool rows,
-// shade_eval.cu as per-field arrays.
+// cutoff). Shared by the two node kernels: shade_eval.cu (one thread per
+// ray, rt_eval_node; per-field arrays) and shade_eval_rows.cu (a warp per
+// ray: its own light loop over rt_warp_shadow_scan, then rt_node_epilogue on
+// the lane that owns the ray; packed (R, 16) pool rows). Both run the same
+// arithmetic in the same order, so they give the same bits.
 //
 // Replaces the body of `_shade_eval_kernel` (hslu_i/ba_raytracing/
 // f2501_raytracer_tpu/ops/pallas_kernels.py:1858) before its output
@@ -62,19 +64,31 @@ __device__ __forceinline__ bool above_cutoff(const float* w, float cutoff) {
   return fmaxf(w[0], fmaxf(w[1], w[2])) > cutoff;
 }
 
-// Evaluate ray r's node: contrib (3,) and both children. A disabled child
-// type is left untouched (the caller writes its zeros).
-__device__ void rt_eval_node(const ShadeScene& sc, const Tables& tb, const NodeParams& p,
-                             int r, float* contrib, Child* rfl, Child* rfr) {
-  const bool hval = p.valid[r] != 0.0f;
-  const float px = p.point[3 * r], py = p.point[3 * r + 1], pz = p.point[3 * r + 2];
-  const float nx = p.normal[3 * r], ny = p.normal[3 * r + 1], nz = p.normal[3 * r + 2];
-  const float dx = p.view[3 * r], dy = p.view[3 * r + 1], dz = p.view[3 * r + 2];
-  const float mcr = p.color[3 * r], mcg = p.color[3 * r + 1], mcb = p.color[3 * r + 2];
+// A ray's surface: the node's hit point, normal, view (= the ray
+// direction) and material colour, and whether it hit anything.
+struct Surf {
+  bool hval;
+  float px, py, pz, nx, ny, nz, dx, dy, dz, mcr, mcg, mcb;
+};
 
-  float lit[3], spc[3];
-  rt_light_sums(sc, tb, p.eps, hval, px, py, pz, nx, ny, nz, dx, dy, dz, mcr, mcg, mcb,
-                p.shin[r], lit, spc);
+__device__ __forceinline__ Surf rt_surf(const NodeParams& p, int r) {
+  Surf s;
+  s.hval = p.valid[r] != 0.0f;
+  s.px = p.point[3 * r], s.py = p.point[3 * r + 1], s.pz = p.point[3 * r + 2];
+  s.nx = p.normal[3 * r], s.ny = p.normal[3 * r + 1], s.nz = p.normal[3 * r + 2];
+  s.dx = p.view[3 * r], s.dy = p.view[3 * r + 1], s.dz = p.view[3 * r + 2];
+  s.mcr = p.color[3 * r], s.mcg = p.color[3 * r + 1], s.mcb = p.color[3 * r + 2];
+  return s;
+}
+
+// Ray r's node from its lighting (lit: direct, spc: specular, without
+// ambient): contrib (3,) and both children. A disabled child type is left
+// untouched (the caller writes its zeros).
+__device__ void rt_node_epilogue(const NodeParams& p, int r, const Surf& s, const float* lit,
+                                 const float* spc, float* contrib, Child* rfl, Child* rfr) {
+  const bool hval = s.hval;
+  const float px = s.px, py = s.py, pz = s.pz, nx = s.nx, ny = s.ny, nz = s.nz;
+  const float dx = s.dx, dy = s.dy, dz = s.dz, mcr = s.mcr, mcg = s.mcg, mcb = s.mcb;
   // ambient = material colour * 0.08 on valid rays (ops/shading.py)
   const float amb = hval ? 0.08f : 0.0f;
   const float dir[3] = {mcr * amb + lit[0], mcg * amb + lit[1], mcb * amb + lit[2]};
@@ -163,6 +177,16 @@ __device__ void rt_eval_node(const ShadeScene& sc, const Tables& tb, const NodeP
     rfr->budget = cb;
     rfr->mask = hval && httr && (cb > 0) && k_pos && above_cutoff(rfr->w, p.weight_cutoff);
   }
+}
+
+// Evaluate ray r's node with one thread: contrib (3,) and both children.
+__device__ void rt_eval_node(const ShadeScene& sc, const Tables& tb, const NodeParams& p,
+                             int r, float* contrib, Child* rfl, Child* rfr) {
+  const Surf s = rt_surf(p, r);
+  float lit[3], spc[3];
+  rt_light_sums(sc, tb, p.eps, s.hval, s.px, s.py, s.pz, s.nx, s.ny, s.nz, s.dx, s.dy, s.dz,
+                s.mcr, s.mcg, s.mcb, p.shin[r], lit, spc);
+  rt_node_epilogue(p, r, s, lit, spc, contrib, rfl, rfr);
 }
 
 // Fill NodeParams and ShadeScene from the C entry points' shared arguments.

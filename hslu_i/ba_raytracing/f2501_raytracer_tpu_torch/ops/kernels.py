@@ -139,8 +139,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # trans_rows, blk, blk_aabb, nb, B, n_trans_blocks
 _SCENE = [_P, _I, _P, _I, _P, _I, _I, _P, _P, _I, _I, _I]
 _ARGTYPES = {
+    # o, d, R, trb, P, pack, nb, B, aabb, saabb, sb_start, nsb, sb_shift,
+    # rays_per_warp, backface, t, idx, stream
     "cast_triangles": ("rt_cast_triangles", [
-        _P, _P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P]),
+        _P, _P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]),
     # o, d, R, pack, nb, B, aabb, saabb, sb_start, nsb, sb_shift, rays_per_warp,
     # backface, t, idx, stream
     "cast_triangles_stream": ("rt_cast_triangles_stream", [
@@ -154,7 +156,8 @@ _ARGTYPES = {
     "occlude_triangles": ("rt_occlude_triangles", [
         _P, _P, _P, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P]),
     "shade_eval_rows": ("rt_shade_eval_rows", [
-        *_SCENE, *([_P] * 17), _I,  # per-ray fields, R
+        *_SCENE, _P, _P, _I, _I, _I,  # the gate's superblocks, rays_per_warp
+        *([_P] * 17), _I,  # per-ray fields, R
         _F, _I, _I, _I, _I, _I, _F, _F,  # node constants
         *([_P] * 6)]),  # 5 outputs, stream
     "shade_eval": ("rt_shade_eval", [
@@ -254,34 +257,25 @@ def cast_triangles_plain(trb_pack, tri_cast_pack, o, d, backface_culling=False):
                                 backface_culling)
 
 
-def cast_triangles(trb_pack, tri_cast_pack, tri_aabb, tri_saabb, o, d, *,
-                   backface_culling=False, sb_sizes=()):
-    """Nearest triangle hit of R rays: (t (R,) f32, idx (R,) int32) in the
-    TPU kernel's local index space (see `cast_triangles_plain`)."""
-    R = o.shape[0]
-    dev = o.device
+def cast_triangles(trb_pack, tri_cast_pack, tri_aabb, tri_saabb, o, d, *, sb_sizes,
+                   backface_culling=False):
+    """Nearest triangle hit of R rays over the big-primitive pack and the
+    Morton blocks of a resident scene: (t (R,) f32, idx (R,) int32) in the
+    TPU kernel's local index space (see `cast_triangles_plain`). `tri_saabb`,
+    `sb_sizes`: the scene's superboxes and their partition of the blocks."""
+    R, dev = _check_rays("cast_triangles", o, d)
     P = trb_pack.shape[0]
-    nb, B, _ = tri_cast_pack.shape
-    f32 = torch.float32
-    _check(o, "o", f32, (R, 3), dev)
-    _check(d, "d", f32, (R, 3), dev)
-    _check(trb_pack, "trb_pack", f32, (P, 32), dev)
-    _check(tri_cast_pack, "tri_cast_pack", f32, (nb, B, 32), dev)
-    _check(tri_aabb, "tri_aabb", f32, (nb, 8), dev)
-    nsb = len(sb_sizes) or nb
-    _check(tri_saabb, "tri_saabb", f32, (len(sb_sizes) or tri_saabb.shape[0], 8), dev)
+    _check(trb_pack, "trb_pack", torch.float32, (P, 32), dev)
+    nb, B = _check_block_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes, dev)
     if dev.type == "cpu":
         return cast_triangles_plain(trb_pack, tri_cast_pack, o, d, backface_culling)
-    if dev.type != "cuda":
-        raise ValueError(f"cast_triangles: unsupported device {dev}")
-    o_soa = o.t().contiguous()  # (3, R): coalesced per-ray loads
-    d_soa = d.t().contiguous()
-    t_out = torch.empty((R,), dtype=f32, device=dev)
+    _check_big_rows(trb_pack)
+    sb, nsb, sb_shift = _warp_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes, trb_pack)
+    t_out = torch.empty((R,), dtype=torch.float32, device=dev)
     idx_out = torch.empty((R,), dtype=torch.int32, device=dev)
-    sb = _sb_start(sb_sizes, nb, dev)
     _launch(
-        "cast_triangles", _ptr(o_soa), _ptr(d_soa), R, _ptr(trb_pack), P,
-        _ptr(tri_cast_pack), nb, B, _ptr(tri_aabb), _ptr(tri_saabb), _ptr(sb), nsb,
+        "cast_triangles", _ptr(o), _ptr(d), R, _ptr(trb_pack), P, _ptr(tri_cast_pack), nb, B,
+        _ptr(tri_aabb), _ptr(tri_saabb), _ptr(sb), nsb, sb_shift, rays_per_warp(R),
         int(bool(backface_culling)), _ptr(t_out), _ptr(idx_out),
     )
     return t_out, idx_out
@@ -319,10 +313,10 @@ def _check_rays(name, o, d, max_distance=None):
     return R, dev
 
 
-def _check_stream_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes, dev):
-    """Check the scene tables of a streamed kernel: the Morton blocks, their
-    boxes, and the superboxes over `sb_sizes` consecutive blocks each.
-    Returns (nb, B)."""
+def _check_block_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes, dev):
+    """Check the Morton-block tables of a cast or streamed kernel: the
+    blocks, their boxes, and the superboxes over `sb_sizes` consecutive
+    blocks each. Returns (nb, B)."""
     nb, B, _ = tri_cast_pack.shape
     _check(tri_cast_pack, "tri_cast_pack", torch.float32, (nb, B, 32), dev)
     _check(tri_aabb, "tri_aabb", torch.float32, (nb, 8), dev)
@@ -332,10 +326,10 @@ def _check_stream_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes, dev):
     return nb, B
 
 
-# From this many rays on, a warp of the streamed kernels owns 8 rays instead
-# of one: 8 * 132 SMs * 32 warps, so every SM of an H100 still has 32 warps
-# to hide its loads behind. Below it (a wavefront of the pool) every ray
-# needs a warp of its own to fill the card.
+# From this many rays on, a warp of the warp-per-ray kernels owns 8 rays
+# instead of one: 8 * 132 SMs * 32 warps, so every SM of an H100 still has
+# 32 warps to hide its loads behind. Below it (a wavefront of the pool)
+# every ray needs a warp of its own to fill the card.
 PACKET_MIN_RAYS = 8 * 132 * 32
 
 
@@ -343,16 +337,17 @@ def rays_per_warp(n_rays: int) -> int:
     return 8 if n_rays >= PACKET_MIN_RAYS else 1
 
 
-def _warp_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes):
+def _warp_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes, *more):
     """What the warp-per-ray kernels need beyond the checked shapes: B a
-    multiple of 32 (a lane per row), tables aligned for 16-byte loads, and
-    superblocks of at most 32 blocks. Returns (superblock starts on the
-    device, number of superblocks, log2 of the lanes per superblock)."""
+    multiple of 32 (a lane per row), tables aligned for 16-byte loads (the
+    block tables and `more`), and superblocks of at most 32 blocks. Returns
+    (superblock starts on the device, number of superblocks, log2 of the
+    lanes per superblock)."""
     nb, B, _ = tri_cast_pack.shape
     if B % 32:
         raise ValueError(f"tri_cast_pack: blocks of {B} rows; the kernel needs a multiple of 32")
     for name, t in (("tri_cast_pack", tri_cast_pack), ("tri_aabb", tri_aabb),
-                    ("tri_saabb", tri_saabb)):
+                    ("tri_saabb", tri_saabb), *((f"table {i}", t) for i, t in enumerate(more))):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: not aligned to 16 bytes")
     largest = max(sb_sizes, default=1)  # no superblocks: a scene without blocks
@@ -360,6 +355,18 @@ def _warp_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes):
         raise ValueError(f"a superblock of {largest} blocks; the kernel takes at most 32")
     return (_sb_start(sb_sizes, nb, tri_cast_pack.device), len(sb_sizes),
             (largest - 1).bit_length())
+
+
+# Rows of the big-primitive pack that the resident kernels with a warp per
+# ray stage in shared memory: the scene builder's cap (scene/device.py
+# BIGTRI_CAP).
+BIG_ROWS = 128
+
+
+def _check_big_rows(trb_pack):
+    if trb_pack.shape[0] > BIG_ROWS:
+        raise ValueError(f"trb_pack: {trb_pack.shape[0]} big-primitive rows; the kernel "
+                         f"stages at most {BIG_ROWS}")
 
 
 def cast_triangles_stream(tri_cast_pack, tri_aabb, tri_saabb, o, d, *, sb_sizes,
@@ -371,7 +378,7 @@ def cast_triangles_stream(tri_cast_pack, tri_aabb, tri_saabb, o, d, *, sb_sizes,
     `cast_triangles` takes them. The caller folds in spheres and big
     primitives."""
     R, dev = _check_rays("cast_triangles_stream", o, d)
-    nb, B = _check_stream_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes, dev)
+    nb, B = _check_block_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes, dev)
     if dev.type == "cpu":
         return cast_triangles_stream_plain(tri_cast_pack, o, d, backface_culling)
     sb, nsb, sb_shift = _warp_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes)
@@ -455,7 +462,7 @@ def occlude_triangles_stream(tri_cast_pack, tri_aabb, tri_saabb, o, d, max_dista
     False: the kernel stops a ray's scan at its first opaque hit, the twin
     scans on, and no caller reads the sums of an occluded ray."""
     R, dev = _check_rays("occlude_triangles_stream", o, d, max_distance)
-    nb, B = _check_stream_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes, dev)
+    nb, B = _check_block_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes, dev)
     if dev.type == "cpu":
         return occlude_triangles_stream_plain(tri_cast_pack, o, d, max_distance,
                                               backface_culling)
@@ -798,6 +805,12 @@ def shade_eval_rows(
             reflections=reflections, refractions=refractions, refl_max=refl_max,
             refr_max=refr_max, weight_cutoff=weight_cutoff, air=air,
         )
+    # the gate over tri_blk_aabb: tri_blk_pack has no superboxes of its own
+    # (the scene's follow the cast order), so each block is its own
+    _check_big_rows(trb_pack)
+    nb = tri_blk_pack.shape[0]
+    sb, nsb, sb_shift = _warp_tables(tri_blk_pack, tri_blk_aabb, tri_blk_aabb, (1,) * nb,
+                                     trb_pack, sph_pack)
     f32 = torch.float32
     contrib = torch.empty((R, 3), dtype=f32, device=dev)
     rfl_rows = torch.empty((R, POOL_COLS), dtype=f32, device=dev)
@@ -805,7 +818,7 @@ def shade_eval_rows(
     rfl_m = torch.empty((R,), dtype=torch.bool, device=dev)
     rfr_m = torch.empty((R,), dtype=torch.bool, device=dev)
     _launch(
-        "shade_eval_rows", *scene,
+        "shade_eval_rows", *scene, _ptr(tri_blk_aabb), _ptr(sb), nsb, sb_shift, rays_per_warp(R),
         _ptr(point), _ptr(normal), _ptr(view), _ptr(color), _ptr(shininess),
         _ptr(valid), _ptr(t), _ptr(w), _ptr(rior), _ptr(budget), _ptr(from_refl),
         _ptr(h_httr), _ptr(h_met), _ptr(h_ior), _ptr(h_opac), _ptr(h_boost),

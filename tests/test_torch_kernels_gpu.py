@@ -1,8 +1,10 @@
 """PyTorch port on the card: each of the seven CUDA kernels against its plain
-twin (the streamed and occlusion kernels also on NaN and parked rays, rays
-that start on a block's box, axis-aligned rays, max_distance <= 0, ragged
-ray counts, coincident triangles, empty blocks, and run to run), the pool's
-chunk commit, and small renders against the CPU twins.
+twin (the four kernels with a warp per ray also on NaN and parked rays, rays
+that start on a block's box, axis-aligned rays, ragged ray counts from 0 to
+a tile, one and eight rays per warp, coincident triangles, and run to run;
+the occlusion kernels on max_distance <= 0 and empty blocks; shade_eval_rows
+bit for bit against shade_eval), the pool's chunk commit, and small renders
+against the CPU twins.
 
 Needs an NVIDIA GPU and nvcc; every test carries the `gpu` marker and skips
 from the `cuda` fixture when there is no card. This file imports neither JAX
@@ -80,6 +82,88 @@ def test_cast_kernel_matches_twin(cuda, backface):
     fin = torch.isfinite(t_ref)
     assert torch.equal(torch.isfinite(t), fin)
     np.testing.assert_allclose(t[fin].cpu().numpy(), t_ref[fin].cpu().numpy(), rtol=1e-6)
+
+
+RESIDENT_WIDTHS = (0, 1, 7, 2049, 131072)  # ragged warps and thread blocks; a tile
+
+
+def _same_bits(a, b):
+    """Equal bit for bit, NaN included."""
+    if a.dtype != torch.float32:
+        return torch.equal(a, b)
+    return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def _other_form(monkeypatch, n):
+    """Make the wrappers take the other number of rays per warp for n rays."""
+    k = kernels.rays_per_warp(n)
+    monkeypatch.setattr(kernels, "PACKET_MIN_RAYS", 1 << 30 if k == 8 else 0)
+    assert kernels.rays_per_warp(n) == (1 if k == 8 else 8)
+
+
+def _tie_tables(ds, o, d):
+    """The cast tables with coincident triangles: the big primitive that the
+    most rays hit copied into a Morton slot, and the most-hit Morton triangle
+    copied into an earlier and a later slot of its block; the boxes of the
+    changed blocks (and their superboxes) grown to the whole scene. Returns
+    the tables and (big row, its Morton copy, the earlier copy)."""
+    P = ds.trb_pack.shape[0]
+    pack, aabb, saabb = ds.tri_cast_pack.clone(), ds.tri_aabb.clone(), ds.tri_saabb.clone()
+    _, idx = kernels.cast_triangles_plain(ds.trb_pack, pack, o, d)
+    B = pack.shape[1]
+    vals, counts = torch.unique(idx[idx < P], return_counts=True)
+    p = int(vals[counts.argmax()])
+    vals, counts = torch.unique(idx[(idx >= P) & (idx < P + pack.shape[0] * B)], return_counts=True)
+    b, c = divmod(int(vals[counts.argmax()]) - P, B)
+    c_big = (c + 17) % B
+    pack[b, c_big] = ds.trb_pack[p]
+    c_early, c_late = (c - 9) % B, (c + 9) % B
+    pack[b, c_early] = pack[b, c_late] = pack[b, c]
+    starts = np.concatenate([[0], np.cumsum(ds.sb_sizes)])
+    g = int(np.searchsorted(starts, b, side="right") - 1)
+    for box in (aabb[b], saabb[g]):
+        box[0:3], box[3:6] = -1e4, 1e4
+    return (pack, aabb, saabb), (p, P + b * B + c_big, P + b * B + min(c_early, c, c_late))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["semesterbild", "ties"])
+@pytest.mark.parametrize("backface", [False, True])
+def test_cast_kernel_widths_forms_and_ties(cuda, monkeypatch, backface, case):
+    """Ray counts from 0 to a tile, one and eight rays per warp, three runs:
+    t and index identical to the twin. `ties`: a big primitive and a Morton
+    triangle at the same t keep the big primitive; two slots of one block,
+    the lower slot."""
+    cfg, ds = _scene(cuda)
+    o_all, d_all = _hard_rays(cfg, ds, cuda, 131072, 21)
+    tables, same = (ds.tri_cast_pack, ds.tri_aabb, ds.tri_saabb), None
+    if case == "ties":
+        tables, same = _tie_tables(ds, o_all[:4096], d_all[:4096])
+    args = (ds.trb_pack, *tables)
+    for n in RESIDENT_WIDTHS:
+        o, d = o_all[:n].contiguous(), d_all[:n].contiguous()
+        kernels.reset_launch_counts()
+        t, idx = kernels.cast_triangles(*args, o, d, backface_culling=backface,
+                                        sb_sizes=ds.sb_sizes)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["cast_triangles"] == 1
+        t_ref, idx_ref = kernels.cast_triangles_plain(ds.trb_pack, tables[0], o, d, backface)
+        assert t.shape == (n,) and idx.dtype == torch.int32
+        assert torch.equal(idx, idx_ref) and _same_bits(t, t_ref), n
+        for _ in range(2):
+            again = kernels.cast_triangles(*args, o, d, backface_culling=backface,
+                                           sb_sizes=ds.sb_sizes)
+            assert _same_bits(again[0], t) and torch.equal(again[1], idx)
+        with monkeypatch.context() as m:
+            _other_form(m, n)
+            other = kernels.cast_triangles(*args, o, d, backface_culling=backface,
+                                           sb_sizes=ds.sb_sizes)
+        assert _same_bits(other[0], t) and torch.equal(other[1], idx), n
+    assert torch.isfinite(t).sum() > 1000 and (~torch.isfinite(t)).any()
+    if case == "ties":
+        big, big_copy, early = same
+        assert (idx == big).any() and not (idx == big_copy).any()
+        assert (idx == early).any()
 
 
 def _shade_inputs(cfg, ds, dev, n, seed):
@@ -196,6 +280,89 @@ def test_shade_kernel_matches_twin(cuda):
     np.testing.assert_allclose(rfl_rows[rfl_m], rfl_ref[rfl_m], rtol=2e-5, atol=2e-6)
     np.testing.assert_allclose(rfr_rows[rfr_m], rfr_ref[rfr_m], rtol=2e-5, atol=2e-6)
     assert rfl_m.any() and rfr_m.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lights", [5, 50])
+def test_shade_rows_kernel_widths_forms_and_bits(cuda, monkeypatch, lights):
+    """Ray counts from 0 to a tile, one and eight rays per warp, three runs:
+    the twin's masks and values within its bar, and the bits of shade_eval
+    (one thread per ray) on the same inputs: contrib, every child field and
+    the masks, rays without a hit included."""
+    cfg, ds = _scene(cuda, **dict(REALISTIC, soft_shadows=lights == 50))
+    assert ds.n_lights == lights
+    light, node, pix, kw = _shade_inputs(cfg, ds, cuda, 131072, 31)
+    kw = _node_kw(cfg, kw)
+    per_ray = (*light[5:], *node, pix)
+    for n in RESIDENT_WIDTHS:
+        rays = [a[:n].contiguous() for a in per_ray]
+        args = (*light[:5], *rays)
+        kernels.reset_launch_counts()
+        got = kernels.shade_eval_rows(*args, **kw)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["shade_eval_rows"] == 1
+        contrib, rfl, rfl_m, rfr, rfr_m = got
+        assert contrib.shape == (n, 3) and rfl.shape == rfr.shape == (n, 16)
+        f_contrib, f_rfl, f_rfr = kernels.shade_eval(*args[:-1], **kw)
+        assert _same_bits(contrib, f_contrib), n
+        for rows, m, f in ((rfl, rfl_m, f_rfl), (rfr, rfr_m, f_rfr)):
+            assert torch.equal(m, f["mask"]), n
+            assert _same_bits(rows[:, 0:9], torch.cat([f["o"], f["d"], f["w"]], 1)), n
+            assert _same_bits(rows[:, 10], f["budget"].float()), n
+        assert _same_bits(rfr[:, 9], f_rfr["ior"])
+        assert torch.equal(rfl[:, 12], rays[-1].float()) and not rfl[:, 13:].any()
+        ref = kernels.shade_eval_rows_plain(*args, **kw)
+        assert torch.equal(rfl_m, ref[2]) and torch.equal(rfr_m, ref[4])
+        for a, b, m in ((contrib, ref[0], None), (rfl, ref[1], rfl_m), (rfr, ref[3], rfr_m)):
+            a, b = (a, b) if m is None else (a[m], b[m])
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=2e-5, atol=2e-6)
+        for _ in range(2):
+            again = kernels.shade_eval_rows(*args, **kw)
+            assert all(_same_bits(x, y) for x, y in zip(got, again))
+        with monkeypatch.context() as mp:
+            _other_form(mp, n)
+            other = kernels.shade_eval_rows(*args, **kw)
+        assert all(_same_bits(x, y) for x, y in zip(got, other)), n
+    assert rfl_m.any() and rfr_m.any() and (contrib.amax(1) > 0).any()
+
+
+@pytest.mark.gpu
+def test_resident_wrappers_refuse_what_the_kernels_cannot_take(cuda):
+    """On the card: blocks whose row count is no multiple of 32, tables off a
+    16-byte boundary, superblocks of more than 32 blocks, big-primitive
+    packs of more than 128 rows. The CPU route takes them."""
+    cfg, ds = _scene(cuda)
+    o, d = _hard_rays(cfg, ds, cuda, 256, 11)
+    light, node, pix, kw = _shade_inputs(cfg, ds, cuda, 256, 3)
+    kw = _node_kw(cfg, kw)
+    cast = (ds.trb_pack, ds.tri_cast_pack, ds.tri_aabb, ds.tri_saabb)
+    narrow = ds.tri_cast_pack[:, :48].contiguous()
+    shifted = torch.empty(ds.tri_aabb.numel() + 1, device=cuda)[1:].view_as(ds.tri_aabb)
+    shifted.copy_(ds.tri_aabb)
+    wide = torch.cat([ds.trb_pack] * 3)  # 144 rows
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="multiple of 32"):
+        kernels.cast_triangles(cast[0], narrow, *cast[2:], o, d, sb_sizes=ds.sb_sizes)
+    with pytest.raises(ValueError, match="16 bytes"):
+        kernels.cast_triangles(cast[0], cast[1], shifted, cast[3], o, d, sb_sizes=ds.sb_sizes)
+    nb = ds.tri_cast_pack.shape[0]
+    blocks = torch.cat([ds.tri_cast_pack] * 20)
+    boxes = torch.cat([ds.tri_aabb] * 20)
+    with pytest.raises(ValueError, match="at most 32"):
+        kernels.cast_triangles(cast[0], blocks, boxes, ds.tri_saabb[:1].contiguous(), o, d,
+                               sb_sizes=(20 * nb,))
+    with pytest.raises(ValueError, match="at most 128"):
+        kernels.cast_triangles(wide, *cast[1:], o, d, sb_sizes=ds.sb_sizes)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        kernels.shade_eval_rows(*light[:3], narrow, *light[4:], *node, pix, **kw)
+    with pytest.raises(ValueError, match="16 bytes"):
+        kernels.shade_eval_rows(*light[:4], shifted, *light[5:], *node, pix, **kw)
+    with pytest.raises(ValueError, match="at most 128"):
+        kernels.shade_eval_rows(*light[:2], wide, *light[3:], *node, pix, **kw)
+    assert sum(kernels.LAUNCHES.values()) == 0  # a refusal launches nothing
+    t, _ = kernels.cast_triangles(wide.cpu(), narrow.cpu(), ds.tri_aabb.cpu(),
+                                  ds.tri_saabb.cpu(), o.cpu(), d.cpu(), sb_sizes=ds.sb_sizes)
+    assert t.shape == (256,)
 
 
 def _cloud_scene(dev, n=20000):

@@ -135,6 +135,26 @@ def test_wrappers_check_inputs_and_count_only_kernel_launches():
     assert sum(kernels.LAUNCHES.values()) == 0
 
 
+def test_cast_wrapper_needs_superblocks_and_takes_rays_as_given():
+    """`cast_triangles` has no one-level mode: `sb_sizes` is required and
+    must partition the blocks. Rays are (R, 3) rows as given: (3, R) or a
+    transposed view is refused, on the CPU route as on the card's."""
+    cfg = _small_cfg()
+    ds = build_device_scene(build("semesterbild", cfg), cfg, device="cpu")
+    tables = (ds.trb_pack, ds.tri_cast_pack, ds.tri_aabb, ds.tri_saabb)
+    o = torch.zeros((16, 3))
+    d = torch.nn.functional.normalize(torch.ones((16, 3)), dim=1)
+    with pytest.raises(TypeError, match="sb_sizes"):
+        kernels.cast_triangles(*tables, o, d)
+    with pytest.raises(ValueError, match="do not cover"):
+        kernels.cast_triangles(*tables, o, d, sb_sizes=(ds.triangle_blocks + 1,))
+    for bad in (o.t().contiguous(), o.t().contiguous().t()):
+        with pytest.raises(ValueError):
+            kernels.cast_triangles(*tables, bad, d, sb_sizes=ds.sb_sizes)
+    t, idx = kernels.cast_triangles(*tables, o, d, sb_sizes=ds.sb_sizes)
+    assert t.shape == idx.shape == (16,)
+
+
 def test_kernel_build_is_keyed_by_sources(tmp_path, monkeypatch):
     """Each kernel builds from the package's csrc/ into the ignored build
     directory, under a name that changes with its source, header or flags."""
@@ -196,18 +216,22 @@ def test_seven_kernels_each_with_source_wrapper_and_twin():
         assert "atomicAdd" not in text, f  # f32 sums keep one order
 
 
-@pytest.mark.parametrize("name", ["cast_triangles_stream", "occlude_triangles_stream"])
+@pytest.mark.parametrize("name", ["cast_triangles_stream", "occlude_triangles_stream",
+                                  "cast_triangles", "shade_eval_rows"])
 def test_streamed_kernels_use_no_atomics(name):
     """The warp-per-ray kernels reduce across lanes with ballots, shuffles
     and `redux`, in a fixed order: their code (comments set aside), and that
     of the headers it includes, names no atomic operation."""
     import re
 
-    files = [kernels.KERNEL_SOURCES[name], "rt_common.cuh", "rt_occlude.cuh"]
-    code = ""
-    for f in files:
+    todo, seen, code = [kernels.KERNEL_SOURCES[name]], set(), ""
+    while todo:
+        f = todo.pop()
+        seen.add(f)
         with open(os.path.join(kernels.CSRC, f)) as fh:
-            code += re.sub(r"//[^\n]*", "", fh.read())
+            text = fh.read()
+        todo += [h for h in re.findall(r'#include "([^"]+)"', text) if h not in seen]
+        code += re.sub(r"//[^\n]*", "", text)
     assert "atomic" not in code.lower()
     for needed in ("__ballot_sync", "__shfl_sync", "threadIdx.x >> 5"):
         assert needed in code, needed

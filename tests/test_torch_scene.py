@@ -23,6 +23,7 @@ from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch import RenderConfig
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch import build_device_scene
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch import device_scene_from_arrays
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.models import build
+from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops import kernels
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.scene.builder import Scene
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.scene.device import (
     ARRAY_FIELDS,
@@ -181,6 +182,49 @@ def test_streamed_scene_carries_superboxes_over_its_blocks(name):
     # every valid triangle's Woop row lies in a block whose box is not inverted
     valid = ds.tri_cast_pack.numpy()[..., 13] != 0
     assert valid[~empty].any(axis=1).all()
+
+
+def _resident_scene(name):
+    if name == "carried_from_jax":
+        fields, static = _jax_arrays(_jax_scene(64, 48, True))
+        return device_scene_from_arrays(fields, static, device="cpu")
+    w, h, kw = {"1080p": (1920, 1080, {}), "240x135": (240, 135, {}),
+                "64x48_block32": (64, 48, dict(triangle_block=32))}[name]
+    cfg = RenderConfig(width=w, height=h, scene_backface_culling=True, **kw, **REALISTIC)
+    scene = Scene.backface_culling(build("semesterbild", cfg), np.array([0.0, 0.0, 1.0]))
+    return build_device_scene(scene, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["1080p", "240x135", "64x48_block32", "carried_from_jax"])
+def test_resident_scene_meets_the_warp_kernels_needs(name):
+    """What the resident kernels with a warp per ray need of the scenes the
+    card renders (`kernels._warp_tables`, `_check_big_rows`): blocks of a
+    multiple of 32 rows, at most 128 big rows, `sb_sizes` partitioning the
+    cast-order blocks in groups of at most 32, and every superbox containing
+    the boxes of its blocks (an empty block's box is inverted and alone)."""
+    ds = _resident_scene(name)
+    nb, B, _ = ds.tri_cast_pack.shape
+    assert not ds.streaming and B % 32 == 0 and tuple(ds.tri_blk_pack.shape) == (nb, B, 32)
+    assert sum(ds.sb_sizes) == nb and 1 <= min(ds.sb_sizes) and max(ds.sb_sizes) <= 32
+    box, sbox = ds.tri_aabb.numpy(), ds.tri_saabb.numpy()
+    empty = (box[:, 0:3] > box[:, 3:6]).any(axis=1)
+    starts = np.concatenate([[0], np.cumsum(ds.sb_sizes)])
+    for g in range(len(ds.sb_sizes)):
+        inside = slice(starts[g], starts[g + 1])
+        real = ~empty[inside]
+        if not real.any():
+            continue
+        assert (sbox[g, 0:3] <= box[inside, 0:3][real]).all()
+        assert (sbox[g, 3:6] >= box[inside, 3:6][real]).all()
+    kernels._check_big_rows(ds.trb_pack)
+    sb, nsb, shift = kernels._warp_tables(ds.tri_cast_pack, ds.tri_aabb, ds.tri_saabb,
+                                          ds.sb_sizes, ds.trb_pack)
+    assert sb.tolist() == starts.tolist() and nsb == len(ds.sb_sizes)
+    assert 1 << shift >= max(ds.sb_sizes)
+    # the node kernel's gate: each tri_blk_pack block a superblock of its own
+    _, nsb, shift = kernels._warp_tables(ds.tri_blk_pack, ds.tri_blk_aabb, ds.tri_blk_aabb,
+                                         (1,) * nb, ds.trb_pack, ds.sph_pack)
+    assert nsb == nb and shift == 0
 
 
 def test_soft_shadow_light_pack_equals_jax():
