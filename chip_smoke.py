@@ -374,9 +374,10 @@ def record(name, label, n, err, ms, plain, byts, ops, extra=""):
 def alone(res, n_rays, dev_ms):
     """The time on the device alone of a resident kernel with a warp per
     ray (the CUDA events above also time the wrapper's host work)."""
-    res.update(device_ms=dev_ms, rays_per_warp=kernels.rays_per_warp(n_rays))
+    k = kernels.rays_per_warp(n_rays, many=32)
+    res.update(device_ms=dev_ms, rays_per_warp=k)
     log(f"  on the device alone {'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}; "
-        f"{kernels.rays_per_warp(n_rays)} rays per warp")
+        f"{k} rays per warp")
 
 
 def check_cast(label, o, d, iters):

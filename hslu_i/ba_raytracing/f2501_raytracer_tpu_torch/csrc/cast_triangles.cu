@@ -38,25 +38,69 @@
 
 namespace {
 
+// A ray per lane (K = 32, a tile's coherent primary rays): the lane scans
+// its ray alone, in order, with the gates against its own best t; the lanes
+// of a warp mostly walk the same rows at once, which the staged big rows and
+// the L1 serve as broadcasts.
+__device__ __forceinline__ void lane_cast(int r, const float* __restrict__ o,
+                                          const float* __restrict__ d, const float4* big,
+                                          int P, const float* __restrict__ pack, int B,
+                                          const float* __restrict__ aabb,
+                                          const float* __restrict__ saabb,
+                                          const int* __restrict__ sb_start, int nsb, bool bf,
+                                          float* __restrict__ t_out, int* __restrict__ idx_out) {
+  const float ox = o[3 * r], oy = o[3 * r + 1], oz = o[3 * r + 2];
+  const float dx = d[3 * r], dy = d[3 * r + 1], dz = d[3 * r + 2];
+  float best_t = RT_INF;
+  int best_idx = 0x7fffffff;
+  for (int p = 0; p < P; ++p) {
+    float w[4 * RT_ROW4];
+    rt_staged_row(big, p, w);
+    float t;
+    bool valid = rt_tri_test(w, ox, oy, oz, dx, dy, dz, &t);
+    if (bf) valid = valid && ((rt_dot_normal(w, dx, dy, dz) < 0.75f) || (w[14] != 0.0f));
+    if (valid && t < best_t) {
+      best_t = t;
+      best_idx = p;
+    }
+  }
+  const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
+  for (int g = 0; g < nsb; ++g) {
+    const int b0 = sb_start[g], b1 = sb_start[g + 1];
+    if (b1 - b0 > 1 && !rt_gate(saabb + g * 8, ox, oy, oz, ix, iy, iz, best_t)) continue;
+    for (int b = b0; b < b1; ++b) {
+      if (!rt_gate(aabb + b * 8, ox, oy, oz, ix, iy, iz, best_t)) continue;
+      const float* blk = pack + (size_t)b * B * 32;
+      for (int c = 0; c < B; ++c) {
+        const float* w = blk + c * 32;
+        float t;
+        bool valid = rt_tri_test(w, ox, oy, oz, dx, dy, dz, &t);
+        if (bf) valid = valid && ((rt_dot_normal(w, dx, dy, dz) < 0.75f) || (w[14] != 0.0f));
+        if (valid && t < best_t) {
+          best_t = t;
+          best_idx = P + b * B + c;
+        }
+      }
+    }
+  }
+  t_out[r] = best_t;
+  idx_out[r] = best_idx;
+}
+
+// A warp per ray (K = 1) or per K consecutive rays from r0: the lanes
+// share each ray's scan (see the note above).
 template <int K>
-__global__ void __launch_bounds__(32 * RT_WARPS, 2) cast_triangles_kernel(
-    const float* __restrict__ o, const float* __restrict__ d, int R,
-    const float* __restrict__ trb, int P, const float* __restrict__ pack, int B,
-    const float* __restrict__ aabb, const float* __restrict__ saabb,
-    const int* __restrict__ sb_start, int nsb, int sb_shift, int backface,
-    float* __restrict__ t_out, int* __restrict__ idx_out) {
-  extern __shared__ float4 s_big[];  // P rows of RT_ROW4 words
-  __shared__ float s_rays[RT_WARPS][K * RT_RAY];
-  __shared__ float4 s_stage[RT_WARPS][RT_STAGE_ROWS * RT_ROW4];
-  rt_stage_block_rows(s_big, trb, P);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r0 = (blockIdx.x * RT_WARPS + warp) * K;
-  if (r0 >= R) return;  // by whole warps: the shuffles below need all 32 lanes
-  float* rays = s_rays[warp];
+__device__ __forceinline__ void warp_cast(int r0, int lane, const float* __restrict__ o,
+                                          const float* __restrict__ d, int R, const float4* big,
+                                          int P, const float* __restrict__ pack, int B,
+                                          const float* __restrict__ aabb,
+                                          const float* __restrict__ saabb,
+                                          const int* __restrict__ sb_start, int nsb,
+                                          int sb_shift, bool bf, float* rays, float4* stage,
+                                          float* __restrict__ t_out, int* __restrict__ idx_out) {
   if (lane < K && r0 + lane < R) rt_ray_record(rays + lane * RT_RAY, o, d, r0 + lane);
   __syncwarp();
   const unsigned alive = (r0 + K <= R) ? (1u << K) - 1u : (1u << (R - r0)) - 1u;
-  const bool bf = backface != 0;
 
   float lane_t[K], best_t[K];
   int lane_idx[K];
@@ -68,7 +112,7 @@ __global__ void __launch_bounds__(32 * RT_WARPS, 2) cast_triangles_kernel(
   // big primitives (walls, floors): never culled
   for (int c = lane; c < P; c += 32) {
     float w[4 * RT_ROW4];
-    rt_staged_row(s_big, c, w);
+    rt_staged_row(big, c, w);
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       if (!(alive >> k & 1u)) continue;
@@ -94,7 +138,7 @@ __global__ void __launch_bounds__(32 * RT_WARPS, 2) cast_triangles_kernel(
       [&](int b, unsigned who, float, bool first) {
         if (first) stale = 0;
         rt_warp_cast_block<K>(pack, aabb, b, B, P, lane, rays, who, bf, lane_t, lane_idx, best_t,
-                              &stale, s_stage[warp]);
+                              &stale, stage);
       });
 #pragma unroll
   for (int k = 0; k < K; ++k) {
@@ -107,6 +151,30 @@ __global__ void __launch_bounds__(32 * RT_WARPS, 2) cast_triangles_kernel(
 }
 
 template <int K>
+__global__ void __launch_bounds__(32 * RT_WARPS, 2) cast_triangles_kernel(
+    const float* __restrict__ o, const float* __restrict__ d, int R,
+    const float* __restrict__ trb, int P, const float* __restrict__ pack, int B,
+    const float* __restrict__ aabb, const float* __restrict__ saabb,
+    const int* __restrict__ sb_start, int nsb, int sb_shift, int backface,
+    float* __restrict__ t_out, int* __restrict__ idx_out) {
+  constexpr bool per_lane = K == 32;
+  extern __shared__ float4 s_big[];  // P rows of RT_ROW4 words
+  __shared__ float s_rays[RT_WARPS][per_lane ? 1 : K * RT_RAY];
+  __shared__ float4 s_stage[RT_WARPS][per_lane ? 1 : RT_STAGE_ROWS * RT_ROW4];
+  rt_stage_block_rows(s_big, trb, P);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r0 = (blockIdx.x * RT_WARPS + warp) * K;
+  if constexpr (per_lane) {
+    if (r0 + lane < R)
+      lane_cast(r0 + lane, o, d, s_big, P, pack, B, aabb, saabb, sb_start, nsb, backface != 0,
+                t_out, idx_out);
+  } else {
+    if (r0 >= R) return;  // by whole warps: the shuffles below need all 32 lanes
+    warp_cast<K>(r0, lane, o, d, R, s_big, P, pack, B, aabb, saabb, sb_start, nsb, sb_shift,
+                 backface != 0, s_rays[warp], s_stage[warp], t_out, idx_out);
+  }
+}
+template <int K>
 void launch(const float* o, const float* d, int R, const float* trb, int P, const float* pack,
             int B, const float* aabb, const float* saabb, const int* sb_start, int nsb,
             int sb_shift, int backface, float* t_out, int* idx_out, cudaStream_t stream) {
@@ -118,17 +186,17 @@ void launch(const float* o, const float* d, int R, const float* trb, int P, cons
 
 }  // namespace
 
-// rays_per_warp: 1 or 8
+// rays_per_warp: 1 or 32 (a ray per lane)
 extern "C" int rt_cast_triangles(const float* o, const float* d, int R, const float* trb,
                                  int P, const float* pack, int nb, int B,
                                  const float* aabb, const float* saabb,
                                  const int* sb_start, int nsb, int sb_shift, int rays_per_warp,
                                  int backface, float* t_out, int* idx_out, void* stream) {
   (void)nb;
-  if (rays_per_warp != 1 && rays_per_warp != 8) return (int)cudaErrorInvalidValue;
+  if (rays_per_warp != 1 && rays_per_warp != 32) return (int)cudaErrorInvalidValue;
   if (R > 0) {
-    if (rays_per_warp == 8)
-      launch<8>(o, d, R, trb, P, pack, B, aabb, saabb, sb_start, nsb, sb_shift, backface, t_out,
+    if (rays_per_warp == 32)
+      launch<32>(o, d, R, trb, P, pack, B, aabb, saabb, sb_start, nsb, sb_shift, backface, t_out,
                 idx_out, (cudaStream_t)stream);
     else
       launch<1>(o, d, R, trb, P, pack, B, aabb, saabb, sb_start, nsb, sb_shift, backface, t_out,

@@ -64,15 +64,23 @@ __device__ __forceinline__ void child_row(float4* dst, bool on, const Child& c,
 
 template <int K>
 __global__ void __launch_bounds__(32 * RT_WARPS, 2) shade_eval_rows_kernel(ShadeScene sc,
+                                                                           bool staged,
                                                                            WarpGate g,
                                                                            NodeParams p,
                                                                            Out out) {
-  extern __shared__ float4 s_big[];  // P rows of RT_ROW4 words
-  __shared__ float s_rays[RT_WARPS][K * RT_RAY];
-  __shared__ float s_sums[RT_WARPS][K * OCCL_SUMS];
-  __shared__ float4 s_stage[RT_WARPS][RT_STAGE_ROWS * RT_ROW4];
+  constexpr bool per_lane = K == 32;
+  extern __shared__ float4 s_dyn[];
+  __shared__ float s_rays[RT_WARPS][per_lane ? 1 : K * RT_RAY];
+  __shared__ float s_sums[RT_WARPS][per_lane ? 1 : K * OCCL_SUMS];
+  __shared__ float4 s_stage[RT_WARPS][per_lane ? 1 : RT_STAGE_ROWS * RT_ROW4];
   __shared__ float4 s_rows[RT_WARPS][K * 8];  // per ray: reflection row, refraction row
-  rt_stage_block_rows(s_big, sc.trb, sc.P);
+  // a ray per lane reads the one-thread scan's tables (rt_light.cuh); the
+  // warp forms the big rows in the 80-byte layout
+  Tables tb = {sc.lights, sc.sph, sc.trb};
+  if constexpr (per_lane)
+    tb = rt_stage_tables(sc, staged, reinterpret_cast<float*>(s_dyn));
+  else
+    rt_stage_block_rows(s_dyn, sc.trb, sc.P);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int r0 = (blockIdx.x * RT_WARPS + warp) * K;
   if (r0 >= p.R) return;  // by whole warps: the shuffles below need all 32 lanes
@@ -92,12 +100,17 @@ __global__ void __launch_bounds__(32 * RT_WARPS, 2) shade_eval_rows_kernel(Shade
   const float spec_exp = fmaxf(shin * 512.0f, 1.0f);
   float acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};  // direct, specular
   for (int l = 0; l < sc.n_lights; ++l) {
-    const float* L = sc.lights + l * 8;
+    const float* L = tb.lights + l * 8;
     LightRay q;
     bool lit = false;
     if (s.hval) {
       q = rt_light_ray(L, p.eps, s.px, s.py, s.pz, s.nx, s.ny, s.nz);
       lit = q.cos_in > 0.0f;  // else intensity and color are exactly 0
+    }
+    Occl occ = {0.0f, 0.0f, 0.0f, 0.0f, true};  // can_reach is false: the light adds nothing
+    if constexpr (per_lane) {
+      if (lit) occ = rt_shadow_scan(sc, tb, q.sox, q.soy, q.soz, q.ldx, q.ldy, q.ldz, q.maxd);
+    } else {
       if (lit) {
         float* rec = rays + lane * RT_RAY;
         rec[0] = q.sox, rec[1] = q.soy, rec[2] = q.soz;
@@ -105,18 +118,20 @@ __global__ void __launch_bounds__(32 * RT_WARPS, 2) shade_eval_rows_kernel(Shade
         rec[6] = 1.0f / q.ldx, rec[7] = 1.0f / q.ldy, rec[8] = 1.0f / q.ldz;
         rec[9] = q.maxd;
       }
+      const unsigned need = __ballot_sync(RT_WARP, lit);  // bit k: ray k
+      if (!need) continue;
+      __syncwarp();  // the records are written
+      const unsigned opq = rt_warp_shadow_scan<K>(sc, g, s_dyn, lane, rays, sums, need,
+                                                  s_stage[warp]);
+      if (lit) {
+        const float* tot = sums + lane * OCCL_SUMS;
+        occ = Occl{tot[0], tot[1], tot[2], tot[3], (opq >> lane & 1u) != 0};
+      }
+      __syncwarp();  // the sums are read before the next light's scan writes them
     }
-    const unsigned need = __ballot_sync(RT_WARP, lit);  // bit k: ray k
-    if (!need) continue;
-    __syncwarp();  // the records are written
-    const unsigned opq = rt_warp_shadow_scan<K>(sc, g, s_big, lane, rays, sums, need,
-                                                s_stage[warp]);
-    if (lit && !(opq >> lane & 1u)) {  // can_reach: the light adds its terms
-      const float* tot = sums + lane * OCCL_SUMS;
-      rt_light_add(L, q, tot[0], tot[1], tot[2], tot[3], s.nx, s.ny, s.nz, s.dx, s.dy, s.dz,
+    if (!occ.opq)
+      rt_light_add(L, q, occ.dec, occ.fr, occ.fg, occ.fb, s.nx, s.ny, s.nz, s.dx, s.dy, s.dz,
                    s.mcr, s.mcg, s.mcb, has_spec, spec_exp, acc);
-    }
-    __syncwarp();  // the sums are read before the next light's scan writes them
   }
 
   if (mine) {
@@ -144,14 +159,16 @@ template <int K>
 void launch(const ShadeScene& sc, const WarpGate& g, const NodeParams& p, const Out& out,
             cudaStream_t stream) {
   const int per_block = RT_WARPS * K;
-  shade_eval_rows_kernel<K><<<(p.R + per_block - 1) / per_block, 32 * RT_WARPS,
-                              sizeof(float4) * RT_ROW4 * sc.P, stream>>>(sc, g, p, out);
+  const bool staged = rt_tables_fit(sc);
+  const size_t smem = K == 32 ? (staged ? rt_table_bytes(sc) : 0) : sizeof(float4) * RT_ROW4 * sc.P;
+  shade_eval_rows_kernel<K><<<(p.R + per_block - 1) / per_block, 32 * RT_WARPS, smem, stream>>>(
+      sc, staged, g, p, out);
 }
 
 }  // namespace
 
 // blk_saabb, sb_start, nsb, sb_shift: the superblocks of the gate over
-// blk_aabb; rays_per_warp: 1 or 8
+// blk_aabb; rays_per_warp: 1 or 32 (a ray per lane)
 extern "C" int rt_shade_eval_rows(
     const float* lights, int n_lights, const float* sph, int S, const float* trb, int P,
     int trans_rows, const float* blk, const float* blk_aabb, int nb, int B,
@@ -164,7 +181,7 @@ extern "C" int rt_shade_eval_rows(
     int refractions, int refl_max, int refr_max, float weight_cutoff, float air,
     float* contrib, float* rfl_rows, unsigned char* rfl_m, float* rfr_rows,
     unsigned char* rfr_m, void* stream) {
-  if (rays_per_warp != 1 && rays_per_warp != 8) return (int)cudaErrorInvalidValue;
+  if (rays_per_warp != 1 && rays_per_warp != 32) return (int)cudaErrorInvalidValue;
   ShadeScene sc;
   NodeParams p;
   rt_fill_node(&sc, &p, lights, n_lights, sph, S, trb, P, trans_rows, blk, blk_aabb, nb, B,
@@ -174,8 +191,8 @@ extern "C" int rt_shade_eval_rows(
   const WarpGate g = {blk_saabb, sb_start, nsb, sb_shift};
   const Out out = {pix, contrib, rfl_rows, rfr_rows, rfl_m, rfr_m};
   if (R > 0) {
-    if (rays_per_warp == 8)
-      launch<8>(sc, g, p, out, (cudaStream_t)stream);
+    if (rays_per_warp == 32)
+      launch<32>(sc, g, p, out, (cudaStream_t)stream);
     else
       launch<1>(sc, g, p, out, (cudaStream_t)stream);
   }

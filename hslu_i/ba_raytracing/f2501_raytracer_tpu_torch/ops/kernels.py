@@ -275,7 +275,7 @@ def cast_triangles(trb_pack, tri_cast_pack, tri_aabb, tri_saabb, o, d, *, sb_siz
     idx_out = torch.empty((R,), dtype=torch.int32, device=dev)
     _launch(
         "cast_triangles", _ptr(o), _ptr(d), R, _ptr(trb_pack), P, _ptr(tri_cast_pack), nb, B,
-        _ptr(tri_aabb), _ptr(tri_saabb), _ptr(sb), nsb, sb_shift, rays_per_warp(R),
+        _ptr(tri_aabb), _ptr(tri_saabb), _ptr(sb), nsb, sb_shift, rays_per_warp(R, many=32),
         int(bool(backface_culling)), _ptr(t_out), _ptr(idx_out),
     )
     return t_out, idx_out
@@ -326,15 +326,17 @@ def _check_block_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes, dev):
     return nb, B
 
 
-# From this many rays on, a warp of the warp-per-ray kernels owns 8 rays
-# instead of one: 8 * 132 SMs * 32 warps, so every SM of an H100 still has
-# 32 warps to hide its loads behind. Below it (a wavefront of the pool)
-# every ray needs a warp of its own to fill the card.
+# Below this many rays (a wavefront of the pool) every ray needs a warp of
+# its own to fill the card. From here on a warp takes `many` rays: the
+# streamed kernels 8, so that every SM of an H100 still has 32 warps (8 *
+# 132 SMs * 32 warps) and a block's rows are loaded once for 8 rays; the
+# resident kernels 32, a ray per lane, whose coherent rays walk the same
+# rows at once.
 PACKET_MIN_RAYS = 8 * 132 * 32
 
 
-def rays_per_warp(n_rays: int) -> int:
-    return 8 if n_rays >= PACKET_MIN_RAYS else 1
+def rays_per_warp(n_rays: int, many: int = 8) -> int:
+    return many if n_rays >= PACKET_MIN_RAYS else 1
 
 
 def _warp_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes, *more):
@@ -818,7 +820,8 @@ def shade_eval_rows(
     rfl_m = torch.empty((R,), dtype=torch.bool, device=dev)
     rfr_m = torch.empty((R,), dtype=torch.bool, device=dev)
     _launch(
-        "shade_eval_rows", *scene, _ptr(tri_blk_aabb), _ptr(sb), nsb, sb_shift, rays_per_warp(R),
+        "shade_eval_rows", *scene, _ptr(tri_blk_aabb), _ptr(sb), nsb, sb_shift,
+        rays_per_warp(R, many=32),
         _ptr(point), _ptr(normal), _ptr(view), _ptr(color), _ptr(shininess),
         _ptr(valid), _ptr(t), _ptr(w), _ptr(rior), _ptr(budget), _ptr(from_refl),
         _ptr(h_httr), _ptr(h_met), _ptr(h_ior), _ptr(h_opac), _ptr(h_boost),

@@ -22,12 +22,15 @@ kernels    the resident path's two kernels, cast_triangles and
            on the device alone (torch.profiler, the mean over 20 calls at R
            and 100 at W), the
            time of the wrapper by CUDA events, and the registers per thread
-           that ptxas gave the kernels' build.
+           that ptxas gave the kernels' build; before them, tile 3 traced
+           with torch.profiler (device busy time, launches per node
+           evaluation).
 forms      the four kernels with a warp per ray, with one ray per warp and
-           with eight, in turns 1, 8, 8, 1: the two streamed kernels at the
-           pool's width (2048 rays and 10,240 shadow rays), the two resident
-           ones at W and at R; what `kernels.PACKET_MIN_RAYS` decides
-           between. The results must be the same.
+           with many (eight for the two streamed kernels, a ray per lane for
+           the resident two), in turns one, many, many, one: the streamed
+           kernels at the pool's width (2048 rays and 10,240 shadow rays),
+           the resident ones at W and at R; what `kernels.PACKET_MIN_RAYS`
+           decides between. The results must be the same.
 --root DIR imports the package from another checkout (one unpacked with
            `git archive`).
 """
@@ -146,16 +149,47 @@ def caught_calls(scene, names):
 
     for name in names:
         setattr(kernels, name, catching(name))
+    tile3(scene)()
+    torch.cuda.synchronize()
+    for name, wrapper in wrappers.items():
+        setattr(kernels, name, wrapper)
+    return {name: (wrappers[name], calls) for name, calls in caught.items()}
+
+
+def tile3(scene):
+    """A call that renders tile 3 of the 1080p frame of `scene`."""
     plan = plan_frame(cfg)
     R = plan.pix_per_tile * plan.aa
     order = torch.from_numpy(np.ascontiguousarray(plan.order[3 * R: 4 * R])).to("cuda")
     per_tile = trace.make_raygen_per_tile(
         scene, cfg, torch.zeros((1, 3), device="cuda"), torch.ones(1, device="cuda"), R)
-    per_tile(order)
+    return lambda: per_tile(order)
+
+
+def traced_tile(scene):
+    """Tile 3 traced with torch.profiler, as chip_smoke.py's `profile_tile`:
+    host wall, device busy time, launches per node evaluation, the kernels
+    that take the most device time."""
+    run = tile3(scene)
+    run()
     torch.cuda.synchronize()
-    for name, wrapper in wrappers.items():
-        setattr(kernels, name, wrapper)
-    return {name: (wrappers[name], calls) for name, calls in caught.items()}
+    kernels.reset_launch_counts()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.monotonic()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.monotonic() - t0) * 1e3
+    nodes = kernels.LAUNCHES["shade_eval_rows"]
+    avg = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in avg) / 1e3
+    n_launch = sum(e.count for e in avg if e.key == "cudaLaunchKernel")
+    print(f"semesterbild tile 3 traced: wall {wall:.1f} ms, {nodes} node evaluations, device busy "
+          f"{busy:.2f} ms, {n_launch} kernel launches ({n_launch / nodes:.1f} per node "
+          f"evaluation)", flush=True)
+    for e in sorted(avg, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"  {e.self_device_time_total / 1e3:8.3f} ms device  x{e.count:<6d} {e.key[:70]}",
+              flush=True)
 
 
 def n_rays(name, a):
@@ -174,6 +208,7 @@ def registers():
 def kernel_times():
     registers()
     scene = scene_of("semesterbild")
+    traced_tile(scene)
     for name, (wrapper, calls) in caught_calls(
             scene, ("cast_triangles", "shade_eval_rows")).items():
         for label, (a, kw), n in zip(("R", "W"), calls, (20, 100)):
@@ -198,16 +233,18 @@ def forms():
         for name, (wrapper, calls) in caught_calls(scene_of(scene_name), kernel_names).items():
             # the streamed kernels at the pool's width only, the resident ones at R and W
             for a, kw in calls if scene_name == "semesterbild" else calls[1:]:
-                ms, outs = {1: [], 8: []}, {}
-                for k in (1, 8, 8, 1):
-                    kernels.PACKET_MIN_RAYS = 1 << 30 if k == 1 else 1
-                    assert kernels.rays_per_warp(n_rays(name, a)) == k
-                    outs[k] = wrapper(*a, **kw)
-                    ms[k].append(round(cuda_ms(lambda: wrapper(*a, **kw)), 4))
+                ms, outs = {"one": [], "many": []}, {}
+                for form in ("one", "many", "many", "one"):
+                    kernels.PACKET_MIN_RAYS = 1 << 30 if form == "one" else 0
+                    outs[form] = wrapper(*a, **kw)
+                    fn = lambda: wrapper(*a, **kw)  # noqa: E731
+                    ms[form].append((round(cuda_ms(fn), 4), device_ms(fn, 20)))
                 kernels.PACKET_MIN_RAYS = least
-                assert same(name, outs[1], outs[8]), name
-                print(f"{name} at {n_rays(name, a)} rays (tile 3): one ray per warp {ms[1]} ms, "
-                      f"eight {ms[8]} ms; the same results", flush=True)
+                assert same(name, outs["one"], outs["many"]), name
+                many = "a ray per lane" if scene_name == "semesterbild" else "eight rays per warp"
+                print(f"{name} at {n_rays(name, a)} rays (tile 3), ms by CUDA events and on the "
+                      f"device alone: one ray per warp {ms['one']}, {many} {ms['many']}; the "
+                      f"same results", flush=True)
 
 
 if ARGS.what == "frames":

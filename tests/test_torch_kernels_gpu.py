@@ -95,10 +95,11 @@ def _same_bits(a, b):
 
 
 def _other_form(monkeypatch, n):
-    """Make the wrappers take the other number of rays per warp for n rays."""
-    k = kernels.rays_per_warp(n)
-    monkeypatch.setattr(kernels, "PACKET_MIN_RAYS", 1 << 30 if k == 8 else 0)
-    assert kernels.rays_per_warp(n) == (1 if k == 8 else 8)
+    """Make the wrappers take the other number of rays per warp for n rays:
+    one, or many (a ray per lane in the resident kernels)."""
+    one = kernels.rays_per_warp(n) == 1
+    monkeypatch.setattr(kernels, "PACKET_MIN_RAYS", 0 if one else 1 << 30)
+    assert (kernels.rays_per_warp(n) == 1) != one
 
 
 def _tie_tables(ds, o, d):
@@ -130,8 +131,8 @@ def _tie_tables(ds, o, d):
 @pytest.mark.parametrize("case", ["semesterbild", "ties"])
 @pytest.mark.parametrize("backface", [False, True])
 def test_cast_kernel_widths_forms_and_ties(cuda, monkeypatch, backface, case):
-    """Ray counts from 0 to a tile, one and eight rays per warp, three runs:
-    t and index identical to the twin. `ties`: a big primitive and a Morton
+    """Ray counts from 0 to a tile, one ray per warp and a ray per lane,
+    three runs: t and index identical to the twin. `ties`: a big primitive and a Morton
     triangle at the same t keep the big primitive; two slots of one block,
     the lower slot."""
     cfg, ds = _scene(cuda)
@@ -285,8 +286,8 @@ def test_shade_kernel_matches_twin(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("lights", [5, 50])
 def test_shade_rows_kernel_widths_forms_and_bits(cuda, monkeypatch, lights):
-    """Ray counts from 0 to a tile, one and eight rays per warp, three runs:
-    the twin's masks and values within its bar, and the bits of shade_eval
+    """Ray counts from 0 to a tile, one ray per warp and a ray per lane,
+    three runs: the twin's masks and values within its bar, and the bits of shade_eval
     (one thread per ray) on the same inputs: contrib, every child field and
     the masks, rays without a hit included."""
     cfg, ds = _scene(cuda, **dict(REALISTIC, soft_shadows=lights == 50))
