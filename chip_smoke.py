@@ -11,7 +11,9 @@ seconds):
      path's shapes, taken from real semesterbild tiles, and time both with
      CUDA events: cast_triangles and shade_eval_rows at R = 131072 (the
      prologue of a 1080p `realistic` tile) and W = 2048 (one pool
-     iteration); light_shade at R = 131072 from a 1080p tile with 5 lights
+     iteration), each also on the device alone (torch.profiler), the same
+     bits on three runs, and shade_eval_rows bit for bit against shade_eval
+     (one thread per ray) on the same inputs; light_shade at R = 131072 from a 1080p tile with 5 lights
      (`default`) and 50 lights (`soft_shadows`); shade_eval at R = 131072
      (the first wavefront of a 960x540 stack-path tile). Then the pool's
      chunk commit three times on the same rows: identical bits. Phase 2b:
@@ -28,7 +30,9 @@ seconds):
      gate) each line also gives the kernel's own time on the device
      (torch.profiler), the superblocks and blocks a ray crosses and the
      operations of the gate's box tests (this design's own work, kept out
-     of `bound_ms`), and their registers per thread are printed;
+     of `bound_ms`). The registers per thread of the four kernels with a
+     warp per ray are printed in phase 1 (from this run's build, or marked
+     as a cached build's);
   3. render the full 1920x1080 `realistic` frame (bench.py's settings, the
      packed-row pool path) through RaytracerRenderer(cfg, device="cuda"):
      warm frame wall time, launch counts (cast_triangles and

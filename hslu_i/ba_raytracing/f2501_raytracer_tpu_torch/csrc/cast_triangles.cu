@@ -19,21 +19,26 @@
 // 16 thread blocks on 132 SMs, and a ray's time one thread's chain of ~180
 // dependent pair tests: the latency of that chain bounded it.
 //
-// Design: a warp owns a ray (or, from rays_per_warp's threshold on, 8
-// consecutive rays), 4 warps per thread block, so a wavefront is 2048 warps.
-// The big rows are staged once per thread block into shared memory, 80
-// bytes a row (rt_common.cuh: RT_ROW4 words; lanes read their own rows
-// without bank conflicts), and lane l tests rows l and l + 32; the warp's
-// minimum t is then the limit of the two-level box gate over tri_saabb /
-// sb_start (rt_warp_blocks), and each crossed block's rows are staged and
-// split over the lanes (rt_warp_cast_block). Each lane keeps its own best
-// (t, index) per ray under a strict `<`; one lexicographic minimum over the
-// lanes (rt_warp_nearest) is the one-thread scan's answer, ties included: a
-// big primitive's index is below every Morton index, and an earlier block's
-// below a later one's. The gate boxes are widened (rt_common.cuh), so the
-// result equals the ungated plain twin bit for bit. Shared memory: P * 80 B
-// of big rows, 20 KB of staged block rows and up to 1.5 KB of ray records
-// per thread block.
+// Design: one kernel template, its form chosen by the ray count
+// (kernels.rays_per_warp). Below PACKET_MIN_RAYS (a wavefront) a warp owns
+// a ray, 4 warps per thread block, so a wavefront is 2048 warps. The big
+// rows are staged once per thread block into shared memory, 80 bytes a row
+// (rt_common.cuh: RT_ROW4 words; lanes read their own rows without bank
+// conflicts), and lane l tests rows l and l + 32; the warp's minimum t is
+// then the limit of the two-level box gate over tri_saabb / sb_start
+// (rt_warp_blocks), and each crossed block's rows are staged and split over
+// the lanes (rt_warp_cast_block). Each lane keeps its own best (t, index)
+// under a strict `<`; one lexicographic minimum over the lanes
+// (rt_warp_nearest) is the one-thread scan's answer, ties included: a big
+// primitive's index is below every Morton index, and an earlier block's
+// below a later one's. From PACKET_MIN_RAYS on (a tile's coherent primary
+// rays) a warp takes 32 rays, a ray per lane, and each lane scans its ray
+// in order, as one thread did: the lanes then walk the same rows at once,
+// which shared memory and the L1 serve as broadcasts (eight rays per warp
+// with the lanes over rows took twice as long there). The gate boxes are
+// widened (rt_common.cuh), so every form equals the ungated plain twin bit
+// for bit. Shared memory: P * 80 B of big rows, and in the warp form 20 KB
+// of staged block rows and 48 B of ray record per warp.
 #include "rt_common.cuh"
 
 namespace {
@@ -87,8 +92,8 @@ __device__ __forceinline__ void lane_cast(int r, const float* __restrict__ o,
   idx_out[r] = best_idx;
 }
 
-// A warp per ray (K = 1) or per K consecutive rays from r0: the lanes
-// share each ray's scan (see the note above).
+// A warp per ray (K = 1; the template takes K consecutive rays from r0):
+// the lanes share each ray's scan (see the note above).
 template <int K>
 __device__ __forceinline__ void warp_cast(int r0, int lane, const float* __restrict__ o,
                                           const float* __restrict__ d, int R, const float4* big,

@@ -9,8 +9,9 @@
 //   opq = any opaque hit
 //   fr, fg, fb = sum(absorption)
 // A ray's hits are added in storage order, whether one thread owns the ray
-// (occl_pack, occl_blocks) or a warp does (occl_warp_block), so its f32 sums
-// are the same bits on every run and in both forms: no atomics, no tree.
+// (occl_pack, occl_blocks) or a warp does (occl_warp_rows, occl_warp_block),
+// so its f32 sums are the same bits on every run and in both forms: no
+// atomics, no tree.
 #pragma once
 
 #include "rt_common.cuh"

@@ -22,22 +22,31 @@
 // was 16 thread blocks on 132 SMs, and a ray's time one thread's chain of up
 // to ~1100 dependent pair tests.
 //
-// Design: a warp owns a ray (or, from rays_per_warp's threshold on, 8
-// consecutive rays), 4 warps per thread block; lane k holds ray k's surface
-// and light sums. For each light in order, the lanes that own a lit ray
-// (cos_in > 0) write its shadow ray, and the warp shares the shadow scan of
-// the rays that need one (rt_light.cuh::rt_warp_shadow_scan): spheres one
-// per lane, the big rows (staged once per thread block, 80 bytes a row) two
-// per lane, the crossed Morton blocks through the lanes-parallel box gate
-// and rows staged per block; transmissive hits are added in the one-thread
-// order by ballot and shuffle, and an opaque hit ends the ray's scan. The
-// lighting math of a light and the node epilogue (rt_node.cuh) then run on
-// the owning lanes, unchanged. tri_blk_pack has no superboxes of its own
-// (the scene's follow the cast order), so each block is a superblock of its
-// own: the gate tests 32 boxes a step. The child rows are written through
-// shared memory, 4 lanes per 64-byte row. Shared memory: P * 80 B of big
-// rows, 20 KB of staged block rows, and up to 6.5 KB of ray records, shadow
-// sums and rows per thread block.
+// Design: one kernel template, its form chosen by the ray count
+// (kernels.rays_per_warp). Below PACKET_MIN_RAYS (a wavefront) a warp owns
+// a ray, 4 warps per thread block; lane 0 holds its surface and light sums.
+// For each light in order, a lit ray (cos_in > 0) writes its shadow ray,
+// and the lanes share the shadow scan (rt_light.cuh::rt_warp_shadow_scan):
+// spheres one per lane, the big rows (staged once per thread block, 80
+// bytes a row) two per lane, the crossed Morton blocks through the
+// lanes-parallel box gate, their rows split over the lanes; transmissive
+// hits are added in the one-thread order by ballot and shuffle, and an
+// opaque hit ends the scan. tri_blk_pack has no superboxes of its own (the
+// scene's follow the cast order), so each block is a superblock of its own:
+// the gate tests 32 boxes a step. Each visit copies the block's rows into
+// the warp's stage (staging the 1080p scene's whole pack per thread block
+// instead was 10% faster at W and is left out: a second path for no gain
+// a frame can show). From PACKET_MIN_RAYS on (a tile's
+// coherent primary rays) a warp takes 32 rays, a ray per lane, each lane
+// scanning its ray's shadows alone with the one-thread code of light_shade
+// and shade_eval (the lanes walk the same rows at once: broadcasts; eight
+// rays per warp with the lanes over rows took twice as long there). In
+// every form the lighting math of a light and the node epilogue
+// (rt_node.cuh) run on the lane that owns the ray, unchanged, and the child
+// rows leave through shared memory, 4 lanes per 64-byte row. Shared memory
+// per thread block: in the warp form P * 80 B of big rows, 20 KB of block
+// stage and 0.3 KB of ray records, sums and rows; a ray per lane: the
+// one-thread tables (a few KB) and 16 KB of rows.
 #include "rt_node.cuh"
 
 namespace {
@@ -159,7 +168,7 @@ template <int K>
 void launch(const ShadeScene& sc, const WarpGate& g, const NodeParams& p, const Out& out,
             cudaStream_t stream) {
   const int per_block = RT_WARPS * K;
-  const bool staged = rt_tables_fit(sc);
+  const bool staged = rt_tables_fit(sc);  // the one-thread tables of a ray per lane
   const size_t smem = K == 32 ? (staged ? rt_table_bytes(sc) : 0) : sizeof(float4) * RT_ROW4 * sc.P;
   shade_eval_rows_kernel<K><<<(p.R + per_block - 1) / per_block, 32 * RT_WARPS, smem, stream>>>(
       sc, staged, g, p, out);

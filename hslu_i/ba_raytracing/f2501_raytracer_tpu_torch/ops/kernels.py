@@ -270,7 +270,8 @@ def cast_triangles(trb_pack, tri_cast_pack, tri_aabb, tri_saabb, o, d, *, sb_siz
     if dev.type == "cpu":
         return cast_triangles_plain(trb_pack, tri_cast_pack, o, d, backface_culling)
     _check_big_rows(trb_pack)
-    sb, nsb, sb_shift = _warp_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes, trb_pack)
+    sb, nsb, sb_shift = _warp_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes,
+                                     trb_pack=trb_pack)
     t_out = torch.empty((R,), dtype=torch.float32, device=dev)
     idx_out = torch.empty((R,), dtype=torch.int32, device=dev)
     _launch(
@@ -339,7 +340,7 @@ def rays_per_warp(n_rays: int, many: int = 8) -> int:
     return many if n_rays >= PACKET_MIN_RAYS else 1
 
 
-def _warp_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes, *more):
+def _warp_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes, **more):
     """What the warp-per-ray kernels need beyond the checked shapes: B a
     multiple of 32 (a lane per row), tables aligned for 16-byte loads (the
     block tables and `more`), and superblocks of at most 32 blocks. Returns
@@ -349,7 +350,7 @@ def _warp_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes, *more):
     if B % 32:
         raise ValueError(f"tri_cast_pack: blocks of {B} rows; the kernel needs a multiple of 32")
     for name, t in (("tri_cast_pack", tri_cast_pack), ("tri_aabb", tri_aabb),
-                    ("tri_saabb", tri_saabb), *((f"table {i}", t) for i, t in enumerate(more))):
+                    ("tri_saabb", tri_saabb), *more.items()):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: not aligned to 16 bytes")
     largest = max(sb_sizes, default=1)  # no superblocks: a scene without blocks
@@ -812,7 +813,7 @@ def shade_eval_rows(
     _check_big_rows(trb_pack)
     nb = tri_blk_pack.shape[0]
     sb, nsb, sb_shift = _warp_tables(tri_blk_pack, tri_blk_aabb, tri_blk_aabb, (1,) * nb,
-                                     trb_pack, sph_pack)
+                                     trb_pack=trb_pack, sph_pack=sph_pack)
     f32 = torch.float32
     contrib = torch.empty((R, 3), dtype=f32, device=dev)
     rfl_rows = torch.empty((R, POOL_COLS), dtype=f32, device=dev)

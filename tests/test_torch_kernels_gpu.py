@@ -284,14 +284,19 @@ def test_shade_kernel_matches_twin(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("lights", [5, 50])
-def test_shade_rows_kernel_widths_forms_and_bits(cuda, monkeypatch, lights):
+@pytest.mark.parametrize("scene", ["5_lights", "50_lights", "cloud"])
+def test_shade_rows_kernel_widths_forms_and_bits(cuda, monkeypatch, scene):
     """Ray counts from 0 to a tile, one ray per warp and a ray per lane,
-    three runs: the twin's masks and values within its bar, and the bits of shade_eval
-    (one thread per ray) on the same inputs: contrib, every child field and
-    the masks, rays without a hit included."""
-    cfg, ds = _scene(cuda, **dict(REALISTIC, soft_shadows=lights == 50))
-    assert ds.n_lights == lights
+    three runs: the twin's masks and values within its bar, and the bits of
+    shade_eval (one thread per ray) on the same inputs: contrib, every child
+    field and the masks, rays without a hit included; the cloud adds
+    Morton blocks with glass (the 1080p scene has none)."""
+    if scene == "cloud":
+        cfg, ds = _cloud_scene(cuda)
+        assert not ds.streaming and ds.n_trans_blocks > 0
+    else:
+        cfg, ds = _scene(cuda, **dict(REALISTIC, soft_shadows=scene == "50_lights"))
+        assert ds.n_lights == (50 if scene == "50_lights" else 5)
     light, node, pix, kw = _shade_inputs(cfg, ds, cuda, 131072, 31)
     kw = _node_kw(cfg, kw)
     per_ray = (*light[5:], *node, pix)

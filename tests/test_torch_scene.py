@@ -218,12 +218,12 @@ def test_resident_scene_meets_the_warp_kernels_needs(name):
         assert (sbox[g, 3:6] >= box[inside, 3:6][real]).all()
     kernels._check_big_rows(ds.trb_pack)
     sb, nsb, shift = kernels._warp_tables(ds.tri_cast_pack, ds.tri_aabb, ds.tri_saabb,
-                                          ds.sb_sizes, ds.trb_pack)
+                                          ds.sb_sizes, trb_pack=ds.trb_pack)
     assert sb.tolist() == starts.tolist() and nsb == len(ds.sb_sizes)
     assert 1 << shift >= max(ds.sb_sizes)
     # the node kernel's gate: each tri_blk_pack block a superblock of its own
     _, nsb, shift = kernels._warp_tables(ds.tri_blk_pack, ds.tri_blk_aabb, ds.tri_blk_aabb,
-                                         (1,) * nb, ds.trb_pack, ds.sph_pack)
+                                         (1,) * nb, trb_pack=ds.trb_pack, sph_pack=ds.sph_pack)
     assert nsb == nb and shift == 0
 
 
