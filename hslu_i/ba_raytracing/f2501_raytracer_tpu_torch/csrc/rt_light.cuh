@@ -196,8 +196,8 @@ __device__ __forceinline__ unsigned rt_warp_shadow_scan(const ShadeScene& sc, co
   __syncwarp();  // the totals are written
   if (alive) {
     unsigned who = alive, touched = 0;
-    occl_warp_rows<K>(big, sc.trb, sc.P, sc.trans_rows, lane, rays, sums, &who, bf, &alive, &opq,
-                      &touched);
+    occl_warp_rows<K, true>(big, sc.trb, sc.P, sc.trans_rows, lane, rays, sums, &who, bf, &alive,
+                            &opq, &touched);
     occl_warp_fold<K>(sums, lane, touched);
   }
   rt_warp_blocks<K>(

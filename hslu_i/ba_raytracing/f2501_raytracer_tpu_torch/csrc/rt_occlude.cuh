@@ -99,15 +99,17 @@ __device__ __forceinline__ bool occl_blocks(const float* __restrict__ pack,
 // opaque hit sets the ray's bit in *opq and takes it out of *who and *alive.
 // Otherwise the hit rows' contributions are added in row order into the
 // pack's partial sums (the ballot's bits from the lowest, each lane's values
-// by shuffle), which the rays marked in *touched already hold. All 32 lanes.
-template <int K>
+// by shuffle), which the rays marked in *touched already hold. All 32 lanes;
+// RAGGED: n need not be a multiple of 32 (the last round tests whether its
+// rows exist, so that every lane stays in each ballot).
+template <int K, bool RAGGED>
 __device__ __forceinline__ void occl_warp_rows(const float4* stage, const float* __restrict__ rows,
                                                int n, int trans_rows, int lane, const float* rays,
                                                float* sums, unsigned* who, bool backface,
                                                unsigned* alive, unsigned* opq, unsigned* touched) {
-  for (int c0 = 0; c0 < n && *who; c0 += 32) {
+  for (int c0 = 0; c0 < n; c0 += 32) {
     const int c = c0 + lane;
-    const bool in = c < n;
+    const bool in = !RAGGED || c < n;
     float w[4 * RT_ROW4];
     if (in) rt_staged_row(stage, c, w);
     const bool httr = in && w[14] != 0.0f;
@@ -191,11 +193,11 @@ __device__ __forceinline__ void occl_warp_block(const float* __restrict__ blk, i
                                                 unsigned* alive, unsigned* opq,
                                                 float4* stage) {
   unsigned touched = 0;  // rays with partial sums in this block
-  for (int c0 = 0; c0 < B && who; c0 += RT_STAGE_ROWS) {
+  for (int c0 = 0; c0 < B; c0 += RT_STAGE_ROWS) {
     const int n = min(RT_STAGE_ROWS, B - c0);
     rt_stage_rows(stage, blk + c0 * 32, n, lane);
-    occl_warp_rows<K>(stage, blk + c0 * 32, n, trans_section ? n : 0, lane, rays, sums, &who,
-                      backface, alive, opq, &touched);
+    occl_warp_rows<K, false>(stage, blk + c0 * 32, n, trans_section ? n : 0, lane, rays, sums,
+                             &who, backface, alive, opq, &touched);
   }
   occl_warp_fold<K>(sums, lane, touched);
 }

@@ -6,7 +6,8 @@ file from anywhere:
 
     python3 hslu_i/ba_raytracing/f2501_raytracer_tpu_torch/utils/ab.py \
         frames N [--scene semesterbild semesterbild_cloud] [--root DIR]
-    python3 hslu_i/ba_raytracing/f2501_raytracer_tpu_torch/utils/ab.py kernels [--root DIR]
+    python3 hslu_i/ba_raytracing/f2501_raytracer_tpu_torch/utils/ab.py \
+        kernels [--scene semesterbild semesterbild_cloud] [--root DIR]
     python3 hslu_i/ba_raytracing/f2501_raytracer_tpu_torch/utils/ab.py forms
 
 frames N   render the 1920x1080 `realistic` frame (chip_smoke.py's settings)
@@ -15,16 +16,16 @@ frames N   render the 1920x1080 `realistic` frame (chip_smoke.py's settings)
            `semesterbild_cloud` (the streamed path); once to warm up and N
            times more; print each wall time, the launches and the u32
            checksum.
-kernels    the resident path's two kernels, cast_triangles and
-           shade_eval_rows, at R = 131072 rays (the primary node of tile 3
-           of the 1080p `realistic` frame) and at the W = 2048 rays of that
-           tile's first pool iteration, both caught from a render: the time
-           on the device alone (torch.profiler, the mean over 20 calls at R
-           and 100 at W), the
-           time of the wrapper by CUDA events, and the registers per thread
-           that ptxas gave the kernels' build; before them, tile 3 traced
-           with torch.profiler (device busy time, launches per node
-           evaluation).
+kernels    the two kernels of each scene's path (`semesterbild`:
+           cast_triangles and shade_eval_rows; `semesterbild_cloud`:
+           cast_triangles_stream and occlude_triangles_stream) at the
+           primary node of tile 3 of the 1080p `realistic` frame (R) and at
+           that tile's first pool iteration (W), both caught from a render:
+           the time on the device alone (torch.profiler, the mean over 20
+           calls at R and 100 at W) and of the wrapper by CUDA events; before
+           them, tile 3 traced with torch.profiler (device busy time,
+           launches per node evaluation); first, the registers per thread
+           that ptxas gave the kernels' build.
 forms      the four kernels with a warp per ray, with one ray per warp and
            with many (eight for the two streamed kernels, a ray per lane for
            the resident two), in turns one, many, many, one: the streamed
@@ -75,6 +76,11 @@ cfg = RenderConfig(
 )
 renderer = RaytracerRenderer(cfg, device="cuda")
 print(f"{torch.cuda.get_device_name(0)}; package from {sys.path[0]}", flush=True)
+
+
+# the kernels of each scene's path, its node kernel first
+KERNELS = {"semesterbild": ("cast_triangles", "shade_eval_rows"),
+           "semesterbild_cloud": ("cast_triangles_stream", "occlude_triangles_stream")}
 
 
 def scene_of(name):
@@ -166,7 +172,7 @@ def tile3(scene):
     return lambda: per_tile(order)
 
 
-def traced_tile(scene):
+def traced_tile(name, scene):
     """Tile 3 traced with torch.profiler, as chip_smoke.py's `profile_tile`:
     host wall, device busy time, launches per node evaluation, the kernels
     that take the most device time."""
@@ -180,11 +186,11 @@ def traced_tile(scene):
         run()
         torch.cuda.synchronize()
         wall = (time.monotonic() - t0) * 1e3
-    nodes = kernels.LAUNCHES["shade_eval_rows"]
+    nodes = kernels.LAUNCHES[KERNELS[name][0]]
     avg = prof.key_averages()
     busy = sum(e.self_device_time_total for e in avg) / 1e3
     n_launch = sum(e.count for e in avg if e.key == "cudaLaunchKernel")
-    print(f"semesterbild tile 3 traced: wall {wall:.1f} ms, {nodes} node evaluations, device busy "
+    print(f"{name} tile 3 traced: wall {wall:.1f} ms, {nodes} node evaluations, device busy "
           f"{busy:.2f} ms, {n_launch} kernel launches ({n_launch / nodes:.1f} per node "
           f"evaluation)", flush=True)
     for e in sorted(avg, key=lambda e: -e.self_device_time_total)[:6]:
@@ -193,6 +199,7 @@ def traced_tile(scene):
 
 
 def n_rays(name, a):
+    """The ray count of a caught call: the length of its first per-ray argument."""
     return a[5 if name.startswith("shade") else 3 if name.endswith("stream") else 4].shape[0]
 
 
@@ -207,14 +214,14 @@ def registers():
 
 def kernel_times():
     registers()
-    scene = scene_of("semesterbild")
-    traced_tile(scene)
-    for name, (wrapper, calls) in caught_calls(
-            scene, ("cast_triangles", "shade_eval_rows")).items():
-        for label, (a, kw), n in zip(("R", "W"), calls, (20, 100)):
-            fn = lambda: wrapper(*a, **kw)  # noqa: E731
-            print(f"{name} {label} ({n_rays(name, a)} rays): device {device_ms(fn, n)} ms, "
-                  f"wrapper by CUDA events {round(cuda_ms(fn, n), 5)} ms", flush=True)
+    for scene_name in ARGS.scene:
+        scene = scene_of(scene_name)
+        traced_tile(scene_name, scene)
+        for name, (wrapper, calls) in caught_calls(scene, KERNELS[scene_name]).items():
+            for label, (a, kw), n in zip(("R", "W"), calls, (20, 100)):
+                fn = lambda: wrapper(*a, **kw)  # noqa: E731
+                print(f"{name} {label} ({n_rays(name, a)} rays): device {device_ms(fn, n)} ms, "
+                      f"wrapper by CUDA events {round(cuda_ms(fn, n), 5)} ms", flush=True)
 
 
 def same(name, x, y):
@@ -226,10 +233,8 @@ def same(name, x, y):
 
 
 def forms():
-    names = {"semesterbild_cloud": ("cast_triangles_stream", "occlude_triangles_stream"),
-             "semesterbild": ("cast_triangles", "shade_eval_rows")}
     least = kernels.PACKET_MIN_RAYS
-    for scene_name, kernel_names in names.items():
+    for scene_name, kernel_names in KERNELS.items():
         for name, (wrapper, calls) in caught_calls(scene_of(scene_name), kernel_names).items():
             # the streamed kernels at the pool's width only, the resident ones at R and W
             for a, kw in calls if scene_name == "semesterbild" else calls[1:]:
