@@ -361,8 +361,8 @@ def _warp_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes, **more):
 
 
 # Rows of the big-primitive pack that the resident kernels with a warp per
-# ray stage in shared memory: the scene builder's cap (scene/device.py
-# BIGTRI_CAP).
+# ray stage in shared memory: the cap that scene/device.py puts on that pack
+# (BIGTRI_CAP).
 BIG_ROWS = 128
 
 
