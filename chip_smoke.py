@@ -6,17 +6,23 @@ Phases (any failure fails the run; nothing is caught; each prints its
 seconds):
   1. the card's name and power limit; build all seven CUDA kernels from
      hslu_i/ba_raytracing/f2501_raytracer_tpu_torch/csrc (one nvcc each, in
-     parallel) and print the build time and ptxas resource lines;
+     parallel) and print the build time and the registers of each kernel
+     function and form (ptxas);
   2. hold each kernel against its plain PyTorch twin on the card at its
      path's shapes, taken from real semesterbild tiles, and time both with
      CUDA events: cast_triangles and shade_eval_rows at R = 131072 (the
      prologue of a 1080p `realistic` tile) and W = 2048 (one pool
-     iteration), each also on the device alone (torch.profiler), the same
-     bits on three runs, and shade_eval_rows bit for bit against shade_eval
-     (one thread per ray) on the same inputs; light_shade at R = 131072 from a 1080p tile with 5 lights
-     (`default`) and 50 lights (`soft_shadows`); shade_eval at R = 131072
-     (the first wavefront of a 960x540 stack-path tile). Then the pool's
-     chunk commit three times on the same rows: identical bits. Phase 2b:
+     iteration), the same bits on three runs, and shade_eval_rows bit for
+     bit against shade_eval on the same inputs; light_shade at R = 131072
+     from a 1080p tile with 5 lights (`default`) and 50 lights
+     (`soft_shadows`), the same bits on three runs; shade_eval at the first and the middle wavefront of
+     tile 1 of the 960x540 stack-path frame (131072 slots, caught from a
+     render, with the live rays of every wavefront) and at the first pool
+     iteration of the 240x135 `packed_stage=False` frame (W = 512), in both
+     of its forms bit for bit shade_eval_rows, three runs each. The six
+     kernels with a warp per ray or a (ray, light) split are also timed on
+     the device alone (torch.profiler). Then the pool's chunk commit three
+     times on the same rows: identical bits. Phase 2b:
      cast_triangles_stream and occlude_triangles_stream on the synthetic
      streaming validation scene (200,000 small matte triangles in a 10^3
      box, R = 32768 random rays, max distance 4, backface culling on; and
@@ -27,21 +33,22 @@ seconds):
      resident 1080p tile through `occlude_rays(scene, ...)`. Occlusion sums
      are compared where `opq` is false and must have the same bits on every
      run. For the two streamed kernels (one warp per ray, a two-level box
-     gate) each line also gives the kernel's own time on the device
-     (torch.profiler), the superblocks and blocks a ray crosses and the
-     operations of the gate's box tests (this design's own work, kept out
-     of `bound_ms`). The registers per thread of the four kernels with a
-     warp per ray are printed in phase 1 (from this run's build, or marked
-     as a cached build's);
+     gate) each line also gives the superblocks and blocks a ray crosses
+     and the operations of the gate's box tests (this design's own work,
+     kept out of `bound_ms`). Phase 2c: the four kernels with a warp per
+     ray and shade_eval on block partitions the JAX package takes, a
+     superblock of more than 32 blocks and blocks of 48 rows (a cloud scene
+     at 1080p), against their twins at W and R rays;
   3. render the full 1920x1080 `realistic` frame (bench.py's settings, the
      packed-row pool path) through RaytracerRenderer(cfg, device="cuda"):
      warm frame wall time, launch counts (cast_triangles and
      shade_eval_rows > 0, the others 0), dropped rays (0), the u32
      checksum, and a second warm frame with the same checksum; then the
      frame with the atomic commit (`index_add_`) against the sorted
-     commit, in turns old, new, new, old; then one tile traced with
-     torch.profiler: wall, pool iterations, device busy time and the
-     kernels that take it;
+     commit, in turns old, new, new, old; then three tiles traced with
+     torch.profiler (the `realistic` tile 3, the stack-path tile 1 and the
+     `soft_shadows` tile 3): wall, node evaluations, device busy time, the
+     kernels that take it, and the device time of each node-kernel call;
   4. the other paths at their sizes: 1080p `default`, `anti_aliasing` and
      `soft_shadows` (light_shade > 0, shade_eval_rows == 0), the 960x540
      stack-path frame (compaction_ratio 1; shade_eval > 0, shade_eval_rows
@@ -55,8 +62,9 @@ seconds):
      Every warm frame's checksum must be the one recorded for its path
      (CHECKSUMS: an H100's, the same in every run);
   5. small frames of every path on the card and through the CPU twins in
-     this process: < 0.5% of pixels may differ by more than 2e-3 in linear
-     colour, and `valid` may differ only at knife edges (< 0.5%);
+     this process, and of the cloud scene at the two partitions of phase
+     2c: < 0.5% of pixels may differ by more than 2e-3 in linear colour,
+     and `valid` may differ only at knife edges (< 0.5%);
   6. print the {"kernels": [...]} line, then the {"ok": true, ...} line.
 With --report, the measurements also go to PATH as JSON.
 
@@ -77,6 +85,7 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 
 parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
 parser.add_argument("--report", help="also write the measurements to this JSON file")
@@ -94,6 +103,7 @@ from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch import build_device_scene  #
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.models import build  # noqa: E402
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.models.triangle_cloud import (  # noqa: E402
     add_triangle_cloud,
+    build_scene as build_cloud,
 )
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops import kernels, shading, trace  # noqa: E402
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops.intersect import (  # noqa: E402
@@ -161,10 +171,11 @@ def cuda_ms(fn, iters, warmup=3):
     return a.elapsed_time(b) / iters
 
 
-def device_ms(fn, iters):
+def device_ms(fn, iters, per_call=1):
     """Device time of one call's CUDA kernels written in this repository
-    (torch.profiler; mean over `iters` calls): what CUDA events cannot show
-    for a kernel shorter than its wrapper's time on the host."""
+    (torch.profiler; mean over `iters` calls, each of which launches
+    `per_call` of them): what CUDA events cannot show for a kernel shorter
+    than its wrapper's time on the host."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -175,9 +186,9 @@ def device_ms(fn, iters):
             torch.cuda.synchronize()
         ours = [e for e in prof.key_averages() if "anonymous namespace" in e.key]
         n = sum(e.count for e in ours)
-        assert n <= iters, [(e.key, e.count) for e in ours]
-        if n:
-            return sum(e.self_device_time_total for e in ours) / 1e3 / n
+        assert n <= iters * per_call, [(e.key, e.count) for e in ours]
+        if n == iters * per_call or (n and per_call == 1):
+            return sum(e.self_device_time_total for e in ours) / 1e3 / n * per_call
     return None  # not measured: the CUDA events' time stands alone
 
 
@@ -219,10 +230,33 @@ def bound_ms(byts, ops):
     return max(by, op), ("bytes" if by >= op else "operations")
 
 
-# the kernels with a warp per ray, whose lines also give the time on the
-# device alone (torch.profiler) and the registers per thread
-WARP_KERNELS = ("cast_triangles", "cast_triangles_stream", "occlude_triangles_stream",
-                "shade_eval_rows")
+# the kernels whose lines also give the time on the device alone
+# (torch.profiler) and the registers per thread of each build (form); those
+# with a warp per ray must not spill (light_shade, one lane per shadow ray,
+# spills a few bytes in its fastest build)
+TIMED_KERNELS = ("cast_triangles", "cast_triangles_stream", "occlude_triangles_stream",
+                 "shade_eval_rows", "shade_eval", "light_shade")
+NO_SPILL = TIMED_KERNELS[:-1]
+
+
+def entry_registers(ptxas):
+    """{kernel function and its template arguments: (registers, spilled
+    bytes)} from a build's ptxas -v output."""
+    out, name = {}, None
+    for line in ptxas.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:  # ...<length><name>_kernel, then I<template arguments>E: K and RAGGED
+            f = re.search(r"\d([a-z_]+_kernel)(I(?:L[ib]\d+E)+E)?", m.group(1))
+            args = re.findall(r"(\d+)E", f.group(2) or "") if f else []
+            name = (f.group(1) if f else m.group(1)) + (f"<{','.join(args)}>" if args else "")
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            out[name] = [None, int(m.group(1))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.setdefault(name, [None, 0])[0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
 
 # ---- phase 1: card and build -------------------------------------------
 with phase("build"):
@@ -248,12 +282,13 @@ with phase("build"):
             registers=[int(n) for n in re.findall(r"Used (\d+) registers", info["ptxas"])],
             spill_bytes=sum(int(n) for n in re.findall(r"(\d+) bytes spill", info["ptxas"])),
             cached=info["cached"])
-    for name in WARP_KERNELS:
+    for name in TIMED_KERNELS:
         regs = report["ptxas"][name]
-        log(f"{name}: {regs['registers']} registers per thread at 128 threads per block, "
+        regs["forms"] = {f: r for f, (r, _) in entry_registers(built[name]["ptxas"]).items()}
+        log(f"{name}: registers per thread by kernel and form {regs['forms']}, "
             f"{regs['spill_bytes']} bytes spilled "
             f"({'a cached build' if regs['cached'] else 'this run'}'s ptxas)")
-        assert regs["registers"] and regs["spill_bytes"] == 0, regs
+        assert regs["registers"] and (regs["spill_bytes"] == 0 or name not in NO_SPILL), regs
 
 # ---- scenes and tiles -----------------------------------------------------
 cfg = RenderConfig(width=1920, height=1080, **MAIN, **REALISTIC)
@@ -424,15 +459,9 @@ def check_rows(label, args, iters):
     assert n_mask == 0, f"shade_eval_rows {label}: {n_mask} child masks differ"
     err = close(f"shade_eval_rows {label}", [
         (contrib, c_ref), (rfl[rfl_m], rfl_ref[rfl_m]), (rfr[rfr_m], rfr_ref[rfr_m])])
-    # the same bits as the node kernel with one thread per ray (shade_eval)
-    # on the same inputs, and on every run
-    f_contrib, f_rfl, f_rfr = kernels.shade_eval(*args[:-1], **kw)
-    assert same_bits(contrib, f_contrib), f"shade_eval_rows {label}: contrib bits"
-    for rows_, m_, f in ((rfl, rfl_m, f_rfl), (rfr, rfr_m, f_rfr)):
-        assert torch.equal(m_, f["mask"]), f"shade_eval_rows {label}: masks"
-        assert same_bits(rows_[:, 0:9], torch.cat([f["o"], f["d"], f["w"]], 1)), label
-        assert same_bits(rows_[:, 10], f["budget"].float()), label
-    assert same_bits(rfr[:, 9], f_rfr["ior"]), label
+    # the same bits as the per-field node kernel (shade_eval) on the same
+    # inputs, and on every run
+    assert_node_bits(f"shade_eval_rows {label}", got, kernels.shade_eval(*args[:-1], **kw))
     for _ in range(2):
         again = kernels.shade_eval_rows(*args, **kw)
         assert all(same_bits(a, b) for a, b in zip(got, again)), f"{label}: runs differ"
@@ -455,16 +484,50 @@ def check_light(label, scene, args, iters):
     ref = kernels.light_shade_plain(*args, **kw)
     torch.cuda.synchronize()
     err = close(f"light_shade {label}", list(zip(got, ref)))
-    ms = cuda_ms(lambda: kernels.light_shade(*args, **kw), iters)
+    for _ in range(2):  # the same bits on three runs
+        assert all(same_bits(a, b) for a, b in zip(got, kernels.light_shade(*args, **kw))), label
+    fn = lambda: kernels.light_shade(*args, **kw)  # noqa: E731
+    ms = cuda_ms(fn, iters)
     plain = cuda_ms(lambda: kernels.light_shade_plain(*args, **kw), 2, 1)
     point, normal, hval = args[5], args[6], args[10] != 0
     record("light_shade", label, point.shape[0], err, ms, plain, nbytes(*args, *got),
            shade_ops(scene, point, normal, hval, OPS_LIGHT_EPILOGUE),
            f"; {scene.n_lights} lights in {scene.light_pack.shape[0]} rows, "
-           f"lit rays {int((got[0].amax(1) > 0).sum())}")
+           f"lit rays {int((got[0].amax(1) > 0).sum())}; the same bits on three runs")
+    dev_ms = device_ms(fn, iters)
+    results["light_shade"][label]["device_ms"] = dev_ms
+    log(f"  on the device alone {'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}")
 
 
-def check_fields(label, scene, c, args, iters):
+def assert_node_bits(label, rows_out, fields_out):
+    """shade_eval_rows and shade_eval on the same inputs: contrib, every
+    child field and the masks bit for bit, rays without a hit included."""
+    contrib, rfl, rfl_m, rfr, rfr_m = rows_out
+    f_contrib, f_rfl, f_rfr = fields_out
+    assert same_bits(contrib, f_contrib), f"{label}: contrib bits"
+    for rows_, m_, f in ((rfl, rfl_m, f_rfl), (rfr, rfr_m, f_rfr)):
+        assert torch.equal(m_, f["mask"]), f"{label}: masks"
+        assert same_bits(rows_[:, 0:9], torch.cat([f["o"], f["d"], f["w"]], 1)), label
+        assert same_bits(rows_[:, 10], f["budget"].float()), label
+    assert same_bits(rfr[:, 9], f_rfr["ior"]), label
+
+
+def node_forms_bits(label, args, kw):
+    """shade_eval in both forms, three runs each: bit for bit shade_eval_rows
+    on the same inputs. Returns the form the live rays choose."""
+    n = args[5].shape[0]
+    rows_out = kernels.shade_eval_rows(*args, torch.arange(n, dtype=torch.int32, device=DEV),
+                                       **kw)
+    keep = kernels.NODE_WARP_MAX_LIVE
+    for most in (1 << 30, -1):  # a warp per ray; a ray per lane
+        kernels.NODE_WARP_MAX_LIVE = most
+        for _ in range(3):
+            assert_node_bits(f"shade_eval {label}", rows_out, kernels.shade_eval(*args, **kw))
+    kernels.NODE_WARP_MAX_LIVE = keep
+    return "a warp per ray" if int((args[10] != 0).sum()) <= keep else "a ray per lane"
+
+
+def check_fields(label, scene, c, args, iters, note=""):
     kw = shade_kw(scene, c)
     got = kernels.shade_eval(*args, **kw)
     ref = kernels.shade_eval_plain(*args, **kw)
@@ -477,13 +540,57 @@ def check_fields(label, scene, c, args, iters):
         assert torch.equal(g["budget"][m], r["budget"][m]), f"shade_eval {label}: budgets"
         pairs += [(g[k][m], r[k][m]) for k in r if k not in ("mask", "budget")]
     err = close(f"shade_eval {label}", pairs)
-    ms = cuda_ms(lambda: kernels.shade_eval(*args, **kw), iters)
+    form = node_forms_bits(label, args, kw)
+    fn = lambda: kernels.shade_eval(*args, **kw)  # noqa: E731
+    ms = cuda_ms(fn, iters)
     plain = cuda_ms(lambda: kernels.shade_eval_plain(*args, **kw), 2, 1)
     point, normal, hval = args[5], args[6], args[10] != 0
+    live = int(hval.sum())
     outs = [contrib, *refl.values(), *refr.values()]
     record("shade_eval", label, point.shape[0], err, ms, plain, nbytes(*args, *outs),
            shade_ops(scene, point, normal, hval, OPS_EPILOGUE),
-           f"; children refl {int(refl['mask'].sum())} refr {int(refr['mask'].sum())}")
+           f"; {live} live rays, {form}{note}; children refl {int(refl['mask'].sum())} refr "
+           f"{int(refr['mask'].sum())}; bit-identical to shade_eval_rows in both forms, three "
+           f"runs")
+    # three kernels per call: the live list, then each form (one leaves at once)
+    dev_ms = device_ms(fn, iters, per_call=3)
+    results["shade_eval"][label].update(device_ms=dev_ms, live=live, form=form)
+    log(f"  on the device alone {'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}")
+
+
+def tile_call(scene, c, k):
+    """A call that renders tile k of the frame of config c (one sample per
+    pixel) on `scene`."""
+    p = plan_frame(c)
+    n = p.pix_per_tile
+    order = np.full((n,), -1, np.int64)  # -1: a padding slot past the frame
+    part = p.order[k * n: (k + 1) * n]
+    order[:part.shape[0]] = part
+    order = torch.from_numpy(order).to(DEV)
+    per_tile = trace.make_raygen_per_tile(scene, c, torch.zeros((1, 3), device=DEV),
+                                          torch.ones(1, device=DEV), n)
+    return lambda: per_tile(order)
+
+
+def caught_calls(name, run, limit=None):
+    """The first `limit` (None: all) calls of kernels.<name> while `run`
+    runs, as (args, kw), tensor arguments copied (the pool and the stack
+    reuse their buffers)."""
+    wrapper = getattr(kernels, name)
+    calls = []
+
+    def catch(*a, **kw):
+        if limit is None or len(calls) < limit:
+            calls.append(([x.clone() if isinstance(x, torch.Tensor) else x for x in a], kw))
+        return wrapper(*a, **kw)
+
+    setattr(kernels, name, catch)
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        setattr(kernels, name, wrapper)
+    return calls
 
 
 # ---- phase 2: kernels against their twins at the paths' shapes -----------
@@ -520,15 +627,32 @@ with phase("kernels"):
         check_light("R" if name == "default" else "R_soft", sc, light_args,
                     30 if name == "default" else 10)
 
-    # shade_eval: the first wavefront of a 960x540 stack-path tile
+    # shade_eval: every wavefront of tile 1 of the 960x540 stack-path frame,
+    # caught from a render: the first (every primary ray) and the middle one
+    # (reflected and refracted rays, scattered over the slots)
     cfg_stack = RenderConfig(width=960, height=540, **dict(MAIN, compaction_ratio=1),
                              **REALISTIC)
     ds_stack = RaytracerRenderer(cfg_stack, device="cuda").device_scene(
         build("semesterbild", cfg_stack))
-    o_s, d_s = tile_rays(cfg_stack, 1)
-    assert o_s.shape[0] == R
-    check_fields("R", ds_stack, cfg_stack,
-                 shade_args(ds_stack, cfg_stack, o_s, d_s, ones, **prim_state(R)), 30)
+    stack_calls = caught_calls("shade_eval", tile_call(ds_stack, cfg_stack, 1))
+    stack_live = [int((a[10] != 0).sum()) for a, _ in stack_calls]
+    log(f"stack tile 1: {len(stack_calls)} wavefronts of {stack_calls[0][0][5].shape[0]} slots; "
+        f"live rays per wavefront {stack_live}")
+    report["stack_live"] = stack_live
+    assert stack_calls[0][0][5].shape[0] == R and len(stack_calls) > 8
+    check_fields("R", ds_stack, cfg_stack, stack_calls[0][0], 30)
+    mid = len(stack_calls) // 2
+    check_fields("S", ds_stack, cfg_stack, stack_calls[mid][0], 30,
+                 f", wavefront {mid} of {len(stack_calls)}")
+    # ... and W = 512: the first pool iteration of the 240x135 frame with
+    # packed_stage=False (its second call; the first is the primary node)
+    cfg_unpacked = RenderConfig(width=240, height=135, **dict(MAIN, packed_stage=False),
+                                **REALISTIC)
+    r_unpacked = RaytracerRenderer(cfg_unpacked, device="cuda")
+    ds_unpacked = r_unpacked.device_scene(build("semesterbild", cfg_unpacked))
+    (_, _), (args_w, _) = caught_calls("shade_eval", tile_call(ds_unpacked, cfg_unpacked, 0), 2)
+    assert args_w[5].shape[0] == 512, args_w[5].shape
+    check_fields("W", ds_unpacked, cfg_unpacked, args_w, 100)
 
     # the chunk commit: one chunk's rows (96 x W) onto the tile's pixels
     rng = np.random.default_rng(0)
@@ -808,6 +932,74 @@ with phase("stream_kernels"):
         f"max |entry - pack-level twin| {err_e:.3g}")
 
 
+# ---- phase 2c: block partitions that the JAX package takes ---------------
+# (pallas_kernels.py:149-160): more than 32 Morton blocks in one superblock
+# (rounds of 32 lanes), and blocks of 48 rows (a ragged last round of rows)
+PARTITIONS = {"superblock64": dict(triangle_block=32, superblock=64),
+              "block48": dict(triangle_block=48)}
+
+
+def partition_scene(name, w, h, feats, edge_sigma):
+    """(config, host scene) of semesterbild plus a cloud of 2400 small
+    triangles, a quarter of them glass, at one of PARTITIONS."""
+    c = RenderConfig(width=w, height=h, **MAIN, **feats, **PARTITIONS[name])
+    return c, build_cloud(c, n=2400, edge_sigma=edge_sigma, glass_share=0.25)
+
+
+def check_partition(name):
+    """The four kernels with a warp per ray and shade_eval on the primary
+    rays of tile 3 (W of them: one ray per warp; R: many per warp) of a
+    partition scene, against their twins: both casts' t and index
+    identical, the streamed occlusion's `opq` identical on the shadow rays
+    of lanes that hit (sums within 1e-5 where it is false), shade_eval_rows
+    within the traced-colour bar and shade_eval bit for bit equal to it in
+    both forms."""
+    c, host = partition_scene(name, 1920, 1080, REALISTIC, 0.006)
+    ds_p = RaytracerRenderer(c, device="cuda").device_scene(host)
+    assert not ds_p.streaming and ds_p.tri_block == PARTITIONS[name]["triangle_block"]
+    assert (max(ds_p.sb_sizes) > 32) == (name == "superblock64"), ds_p.sb_sizes
+    tables = (ds_p.tri_cast_pack, ds_p.tri_aabb, ds_p.tri_saabb)
+    bf = c.backface_culling
+    for n in (W, R):
+        o, d = o_prim[:n].contiguous(), d_prim[:n].contiguous()
+        t, i = kernels.cast_triangles(ds_p.trb_pack, *tables, o, d, sb_sizes=ds_p.sb_sizes,
+                                      backface_culling=bf)
+        t_ref, i_ref = kernels.cast_triangles_plain(ds_p.trb_pack, tables[0], o, d, bf)
+        assert torch.equal(i, i_ref) and same_bits(t, t_ref), f"{name} cast at {n}"
+        t, i = kernels.cast_triangles_stream(*tables, o, d, sb_sizes=ds_p.sb_sizes,
+                                             backface_culling=bf)
+        t_ref, i_ref = kernels.cast_triangles_stream_plain(tables[0], o, d, bf)
+        assert torch.equal(i, i_ref) and same_bits(t, t_ref), f"{name} streamed cast at {n}"
+        (so, sd, md, real), = shadow_rays(ds_p, c, o, d, ones[:n])
+        dec, opq, fsub = kernels.occlude_triangles_stream(
+            *tables, so, sd, md, sb_sizes=ds_p.sb_sizes, backface_culling=bf,
+            block_has_trans=ds_p.block_has_trans)
+        dec_r, opq_r, fsub_r = kernels.occlude_triangles_stream_plain(tables[0], so, sd, md, bf)
+        assert torch.equal(opq[real], opq_r[real]), f"{name} occlusion at {n}"
+        free = ~opq_r & real
+        assert max(max_err(dec[free], dec_r[free]), max_err(fsub[free], fsub_r[free])) <= 1e-5
+        args = shade_args(ds_p, c, o, d, ones[:n], **prim_state(n))
+        kw = shade_kw(ds_p, c)
+        pix = torch.arange(n, dtype=torch.int32, device=DEV)
+        rows_out = kernels.shade_eval_rows(*args, pix, **kw)
+        ref = kernels.shade_eval_rows_plain(*args, pix, **kw)
+        assert torch.equal(rows_out[2], ref[2]) and torch.equal(rows_out[4], ref[4]), name
+        close(f"shade_eval_rows {name} at {n}", [
+            (rows_out[0], ref[0]), (rows_out[1][ref[2]], ref[1][ref[2]]),
+            (rows_out[3][ref[4]], ref[3][ref[4]])])
+        node_forms_bits(f"{name} at {n}", args, kw)
+        log(f"partition {name}: {ds_p.triangle_blocks} blocks of {ds_p.tri_block}, superblocks "
+            f"of up to {max(ds_p.sb_sizes)}; at {n} rays: both casts identical to their twins "
+            f"({int(torch.isfinite(t).sum())} Morton hits), occlusion opq identical on "
+            f"{int(real.sum())} real shadow rays ({int((opq & real).sum())} occluded), "
+            f"shade_eval_rows within its bar, shade_eval bit-identical to it in both forms")
+
+
+with phase("partitions"):
+    for part in PARTITIONS:
+        check_partition(part)
+
+
 frames = {}
 # u32 checksums of the warm frames on an H100, the same in every run so far:
 # every f32 sum on these paths has one order (sorted commit, no atomics)
@@ -865,34 +1057,54 @@ with phase("realistic"):
     report["commit_ab"] = dict(wall_ms=walls, checksums={k: sorted(v) for k, v in sums.items()})
 
 # ---- phase 3b: where one tile's time goes (torch.profiler) ----------------
-def profile_tile(label, scene, node_kernel):
-    """Tile 3 of the 1080p frame on `scene`, traced: host wall against the
+def node_launch_ms(prof, node_kernel):
+    """Device ms of each call of the wrapper `node_kernel` in a trace, in
+    order: the kernels this repository launched for it (shade_eval: the live
+    list, then each form)."""
+    parts = {"shade_eval": ("::live_slots_kernel", "::shade_eval_warp_kernel",
+                            "::shade_eval_lane_kernel")}.get(node_kernel,
+                                                             (f"::{node_kernel}_kernel",))
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and any(k in e.name for k in parts)),
+                 key=lambda e: e.time_range.start)
+    calls = []
+    for e in evs:
+        if parts[0] in e.name:  # a call's first kernel
+            calls.append(0.0)
+        calls[-1] += e.time_range.elapsed_us() / 1e3
+    return calls
+
+
+def profile_tile(label, scene, node_kernel, c=cfg, k=3):
+    """Tile k of config c's frame on `scene`, traced: host wall against the
     summed device time of every kernel; `node_kernel` is launched once per
-    node evaluation."""
-    order3 = torch.from_numpy(np.ascontiguousarray(plan.order[3 * R: 4 * R])).to(DEV)
-    offs = torch.zeros((1, 3), device=DEV)
-    per_tile = trace.make_raygen_per_tile(scene, cfg, offs, torch.ones(1, device=DEV), R)
-    per_tile(order3)  # warm
+    node evaluation, and the device time of each of its calls is kept."""
+    run = tile_call(scene, c, k)
+    run()  # warm
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.monotonic()
-        per_tile(order3)
+        run()
         torch.cuda.synchronize()
         tile_wall = (time.monotonic() - t0) * 1e3
-    iters = kernels.LAUNCHES[node_kernel] - 1  # minus the prologue
+    nodes = kernels.LAUNCHES[node_kernel]
     avg = prof.key_averages()
     busy = sum(e.self_device_time_total for e in avg) / 1e3
     n_launch = sum(e.count for e in avg if e.key == "cudaLaunchKernel")
     top = sorted(avg, key=lambda e: -e.self_device_time_total)[:6]
-    log(f"{label} tile 3 traced: wall {tile_wall:.1f} ms, pool iterations {iters}, device busy "
-        f"{busy:.1f} ms ({'not measured' if busy == 0 else f'idle {1 - busy / tile_wall:.1%}'}), "
-        f"{n_launch} kernel launches ({n_launch / (iters + 1):.0f} per node evaluation)")
+    per_call = node_launch_ms(prof, node_kernel)
+    log(f"{label} tile {k} traced ({c.width}x{c.height}): wall {tile_wall:.1f} ms, {nodes} node "
+        f"evaluations, device busy {busy:.1f} ms "
+        f"({'not measured' if busy == 0 else f'idle {1 - busy / tile_wall:.1%}'}), "
+        f"{n_launch} kernel launches ({n_launch / nodes:.0f} per node evaluation); "
+        f"{node_kernel} {sum(per_call):.3f} ms in {len(per_call)} calls")
     for e in top:
         log(f"  {e.self_device_time_total / 1e3:8.2f} ms device  x{e.count:<6d} {e.key[:70]}")
     return dict(
-        wall_ms=tile_wall, iterations=iters, device_busy_ms=busy, launches=n_launch,
+        wall_ms=tile_wall, iterations=nodes - 1, device_busy_ms=busy, launches=n_launch,
+        node_kernel_ms=per_call,
         top=[dict(key=e.key, device_ms=e.self_device_time_total / 1e3, count=e.count)
              for e in top],
     )
@@ -900,6 +1112,15 @@ def profile_tile(label, scene, node_kernel):
 
 with phase("profile"):
     report["tile_profile"] = profile_tile("realistic", ds, "shade_eval_rows")
+    # the stack path: tile 1, whose wavefronts phase 2 caught (live rays)
+    prof_stack = profile_tile("stack", ds_stack, "shade_eval", cfg_stack, 1)
+    assert len(prof_stack["node_kernel_ms"]) == len(stack_live), prof_stack["node_kernel_ms"]
+    log("  shade_eval per wavefront, live rays: device ms " + ", ".join(
+        f"{n}: {ms:.4f}" for n, ms in zip(stack_live, prof_stack["node_kernel_ms"])))
+    report["tile_profile_stack"] = prof_stack
+    c_soft = RenderConfig(width=1920, height=1080, **MAIN, **LIGHTING["soft_shadows"])
+    report["tile_profile_soft_shadows"] = profile_tile(
+        "soft_shadows", scenes["soft_shadows"], "light_shade", c_soft, 3)
 
 # ---- phase 4: the other paths at their sizes -----------------------------
 with phase("paths"):
@@ -913,11 +1134,7 @@ with phase("paths"):
         frame_phase(name, c, r, sc, ("cast_triangles", "light_shade"))
     frame_phase("stack", cfg_stack, RaytracerRenderer(cfg_stack, device="cuda"), ds_stack,
                 ("cast_triangles", "shade_eval"))
-    cfg_unpacked = RenderConfig(width=240, height=135, **dict(MAIN, packed_stage=False),
-                                **REALISTIC)
-    r_unpacked = RaytracerRenderer(cfg_unpacked, device="cuda")
-    frame_phase("unpacked", cfg_unpacked, r_unpacked,
-                r_unpacked.device_scene(build("semesterbild", cfg_unpacked)),
+    frame_phase("unpacked", cfg_unpacked, r_unpacked, ds_unpacked,
                 ("cast_triangles", "shade_eval"))
 
 # ---- phase 4b: the streamed frame at full width ---------------------------
@@ -959,16 +1176,22 @@ SMALL = {
     "soft_shadows": (120, 68, LIGHTING["soft_shadows"]),
     # forced past the threshold: the plain node over the streamed kernels
     "streamed": (240, 135, dict(REALISTIC, stream_triangles=1)),
+    # the cloud scene at the two partitions: the pool path, the stack path
+    "superblock64": (240, 135, REALISTIC),
+    "block48": (120, 68, REALISTIC),
 }
 with phase("card_vs_cpu"):
     report["image_check"] = {}
     for label, (w, h, feats) in SMALL.items():
-        c = RenderConfig(width=w, height=h, **dict(MAIN, **feats))
+        if label in PARTITIONS:
+            c, host = partition_scene(label, w, h, feats, 0.05)
+        else:
+            c, host = RenderConfig(width=w, height=h, **dict(MAIN, **feats)), None
         out = {}
         for dev in ("cuda", "cpu"):
             r = RaytracerRenderer(c, device=dev)
             t0 = time.monotonic()
-            scene_small = r.device_scene(build("semesterbild", c))
+            scene_small = r.device_scene(build("semesterbild", c) if host is None else host)
             assert scene_small.streaming == (label == "streamed")
             out[dev] = r.render_u32(scene_small)
             assert r.last_dropped == 0
@@ -999,9 +1222,10 @@ ENTRIES = {
     "occlude_triangles": ("occlude_triangles.cu", 964, "occlude_rays", "R", []),
     "shade_eval_rows": ("shade_eval_rows.cu", 1858, "realistic", "R", ["W"]),
     "light_shade": ("light_shade.cu", 1834, "default", "R", ["R_soft"]),
-    "shade_eval": ("shade_eval.cu", 1858, "stack", "R", []),
+    "shade_eval": ("shade_eval.cu", 1858, "stack", "R", ["S", "W"]),
 }
-EXTRA = {"W": "pool", "R_soft": "soft", "V": "validation", "V_glass": "validation_glass"}
+EXTRA = {"W": "pool", "R_soft": "soft", "V": "validation", "V_glass": "validation_glass",
+         "S": "sparse"}
 assert set(ENTRIES) == set(kernels.KERNEL_SOURCES)
 line = []
 for name, (src, tpu_line, path, main, others) in ENTRIES.items():
@@ -1021,14 +1245,15 @@ for name, (src, tpu_line, path, main, others) in ENTRIES.items():
         entry.update({f"ms_{sfx}": o_res["ms"], f"plain_ms_{sfx}": o_res["plain_ms"],
                       f"bound_ms_{sfx}": o_res["bound_ms"], f"bound_by_{sfx}": o_res["bound_by"],
                       f"rays_{sfx}": o_res["R"]})
-    if name in WARP_KERNELS:
-        entry.update(registers=report["ptxas"][name]["registers"],
+    if name in TIMED_KERNELS:
+        entry.update(registers=report["ptxas"][name]["forms"],
+                     spill_bytes=report["ptxas"][name]["spill_bytes"],
                      registers_cached=report["ptxas"][name]["cached"])
         for label in [main, *others]:
             sfx = "" if label == main else "_" + EXTRA[label]
             entry.update({k + sfx: v for k, v in results[name][label].items() if k in
                           ("device_ms", "superblocks_per_ray", "blocks_per_ray", "most_blocks",
-                           "gate_ops", "rays_per_warp")})
+                           "gate_ops", "rays_per_warp", "live", "form")})
     line.append(entry)
 report["kernels"] = line
 report["frames"] = frames

@@ -37,8 +37,11 @@
 // which shared memory and the L1 serve as broadcasts (eight rays per warp
 // with the lanes over rows took twice as long there). The gate boxes are
 // widened (rt_common.cuh), so every form equals the ungated plain twin bit
-// for bit. Shared memory: P * 80 B of big rows, and in the warp form 20 KB
-// of staged block rows and 48 B of ray record per warp.
+// for bit. Any block partition: superblocks of more than 32 blocks go in
+// rounds of 32 lanes, and a ragged last round of rows leaves lanes idle
+// (no collective runs inside a round). Shared memory: P * 80 B of big rows,
+// and in the warp form 20 KB of staged block rows and 48 B of ray record per
+// warp.
 #include "rt_common.cuh"
 
 namespace {

@@ -32,7 +32,8 @@
 // warps and the SMs hide one warp's loads behind the others. The lanes
 // split the work of their ray at every level (rt_common.cuh::
 // rt_warp_blocks): 32 superboxes per step, then the boxes of the crossed
-// superblocks, then the rows of each crossed block, two per lane at B = 64.
+// superblocks, then the rows of each crossed block, two per lane at B = 64
+// (any B; a superblock of more than 32 blocks in rounds of 32 lanes).
 // No lane diverges from its warp. A block's rows reach the lanes through
 // shared memory (rt_stage_rows: cp.async, consecutive lanes copying
 // consecutive 16-byte words), because a lane that loads its own 128-byte row

@@ -1,16 +1,21 @@
 // Direct + specular lighting with the hard-shadow scan, shared by the
-// port's three shading kernels (light_shade.cu, shade_eval.cu: one thread
-// per ray; shade_eval_rows.cu: a warp per ray, rt_warp_shadow_scan).
+// port's three shading kernels: rt_shadow_scan (one lane scans one shadow
+// ray: light_shade.cu's (ray, light) items and the node kernels' form with a
+// ray per lane) and rt_warp_shadow_scan (a warp shares the scan of one
+// shadow ray: the node kernels' form with a warp per ray); rt_light_ray and
+// rt_light_add, the lighting of one light, which every kernel runs per ray
+// in light order.
 //
 // Replaces the shading core of the TPU kernels in
 // hslu_i/ba_raytracing/f2501_raytracer_tpu/ops/pallas_kernels.py:
 // `_light_sums` (line 1662) with its shadow scan (`_sphere_occl_comp` 803,
 // `_bigtri_occl_split` 1188, `_tri_occl_lights_lanegate` /
 // `_tri_occl_lights` 1370 / 1519). It follows the plain path
-// (ops/shading.py::light_sums) operation by operation, one ray per thread
-// and one light at a time; it does not copy the TPU kernel's rescaled
-// pair math or its 8-light chunks, so only the f32 sum order over lights
-// differs from the TPU (it matches the plain twin's order).
+// (ops/shading.py::light_sums) operation by operation, one light at a time
+// and its lights' terms added in light order; it does not copy the TPU
+// kernel's rescaled pair math or its 8-light chunks, so only the f32 sum
+// order over lights differs from the TPU (it matches the plain twin's
+// order).
 //
 // Early exits, all exact: a light behind the surface (cos_in <= 0) has
 // intensity and colour exactly 0 and skips its scan; a light's scan stops
@@ -34,10 +39,12 @@ struct ShadeScene {
 
 // Bytes of the small tables (the lights in use, spheres, big primitives)
 // and whether they are staged in shared memory (the default 48 KB).
-static inline size_t rt_table_bytes(const ShadeScene& sc) {
+__host__ __device__ inline size_t rt_table_bytes(const ShadeScene& sc) {
   return sizeof(float) * ((size_t)sc.n_lights * 8 + (size_t)sc.S * 16 + (size_t)sc.P * 32);
 }
-static inline bool rt_tables_fit(const ShadeScene& sc) { return rt_table_bytes(sc) <= 48 * 1024; }
+__host__ __device__ inline bool rt_tables_fit(const ShadeScene& sc) {
+  return rt_table_bytes(sc) <= 48 * 1024;
+}
 
 // Table pointers as a thread sees them: shared memory when staged.
 struct Tables {
@@ -94,7 +101,7 @@ __device__ __forceinline__ bool occl_sphere(const float* q, float sox, float soy
 // was skipped and the sums are not used). Per-pack partial sums are added
 // to the total in the plain path's order: spheres, big primitives, then
 // each Morton block.
-__device__ Occl rt_shadow_scan(const ShadeScene& sc, const Tables& tb, float sox,
+__device__ __forceinline__ Occl rt_shadow_scan(const ShadeScene& sc, const Tables& tb, float sox,
                                float soy, float soz, float ldx, float ldy, float ldz,
                                float maxd) {
   const bool bf = sc.backface != 0;
@@ -143,13 +150,14 @@ struct WarpGate {
 // layout, max distance in slot 9). Spheres: lane s tests sphere s; big
 // primitives: lane l tests rows l and l + 32 of `big` (the pack staged in
 // the 80-byte layout); Morton blocks: the crossed ones, in storage order,
-// through rt_warp_blocks and occl_warp_block. Transmissive hits are added in
+// through rt_warp_blocks and occl_warp_block (RAGGED: sc.B is no multiple
+// of 32). Transmissive hits are added in
 // the one-thread scan's order (spheres into the total, each pack's partial
 // sums then into the total), so the sums are rt_shadow_scan's bits; a ray
 // with an opaque hit leaves the scan at once. Returns the rays that have an
 // opaque occluder; the others' totals are sums[k * OCCL_SUMS + 0..3]. All
 // 32 lanes.
-template <int K>
+template <int K, bool RAGGED>
 __device__ __forceinline__ unsigned rt_warp_shadow_scan(const ShadeScene& sc, const WarpGate& g,
                                                         const float4* big, int lane,
                                                         const float* rays, float* sums,
@@ -204,8 +212,8 @@ __device__ __forceinline__ unsigned rt_warp_shadow_scan(const ShadeScene& sc, co
       sc.blk_aabb, g.saabb, g.sb_start, g.nsb, g.sb_shift, nullptr, lane, rays, alive,
       [&](int k) { return rays[k * RT_RAY + 9]; },
       [&](int b, unsigned who, float, bool) {
-        occl_warp_block<K>(sc.blk + (size_t)b * sc.B * 32, sc.B, lane, rays, sums, who, bf,
-                           b < sc.n_trans_blocks, &alive, &opq, stage);
+        occl_warp_block<K, RAGGED>(sc.blk + (size_t)b * sc.B * 32, sc.B, lane, rays, sums, who,
+                                   bf, b < sc.n_trans_blocks, &alive, &opq, stage);
       });
   __syncwarp();  // every lane has read the records; the totals are written
   return opq;
@@ -270,34 +278,5 @@ __device__ __forceinline__ void rt_light_add(const float* L, const LightRay& q, 
       acc[4] += L[4] * sf;
       acc[5] += L[5] * sf;
     }
-  }
-}
-
-// Direct and specular light of one ray over the first n_lights lights,
-// WITHOUT ambient (ops/shading.py::light_sums; ref raytracer_renderer.rs:
-// 731-874), one thread per ray. view = the ray direction (the reference's
-// specular "view" points at the surface). dir / spc: (3,) outputs, 0 for an
-// invalid ray.
-__device__ void rt_light_sums(const ShadeScene& sc, const Tables& tb, float eps, bool hval,
-                              float px, float py, float pz, float nx, float ny, float nz,
-                              float dx, float dy, float dz, float mcr, float mcg, float mcb,
-                              float shin, float* dir, float* spc) {
-  float acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  if (hval) {
-    const bool has_spec = shin > 0.0f;
-    const float spec_exp = fmaxf(shin * 512.0f, 1.0f);
-    for (int l = 0; l < sc.n_lights; ++l) {
-      const float* L = tb.lights + l * 8;
-      const LightRay q = rt_light_ray(L, eps, px, py, pz, nx, ny, nz);
-      if (!(q.cos_in > 0.0f)) continue;  // intensity and color are exactly 0
-      const Occl occ = rt_shadow_scan(sc, tb, q.sox, q.soy, q.soz, q.ldx, q.ldy, q.ldz, q.maxd);
-      if (occ.opq) continue;  // can_reach is false: the light adds nothing
-      rt_light_add(L, q, occ.dec, occ.fr, occ.fg, occ.fb, nx, ny, nz, dx, dy, dz, mcr, mcg, mcb,
-                   has_spec, spec_exp, acc);
-    }
-  }
-  for (int k = 0; k < 3; ++k) {
-    dir[k] = acc[k];
-    spc[k] = acc[3 + k];
   }
 }

@@ -1,11 +1,9 @@
 // One shading-tree node: lighting (rt_light.cuh), the distance
 // attenuation, the transmissive combine rule, and the reflection /
 // refraction children (Fresnel, TIR, adaptive depth budgets, weight
-// cutoff). Shared by the two node kernels: shade_eval.cu (one thread per
-// ray, rt_eval_node; per-field arrays) and shade_eval_rows.cu (a warp per
-// ray: its own light loop over rt_warp_shadow_scan, then rt_node_epilogue on
-// the lane that owns the ray; packed (R, 16) pool rows). Both run the same
-// arithmetic in the same order, so they give the same bits.
+// cutoff). Shared by the two node kernels, shade_eval_rows.cu (packed (R,
+// 16) pool rows) and shade_eval.cu (per-field arrays, over the rays that
+// hit): both run rt_node_rays below, so they give the same bits.
 //
 // Replaces the body of `_shade_eval_kernel` (hslu_i/ba_raytracing/
 // f2501_raytracer_tpu/ops/pallas_kernels.py:1858) before its output
@@ -179,14 +177,121 @@ __device__ void rt_node_epilogue(const NodeParams& p, int r, const Surf& s, cons
   }
 }
 
-// Evaluate ray r's node with one thread: contrib (3,) and both children.
-__device__ void rt_eval_node(const ShadeScene& sc, const Tables& tb, const NodeParams& p,
-                             int r, float* contrib, Child* rfl, Child* rfr) {
+// ---- the node kernels' body: one template for shade_eval_rows.cu and
+// shade_eval.cu, which differ only in which rays a warp takes and how a
+// node's outputs are stored --------------------------------------------------
+//
+// K = 1: a warp per ray; lane 0 holds the ray, and for each light in order a
+// lit ray (cos_in > 0) writes its shadow ray and the lanes share its scan
+// (rt_light.cuh::rt_warp_shadow_scan; the big rows staged once per thread
+// block in the 80-byte layout). K = 32: a ray per lane, each lane scanning
+// its ray's shadows alone (rt_light.cuh::rt_shadow_scan over the one-thread
+// tables). In both, the lighting of a light (rt_light_ray, rt_light_add) and
+// the node epilogue run on the lane that holds the ray, in the order of the
+// plain path, so every form gives the same bits.
+
+// A warp's shared memory in the form with a warp per ray: its rays' shadow
+// records (rt_common.cuh's RT_RAY layout), their sums, and the stage of the
+// Morton rows (the form with a ray per lane uses none of it).
+template <int K>
+struct NodeWarpShared {
+  float rays[K == 32 ? 1 : K * RT_RAY];
+  float sums[K == 32 ? 1 : K * OCCL_SUMS];
+  float4 stage[K == 32 ? 1 : RT_STAGE_ROWS * RT_ROW4];
+};
+
+// Bytes of the dynamic shared memory a node kernel's thread block stages:
+// the one-thread tables (a ray per lane, where they fit), or the big rows
+// in the 80-byte layout (a warp per ray).
+__host__ inline size_t rt_node_dyn_bytes(const ShadeScene& sc, int K) {
+  if (K == 32) return rt_tables_fit(sc) ? rt_table_bytes(sc) : 0;
+  return sizeof(float4) * RT_ROW4 * sc.P;
+}
+
+// What a node kernel's thread block stages into `dyn` before its warps
+// start; every thread calls this (it synchronises) before any returns.
+template <int K>
+__device__ __forceinline__ Tables rt_node_stage(const ShadeScene& sc, float4* dyn) {
+  if constexpr (K == 32) {
+    return rt_stage_tables(sc, rt_tables_fit(sc), reinterpret_cast<float*>(dyn));
+  } else {
+    rt_stage_block_rows(dyn, sc.trb, sc.P);
+    return Tables{sc.lights, sc.sph, sc.trb};
+  }
+}
+
+// The node of the ray r that this lane holds (r < 0: none) for the warp's
+// lanes together: lighting over all lights, then rt_node_epilogue, whose
+// results go to store(r, contrib, rfl, rfr) on the lane that holds r. K = 1:
+// only lane 0 may hold a ray. All 32 lanes; RAGGED: sc.B is no multiple of
+// 32.
+template <int K, bool RAGGED, class Store>
+__device__ __forceinline__ void rt_node_rays(const ShadeScene& sc, const Tables& tb,
+                                             const WarpGate& g, const float4* big,
+                                             const NodeParams& p, int lane, int r,
+                                             NodeWarpShared<K>& sh, Store store) {
+  Surf s;
+  s.hval = false;
+  float shin = 0.0f;
+  if (r >= 0) {
+    s = rt_surf(p, r);
+    shin = p.shin[r];
+  }
+  const bool has_spec = shin > 0.0f;
+  const float spec_exp = fmaxf(shin * 512.0f, 1.0f);
+  float acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};  // direct, specular
+  for (int l = 0; l < sc.n_lights; ++l) {
+    const float* L = tb.lights + l * 8;
+    LightRay q;
+    bool lit = false;
+    if (s.hval) {
+      q = rt_light_ray(L, p.eps, s.px, s.py, s.pz, s.nx, s.ny, s.nz);
+      lit = q.cos_in > 0.0f;  // else intensity and color are exactly 0
+    }
+    Occl occ = {0.0f, 0.0f, 0.0f, 0.0f, true};  // can_reach is false: the light adds nothing
+    if constexpr (K == 32) {
+      if (lit) occ = rt_shadow_scan(sc, tb, q.sox, q.soy, q.soz, q.ldx, q.ldy, q.ldz, q.maxd);
+    } else {
+      if (lit) {
+        float* rec = sh.rays + lane * RT_RAY;
+        rec[0] = q.sox, rec[1] = q.soy, rec[2] = q.soz;
+        rec[3] = q.ldx, rec[4] = q.ldy, rec[5] = q.ldz;
+        rec[6] = 1.0f / q.ldx, rec[7] = 1.0f / q.ldy, rec[8] = 1.0f / q.ldz;
+        rec[9] = q.maxd;
+      }
+      const unsigned need = __ballot_sync(RT_WARP, lit);  // bit k: ray k
+      if (!need) continue;
+      __syncwarp();  // the records are written
+      const unsigned opq = rt_warp_shadow_scan<K, RAGGED>(sc, g, big, lane, sh.rays, sh.sums,
+                                                          need, sh.stage);
+      if (lit) {
+        const float* tot = sh.sums + lane * OCCL_SUMS;
+        occ = Occl{tot[0], tot[1], tot[2], tot[3], (opq >> lane & 1u) != 0};
+      }
+      __syncwarp();  // the sums are read before the next light's scan writes them
+    }
+    if (!occ.opq)
+      rt_light_add(L, q, occ.dec, occ.fr, occ.fg, occ.fb, s.nx, s.ny, s.nz, s.dx, s.dy, s.dz,
+                   s.mcr, s.mcg, s.mcb, has_spec, spec_exp, acc);
+  }
+  if (r >= 0) {
+    float contrib[3];
+    Child rfl, rfr;
+    rt_node_epilogue(p, r, s, acc, acc + 3, contrib, &rfl, &rfr);
+    store(r, contrib, rfl, rfr);
+  }
+}
+
+// The node of a ray without a hit (valid = 0): no light reaches it, so its
+// lighting is exactly 0 and the node is the epilogue alone.
+template <class Store>
+__device__ __forceinline__ void rt_node_unlit(const NodeParams& p, int r, Store store) {
   const Surf s = rt_surf(p, r);
-  float lit[3], spc[3];
-  rt_light_sums(sc, tb, p.eps, s.hval, s.px, s.py, s.pz, s.nx, s.ny, s.nz, s.dx, s.dy, s.dz,
-                s.mcr, s.mcg, s.mcb, p.shin[r], lit, spc);
-  rt_node_epilogue(p, r, s, lit, spc, contrib, rfl, rfr);
+  const float zero[3] = {0.0f, 0.0f, 0.0f};
+  float contrib[3];
+  Child rfl, rfr;
+  rt_node_epilogue(p, r, s, zero, zero, contrib, &rfl, &rfr);
+  store(r, contrib, rfl, rfr);
 }
 
 // Fill NodeParams and ShadeScene from the C entry points' shared arguments.

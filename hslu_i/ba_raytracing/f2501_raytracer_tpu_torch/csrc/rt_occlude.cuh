@@ -181,12 +181,14 @@ __device__ __forceinline__ void occl_warp_fold(float* sums, int lane, unsigned t
   if (touched) __syncwarp();
 }
 
-// One Morton block (B rows, a multiple of 32) for the shadow rays `who` of a
-// warp: the rows go through `stage` (rt_common.cuh::rt_stage_rows) into
-// occl_warp_rows, and the block's partial sums into each ray's total, as
-// occl_pack adds them: bit for bit the sums of the one-thread scan, on every
-// run. `trans_section`: the block runs the shadow Fresnel.
-template <int K>
+// One Morton block (B rows) for the shadow rays `who` of a warp: the rows go
+// through `stage` (rt_common.cuh::rt_stage_rows) into occl_warp_rows, and
+// the block's partial sums into each ray's total, as occl_pack adds them:
+// bit for bit the sums of the one-thread scan, on every run.
+// `trans_section`: the block runs the shadow Fresnel. RAGGED: B need not be
+// a multiple of 32 (without it, the rounds skip the test of whether their
+// rows exist, which costs registers in the streamed scan).
+template <int K, bool RAGGED>
 __device__ __forceinline__ void occl_warp_block(const float* __restrict__ blk, int B, int lane,
                                                 const float* rays, float* sums, unsigned who,
                                                 bool backface, bool trans_section,
@@ -196,8 +198,8 @@ __device__ __forceinline__ void occl_warp_block(const float* __restrict__ blk, i
   for (int c0 = 0; c0 < B; c0 += RT_STAGE_ROWS) {
     const int n = min(RT_STAGE_ROWS, B - c0);
     rt_stage_rows(stage, blk + c0 * 32, n, lane);
-    occl_warp_rows<K, false>(stage, blk + c0 * 32, n, trans_section ? n : 0, lane, rays, sums,
-                             &who, backface, alive, opq, &touched);
+    occl_warp_rows<K, RAGGED>(stage, blk + c0 * 32, n, trans_section ? n : 0, lane, rays, sums,
+                              &who, backface, alive, opq, &touched);
   }
   occl_warp_fold<K>(sums, lane, touched);
 }

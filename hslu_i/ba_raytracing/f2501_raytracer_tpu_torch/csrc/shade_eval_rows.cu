@@ -11,7 +11,8 @@
 // and the reflection / refraction children), with each child written as an
 // (R, 16) pool row [o3 | d3 | w3 | ior | budget | from_refl | pix | 0 0 0]
 // plus a mask. A disabled child type writes zero rows and false masks. The
-// bits are those of shade_eval.cu (one thread per ray) on the same inputs.
+// body is rt_node.cuh::rt_node_rays, as in shade_eval.cu, so the two give
+// the same bits on the same inputs.
 //
 // What bounds it on this card: operations. Each (ray, light, triangle)
 // shadow pair costs ~40-70 f32 operations; inputs and outputs are ~200 B
@@ -33,13 +34,14 @@
 // hits are added in the one-thread order by ballot and shuffle, and an
 // opaque hit ends the scan. tri_blk_pack has no superboxes of its own (the
 // scene's follow the cast order), so each block is a superblock of its own:
-// the gate tests 32 boxes a step. Each visit copies the block's rows into
+// the gate tests 32 boxes a step; a block whose row count is no multiple of
+// 32 takes the RAGGED build of the row scan. Each visit copies the block's rows into
 // the warp's stage (staging the 1080p scene's whole pack per thread block
 // instead was 10% faster at W and is left out: a second path for no gain
-// a frame can show). From PACKET_MIN_RAYS on (a tile's
-// coherent primary rays) a warp takes 32 rays, a ray per lane, each lane
-// scanning its ray's shadows alone with the one-thread code of light_shade
-// and shade_eval (the lanes walk the same rows at once: broadcasts; eight
+// a frame can show). From PACKET_MIN_RAYS on (a tile's coherent primary
+// rays) a warp takes 32 rays, a ray per lane, each lane scanning its ray's
+// shadows alone (rt_light.cuh::rt_shadow_scan; the lanes walk the same rows
+// at once: broadcasts; eight
 // rays per warp with the lanes over rows took twice as long there). In
 // every form the lighting math of a light and the node epilogue
 // (rt_node.cuh) run on the lane that owns the ray, unchanged, and the child
@@ -71,82 +73,19 @@ __device__ __forceinline__ void child_row(float4* dst, bool on, const Child& c,
   dst[3] = make_float4(pixf, 0.0f, 0.0f, 0.0f);
 }
 
-template <int K>
+template <int K, bool RAGGED>
 __global__ void __launch_bounds__(32 * RT_WARPS, 2) shade_eval_rows_kernel(ShadeScene sc,
-                                                                           bool staged,
                                                                            WarpGate g,
                                                                            NodeParams p,
                                                                            Out out) {
-  constexpr bool per_lane = K == 32;
   extern __shared__ float4 s_dyn[];
-  __shared__ float s_rays[RT_WARPS][per_lane ? 1 : K * RT_RAY];
-  __shared__ float s_sums[RT_WARPS][per_lane ? 1 : K * OCCL_SUMS];
-  __shared__ float4 s_stage[RT_WARPS][per_lane ? 1 : RT_STAGE_ROWS * RT_ROW4];
+  __shared__ NodeWarpShared<K> s_warp[RT_WARPS];
   __shared__ float4 s_rows[RT_WARPS][K * 8];  // per ray: reflection row, refraction row
-  // a ray per lane reads the one-thread scan's tables (rt_light.cuh); the
-  // warp forms the big rows in the 80-byte layout
-  Tables tb = {sc.lights, sc.sph, sc.trb};
-  if constexpr (per_lane)
-    tb = rt_stage_tables(sc, staged, reinterpret_cast<float*>(s_dyn));
-  else
-    rt_stage_block_rows(s_dyn, sc.trb, sc.P);
+  const Tables tb = rt_node_stage<K>(sc, s_dyn);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int r0 = (blockIdx.x * RT_WARPS + warp) * K;
   if (r0 >= p.R) return;  // by whole warps: the shuffles below need all 32 lanes
-  float* rays = s_rays[warp];
-  float* sums = s_sums[warp];
-  const int r = r0 + lane;
-  const bool mine = lane < K && r < p.R;  // this lane owns ray r
-
-  Surf s;
-  s.hval = false;
-  float shin = 0.0f;
-  if (mine) {
-    s = rt_surf(p, r);
-    shin = p.shin[r];
-  }
-  const bool has_spec = shin > 0.0f;
-  const float spec_exp = fmaxf(shin * 512.0f, 1.0f);
-  float acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};  // direct, specular
-  for (int l = 0; l < sc.n_lights; ++l) {
-    const float* L = tb.lights + l * 8;
-    LightRay q;
-    bool lit = false;
-    if (s.hval) {
-      q = rt_light_ray(L, p.eps, s.px, s.py, s.pz, s.nx, s.ny, s.nz);
-      lit = q.cos_in > 0.0f;  // else intensity and color are exactly 0
-    }
-    Occl occ = {0.0f, 0.0f, 0.0f, 0.0f, true};  // can_reach is false: the light adds nothing
-    if constexpr (per_lane) {
-      if (lit) occ = rt_shadow_scan(sc, tb, q.sox, q.soy, q.soz, q.ldx, q.ldy, q.ldz, q.maxd);
-    } else {
-      if (lit) {
-        float* rec = rays + lane * RT_RAY;
-        rec[0] = q.sox, rec[1] = q.soy, rec[2] = q.soz;
-        rec[3] = q.ldx, rec[4] = q.ldy, rec[5] = q.ldz;
-        rec[6] = 1.0f / q.ldx, rec[7] = 1.0f / q.ldy, rec[8] = 1.0f / q.ldz;
-        rec[9] = q.maxd;
-      }
-      const unsigned need = __ballot_sync(RT_WARP, lit);  // bit k: ray k
-      if (!need) continue;
-      __syncwarp();  // the records are written
-      const unsigned opq = rt_warp_shadow_scan<K>(sc, g, s_dyn, lane, rays, sums, need,
-                                                  s_stage[warp]);
-      if (lit) {
-        const float* tot = sums + lane * OCCL_SUMS;
-        occ = Occl{tot[0], tot[1], tot[2], tot[3], (opq >> lane & 1u) != 0};
-      }
-      __syncwarp();  // the sums are read before the next light's scan writes them
-    }
-    if (!occ.opq)
-      rt_light_add(L, q, occ.dec, occ.fr, occ.fg, occ.fb, s.nx, s.ny, s.nz, s.dx, s.dy, s.dz,
-                   s.mcr, s.mcg, s.mcb, has_spec, spec_exp, acc);
-  }
-
-  if (mine) {
-    float contrib[3];
-    Child rfl, rfr;
-    rt_node_epilogue(p, r, s, acc, acc + 3, contrib, &rfl, &rfr);
+  auto store = [&](int r, const float* contrib, const Child& rfl, const Child& rfr) {
 #pragma unroll
     for (int k = 0; k < 3; ++k) out.contrib[3 * r + k] = contrib[k];
     const float pixf = (float)out.pix[r];
@@ -154,7 +93,10 @@ __global__ void __launch_bounds__(32 * RT_WARPS, 2) shade_eval_rows_kernel(Shade
     child_row(s_rows[warp] + lane * 8 + 4, p.refractions, rfr, 0.0f, pixf);
     out.rfl_m[r] = p.reflections ? rfl.mask : 0;
     out.rfr_m[r] = p.refractions ? rfr.mask : 0;
-  }
+  };
+  const int r = r0 + lane;
+  rt_node_rays<K, RAGGED>(sc, tb, g, s_dyn, p, lane, (lane < K && r < p.R) ? r : -1,
+                          s_warp[warp], store);
   __syncwarp();  // the rows are in shared memory
   const int n = min(K, p.R - r0);  // the warp's rays: 4n float4 per child
   for (int i = lane; i < 8 * n; i += 32) {
@@ -164,14 +106,12 @@ __global__ void __launch_bounds__(32 * RT_WARPS, 2) shade_eval_rows_kernel(Shade
   }
 }
 
-template <int K>
+template <int K, bool RAGGED>
 void launch(const ShadeScene& sc, const WarpGate& g, const NodeParams& p, const Out& out,
             cudaStream_t stream) {
   const int per_block = RT_WARPS * K;
-  const bool staged = rt_tables_fit(sc);  // the one-thread tables of a ray per lane
-  const size_t smem = K == 32 ? (staged ? rt_table_bytes(sc) : 0) : sizeof(float4) * RT_ROW4 * sc.P;
-  shade_eval_rows_kernel<K><<<(p.R + per_block - 1) / per_block, 32 * RT_WARPS, smem, stream>>>(
-      sc, staged, g, p, out);
+  shade_eval_rows_kernel<K, RAGGED><<<(p.R + per_block - 1) / per_block, 32 * RT_WARPS,
+                                      rt_node_dyn_bytes(sc, K), stream>>>(sc, g, p, out);
 }
 
 }  // namespace
@@ -200,10 +140,12 @@ extern "C" int rt_shade_eval_rows(
   const WarpGate g = {blk_saabb, sb_start, nsb, sb_shift};
   const Out out = {pix, contrib, rfl_rows, rfr_rows, rfl_m, rfr_m};
   if (R > 0) {
-    if (rays_per_warp == 32)
-      launch<32>(sc, g, p, out, (cudaStream_t)stream);
+    if (rays_per_warp == 32)  // the one-thread scan: any B
+      launch<32, false>(sc, g, p, out, (cudaStream_t)stream);
+    else if (B % 32)
+      launch<1, true>(sc, g, p, out, (cudaStream_t)stream);
     else
-      launch<1>(sc, g, p, out, (cudaStream_t)stream);
+      launch<1, false>(sc, g, p, out, (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
 }

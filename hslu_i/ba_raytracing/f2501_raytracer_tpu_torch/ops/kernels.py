@@ -161,11 +161,13 @@ _ARGTYPES = {
         _F, _I, _I, _I, _I, _I, _F, _F,  # node constants
         *([_P] * 6)]),  # 5 outputs, stream
     "shade_eval": ("rt_shade_eval", [
-        *_SCENE, *([_P] * 16), _I,  # per-ray fields, R
+        *_SCENE, _P, _P, _I, _I, _I,  # the gate's superblocks, warp_max_live
+        *([_P] * 16), _I,  # per-ray fields, R
         _F, _I, _I, _I, _I, _I, _F, _F,  # node constants
-        *([_P] * 13)]),  # 12 outputs, stream
+        _P, *([_P] * 13)]),  # scratch, 12 outputs, stream
+    # scene, 6 per-ray inputs, R, eps, backface, warps per thread block, 2 outputs, stream
     "light_shade": ("rt_light_shade", [
-        *_SCENE, *([_P] * 6), _I, _F, _I, _P, _P, _P]),
+        *_SCENE, *([_P] * 6), _I, _F, _I, _I, _P, _P, _P]),
 }
 
 
@@ -341,21 +343,18 @@ def rays_per_warp(n_rays: int, many: int = 8) -> int:
 
 
 def _warp_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes, **more):
-    """What the warp-per-ray kernels need beyond the checked shapes: B a
-    multiple of 32 (a lane per row), tables aligned for 16-byte loads (the
-    block tables and `more`), and superblocks of at most 32 blocks. Returns
-    (superblock starts on the device, number of superblocks, log2 of the
-    lanes per superblock)."""
-    nb, B, _ = tri_cast_pack.shape
-    if B % 32:
-        raise ValueError(f"tri_cast_pack: blocks of {B} rows; the kernel needs a multiple of 32")
+    """What the warp-per-ray kernels need beyond the checked shapes: tables
+    aligned for 16-byte loads (the block tables and `more`). They take any
+    partition: blocks of any row count (a ragged last round of rows) and
+    superblocks of any size (more than 32 blocks in rounds of 32 lanes).
+    Returns (superblock starts on the device, number of superblocks, log2 of
+    the largest superblock's size, rounded up)."""
+    nb = tri_cast_pack.shape[0]
     for name, t in (("tri_cast_pack", tri_cast_pack), ("tri_aabb", tri_aabb),
                     ("tri_saabb", tri_saabb), *more.items()):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: not aligned to 16 bytes")
     largest = max(sb_sizes, default=1)  # no superblocks: a scene without blocks
-    if largest > 32:
-        raise ValueError(f"a superblock of {largest} blocks; the kernel takes at most 32")
     return (_sb_start(sb_sizes, nb, tri_cast_pack.device), len(sb_sizes),
             (largest - 1).bit_length())
 
@@ -564,6 +563,18 @@ def _check_node(w, budget, node, R, dev):
         _check(v, k, torch.float32, (R,), dev)
 
 
+def _node_gate(sph_pack, trb_pack, tri_blk_pack, tri_blk_aabb):
+    """The node kernels' arguments of the block gate of their warp form:
+    superboxes, superblock starts, count and shift (`_warp_tables`).
+    tri_blk_pack has no superboxes of its own (the scene's follow the cast
+    order), so each block is a superblock of its own."""
+    _check_big_rows(trb_pack)
+    nb = tri_blk_pack.shape[0]
+    sb, nsb, sb_shift = _warp_tables(tri_blk_pack, tri_blk_aabb, tri_blk_aabb, (1,) * nb,
+                                     trb_pack=trb_pack, sph_pack=sph_pack)
+    return _ptr(tri_blk_aabb), _ptr(sb), nsb, sb_shift
+
+
 def _node_consts(eps_dist, backface_culling, reflections, refractions, refl_max,
                  refr_max, weight_cutoff, air):
     return (float(eps_dist), int(bool(backface_culling)), int(bool(reflections)),
@@ -597,6 +608,16 @@ def _node_plain(light_pack, sph_pack, trb_pack, tri_blk_pack, point, normal, vie
 # ---------------------------------------------------------------------------
 
 
+def _light_warps(n_lights):
+    """Warps of a light_shade thread block, one light each at a time: of 4
+    to 8 (fewer with fewer lights), the count whose rounds over a chunk of
+    at most 16 lights leave the fewest warps idle, the most warps of
+    those."""
+    chunk = min(int(n_lights), 16)
+    return min(range(min(chunk, 8), min(chunk, 4) - 1, -1),
+               key=lambda w: -(-chunk // w) * w - chunk)
+
+
 def light_shade_plain(light_pack, sph_pack, trb_pack, tri_blk_pack, tri_blk_aabb,
                       point, normal, view, color, shininess, valid, *, n_lights,
                       eps_dist, n_trans_blocks=0, backface_culling=False,
@@ -619,7 +640,8 @@ def light_shade(light_pack, sph_pack, trb_pack, tri_blk_pack, tri_blk_aabb,
     lights, shadows included and ambient left out: the port's
     `pallas_light_shade`. Per-ray inputs: point, normal, view (= the ray
     direction), color (R,3) f32; shininess, valid (1.0/0.0) (R,) f32.
-    Returns (direct (R,3), spec (R,3))."""
+    Returns (direct (R,3), spec (R,3)). On the card the work is split by
+    (ray, light) (csrc/light_shade.cu)."""
     scene = _check_shading(
         "light_shade", light_pack, sph_pack, trb_pack, tri_blk_pack, tri_blk_aabb,
         point, normal, view, color, shininess, valid, n_lights=n_lights,
@@ -637,7 +659,7 @@ def light_shade(light_pack, sph_pack, trb_pack, tri_blk_pack, tri_blk_aabb,
     _launch(
         "light_shade", *scene, _ptr(point), _ptr(normal), _ptr(view), _ptr(color),
         _ptr(shininess), _ptr(valid), R, float(eps_dist), int(bool(backface_culling)),
-        _ptr(direct), _ptr(spec),
+        _light_warps(n_lights), _ptr(direct), _ptr(spec),
     )
     return direct, spec
 
@@ -646,6 +668,13 @@ def light_shade(light_pack, sph_pack, trb_pack, tri_blk_pack, tri_blk_aabb,
 # shade_eval  (TPU: pallas_kernels.py::_shade_eval_kernel, packed_rows=False,
 # line 1858)
 # ---------------------------------------------------------------------------
+
+# The most live rays (valid != 0) for which shade_eval takes a warp per ray;
+# from there on, a ray per lane. The kernel reads the count on the device.
+# Measured on an H100 (PERF.md, PR 6): at 4,636 live rays of a stack
+# wavefront a warp per ray took 0.076 ms and a ray per lane 0.246, at 30,653
+# 0.364 and 0.283; the two lines cross near 22,000.
+NODE_WARP_MAX_LIVE = 22528
 
 
 def shade_eval_plain(
@@ -692,7 +721,10 @@ def shade_eval(
     """Fused lighting + node evaluation for R rays with per-field outputs,
     the port's `pallas_shade_eval`. Per-ray inputs as `shade_eval_rows`
     without `pix`. Returns (contrib (R,3), refl {o, d, w (R,3); budget (R,)
-    int32; mask (R,) bool}, refr {o, d, w; budget; ior (R,) f32; mask})."""
+    int32; mask (R,) bool}, refr {o, d, w; budget; ior (R,) f32; mask}).
+    On the card only the rays with valid != 0 are lit, a warp per ray up to
+    NODE_WARP_MAX_LIVE of them and a ray per lane beyond (the kernel counts
+    them itself); the bits are shade_eval_rows' in both forms."""
     node = (t, rior, from_refl, h_httr, h_met, h_ior, h_opac, h_boost)
     scene = _check_shading(
         "shade_eval", light_pack, sph_pack, trb_pack, tri_blk_pack, tri_blk_aabb,
@@ -711,6 +743,7 @@ def shade_eval(
             view, color, shininess, valid, t, w, rior, budget, from_refl, h_httr, h_met,
             h_ior, h_opac, h_boost, **consts,
         )
+    gate = _node_gate(sph_pack, trb_pack, tri_blk_pack, tri_blk_aabb)
     f32 = torch.float32
 
     def vec3():
@@ -724,14 +757,16 @@ def shade_eval(
                 budget=torch.empty((R,), dtype=torch.int32, device=dev),
                 ior=torch.empty((R,), dtype=f32, device=dev),
                 mask=torch.empty((R,), dtype=torch.bool, device=dev))
+    # the live list, its segments' counts and the live count (csrc/shade_eval.cu)
+    scratch = torch.empty((R + -(-R // 128) + 1,), dtype=torch.int32, device=dev)
     _launch(
-        "shade_eval", *scene,
+        "shade_eval", *scene, *gate, int(NODE_WARP_MAX_LIVE),
         _ptr(point), _ptr(normal), _ptr(view), _ptr(color), _ptr(shininess),
         _ptr(valid), _ptr(t), _ptr(w), _ptr(rior), _ptr(budget), _ptr(from_refl),
         _ptr(h_httr), _ptr(h_met), _ptr(h_ior), _ptr(h_opac), _ptr(h_boost), R,
         *_node_consts(eps_dist, backface_culling, reflections, refractions, refl_max,
                       refr_max, weight_cutoff, air),
-        _ptr(contrib), *[_ptr(refl[k]) for k in ("o", "d", "w", "budget", "mask")],
+        _ptr(scratch), _ptr(contrib), *[_ptr(refl[k]) for k in ("o", "d", "w", "budget", "mask")],
         *[_ptr(refr[k]) for k in ("o", "d", "w", "budget", "ior", "mask")],
     )
     return contrib, refl, refr
@@ -808,12 +843,7 @@ def shade_eval_rows(
             reflections=reflections, refractions=refractions, refl_max=refl_max,
             refr_max=refr_max, weight_cutoff=weight_cutoff, air=air,
         )
-    # the gate over tri_blk_aabb: tri_blk_pack has no superboxes of its own
-    # (the scene's follow the cast order), so each block is its own
-    _check_big_rows(trb_pack)
-    nb = tri_blk_pack.shape[0]
-    sb, nsb, sb_shift = _warp_tables(tri_blk_pack, tri_blk_aabb, tri_blk_aabb, (1,) * nb,
-                                     trb_pack=trb_pack, sph_pack=sph_pack)
+    gate = _node_gate(sph_pack, trb_pack, tri_blk_pack, tri_blk_aabb)
     f32 = torch.float32
     contrib = torch.empty((R, 3), dtype=f32, device=dev)
     rfl_rows = torch.empty((R, POOL_COLS), dtype=f32, device=dev)
@@ -821,8 +851,7 @@ def shade_eval_rows(
     rfl_m = torch.empty((R,), dtype=torch.bool, device=dev)
     rfr_m = torch.empty((R,), dtype=torch.bool, device=dev)
     _launch(
-        "shade_eval_rows", *scene, _ptr(tri_blk_aabb), _ptr(sb), nsb, sb_shift,
-        rays_per_warp(R, many=32),
+        "shade_eval_rows", *scene, *gate, rays_per_warp(R, many=32),
         _ptr(point), _ptr(normal), _ptr(view), _ptr(color), _ptr(shininess),
         _ptr(valid), _ptr(t), _ptr(w), _ptr(rior), _ptr(budget), _ptr(from_refl),
         _ptr(h_httr), _ptr(h_met), _ptr(h_ior), _ptr(h_opac), _ptr(h_boost),

@@ -8,6 +8,8 @@ file from anywhere:
         frames N [--scene semesterbild semesterbild_cloud] [--root DIR]
     python3 hslu_i/ba_raytracing/f2501_raytracer_tpu_torch/utils/ab.py \
         kernels [--scene semesterbild semesterbild_cloud] [--root DIR]
+    python3 hslu_i/ba_raytracing/f2501_raytracer_tpu_torch/utils/ab.py \
+        shading [--root DIR]
     python3 hslu_i/ba_raytracing/f2501_raytracer_tpu_torch/utils/ab.py forms
 
 frames N   render the 1920x1080 `realistic` frame (chip_smoke.py's settings)
@@ -26,12 +28,23 @@ kernels    the two kernels of each scene's path (`semesterbild`:
            them, tile 3 traced with torch.profiler (device busy time,
            launches per node evaluation); first, the registers per thread
            that ptxas gave the kernels' build.
+shading    the two shading kernels off the main path at every shape they
+           run, caught from renders: shade_eval at every wavefront of tile
+           1 of the 960x540 stack-path frame (its live rays, valid != 0,
+           beside each) and at the first pool iteration of the 240x135
+           `packed_stage=False` frame (W = 512); light_shade at tile 3 of
+           the 1080p `default` (5 lights) and `soft_shadows` (50 lights)
+           frames. Each: the time on the device alone (all of a call's
+           kernels) and of the wrapper by CUDA events; first, the registers.
 forms      the four kernels with a warp per ray, with one ray per warp and
            with many (eight for the two streamed kernels, a ray per lane for
            the resident two), in turns one, many, many, one: the streamed
            kernels at the pool's width (2048 rays and 10,240 shadow rays),
            the resident ones at W and at R; what `kernels.PACKET_MIN_RAYS`
-           decides between. The results must be the same.
+           decides between. Then shade_eval's two forms at every wavefront
+           of the stack tile and at W = 512, against its live rays (what
+           `kernels.NODE_WARP_MAX_LIVE` decides between). The results must
+           be the same.
 --root DIR imports the package from another checkout (one unpacked with
            `git archive`).
 """
@@ -46,7 +59,7 @@ import sys
 import time
 
 parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-parser.add_argument("what", choices=("frames", "kernels", "forms"))
+parser.add_argument("what", choices=("frames", "kernels", "shading", "forms"))
 parser.add_argument("n", type=int, nargs="?", default=2, help="frames: warm frames per scene")
 parser.add_argument("--scene", nargs="+", choices=("semesterbild", "semesterbild_cloud"),
                     default=["semesterbild", "semesterbild_cloud"])
@@ -68,12 +81,14 @@ from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.renderer import plan_frame  
 
 if not torch.cuda.is_available():
     sys.exit("ab.py: no CUDA device available")
-cfg = RenderConfig(
-    width=1920, height=1080, scene_backface_culling=True, tile_rays=131072, max_nodes=48,
-    weight_cutoff=1e-3, compaction_ratio=64, kernel_ray_tile=512, loop_chunk=96,
-    device_encode=True, stage_mode="scatter", commit_splits=1,
-    reflections=True, light_reflections=True, refractions=True,
+# chip_smoke.py's settings (bench.py:222-290)
+MAIN = dict(
+    scene_backface_culling=True, tile_rays=131072, max_nodes=48, weight_cutoff=1e-3,
+    compaction_ratio=64, kernel_ray_tile=512, loop_chunk=96, device_encode=True,
+    stage_mode="scatter", commit_splits=1,
 )
+REALISTIC = dict(reflections=True, light_reflections=True, refractions=True)
+cfg = RenderConfig(width=1920, height=1080, **MAIN, **REALISTIC)
 renderer = RaytracerRenderer(cfg, device="cuda")
 print(f"{torch.cuda.get_device_name(0)}; package from {sys.path[0]}", flush=True)
 
@@ -83,8 +98,10 @@ KERNELS = {"semesterbild": ("cast_triangles", "shade_eval_rows"),
            "semesterbild_cloud": ("cast_triangles_stream", "occlude_triangles_stream")}
 
 
-def scene_of(name):
-    scene = renderer.device_scene(build(name, cfg))
+def scene_of(name, c=cfg):
+    """The device scene `name` as config c's renderer builds it (c sets the
+    block size)."""
+    scene = RaytracerRenderer(c, device="cuda").device_scene(build(name, c))
     assert scene.streaming == (name == "semesterbild_cloud")
     return scene
 
@@ -120,9 +137,9 @@ def cuda_ms(fn, iters=50):
 
 
 def device_ms(fn, iters):
-    """Device time of one call's kernels written in this repository
-    (torch.profiler; chip_smoke.py's `device_ms`), None if a trace missed
-    them."""
+    """Device time of one call's kernels written in this repository, all of
+    them (torch.profiler; chip_smoke.py's `device_ms`), None if a trace
+    missed some."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -133,21 +150,22 @@ def device_ms(fn, iters):
             torch.cuda.synchronize()
         ours = [e for e in prof.key_averages() if "anonymous namespace" in e.key]
         n = sum(e.count for e in ours)
-        if n:
-            return round(sum(e.self_device_time_total for e in ours) / 1e3 / n, 5)
+        if n and n % iters == 0:
+            return round(sum(e.self_device_time_total for e in ours) / 1e3 / iters, 5)
     return None
 
 
-def caught_calls(scene, names):
-    """The first two calls of each wrapper in `names` while tile 3 of the
-    frame renders: the tile's primary node, then its first pool iteration.
-    Tensor arguments are copied: the pool reuses its buffers."""
+def caught_calls(scene, names, run=None, limit=2):
+    """The first `limit` calls (None: all) of each wrapper in `names` while
+    `run` renders (default: tile 3 of the frame of `scene`; then the tile's
+    primary node and its first pool iteration). Tensor arguments are
+    copied: the pool reuses its buffers."""
     wrappers = {name: getattr(kernels, name) for name in names}
     caught = {name: [] for name in names}
 
     def catching(name):
         def catch(*a, **kw):
-            if len(caught[name]) < 2:
+            if limit is None or len(caught[name]) < limit:
                 caught[name].append(([x.clone() if isinstance(x, torch.Tensor) else x
                                       for x in a], kw))
             return wrappers[name](*a, **kw)
@@ -155,20 +173,24 @@ def caught_calls(scene, names):
 
     for name in names:
         setattr(kernels, name, catching(name))
-    tile3(scene)()
+    (run or tile_call(scene, cfg, 3))()
     torch.cuda.synchronize()
     for name, wrapper in wrappers.items():
         setattr(kernels, name, wrapper)
     return {name: (wrappers[name], calls) for name, calls in caught.items()}
 
 
-def tile3(scene):
-    """A call that renders tile 3 of the 1080p frame of `scene`."""
-    plan = plan_frame(cfg)
-    R = plan.pix_per_tile * plan.aa
-    order = torch.from_numpy(np.ascontiguousarray(plan.order[3 * R: 4 * R])).to("cuda")
+def tile_call(scene, c, k):
+    """A call that renders tile k of the frame of config c (one sample per
+    pixel) on `scene`."""
+    plan = plan_frame(c)
+    R = plan.pix_per_tile
+    order = np.full((R,), -1, np.int64)  # -1: a padding slot past the frame
+    part = plan.order[k * R: (k + 1) * R]
+    order[:part.shape[0]] = part
+    order = torch.from_numpy(order).to("cuda")
     per_tile = trace.make_raygen_per_tile(
-        scene, cfg, torch.zeros((1, 3), device="cuda"), torch.ones(1, device="cuda"), R)
+        scene, c, torch.zeros((1, 3), device="cuda"), torch.ones(1, device="cuda"), R)
     return lambda: per_tile(order)
 
 
@@ -176,7 +198,7 @@ def traced_tile(name, scene):
     """Tile 3 traced with torch.profiler, as chip_smoke.py's `profile_tile`:
     host wall, device busy time, launches per node evaluation, the kernels
     that take the most device time."""
-    run = tile3(scene)
+    run = tile_call(scene, cfg, 3)
     run()
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -224,6 +246,44 @@ def kernel_times():
                       f"wrapper by CUDA events {round(cuda_ms(fn, n), 5)} ms", flush=True)
 
 
+def shading_calls(stride=1):
+    """(label, wrapper, args, kw) of every shape the two shading kernels run,
+    caught from renders (see `shading`); of the stack tile's wavefronts
+    the first four and every `stride`-th."""
+    out = []
+    c = RenderConfig(width=960, height=540, **dict(MAIN, compaction_ratio=1), **REALISTIC)
+    scene = scene_of("semesterbild", c)
+    (wrapper, calls), = caught_calls(scene, ["shade_eval"], tile_call(scene, c, 1),
+                                     limit=None).values()
+    out += [(f"stack 960x540 tile 1 wavefront {i}", wrapper, a, kw)
+            for i, (a, kw) in enumerate(calls) if i < 4 or i % stride == 0]
+    c = RenderConfig(width=240, height=135, **dict(MAIN, packed_stage=False), **REALISTIC)
+    scene = scene_of("semesterbild", c)
+    (wrapper, calls), = caught_calls(scene, ["shade_eval"], tile_call(scene, c, 0)).values()
+    out.append(("unpacked 240x135 first pool iteration", wrapper, *calls[1]))
+    for name, feats in (("default", {}), ("soft_shadows", dict(soft_shadows=True))):
+        c = RenderConfig(width=1920, height=1080, **MAIN, **feats)
+        scene = scene_of("semesterbild", c)
+        (wrapper, calls), = caught_calls(scene, ["light_shade"], tile_call(scene, c, 3),
+                                         limit=1).values()
+        out.append((f"{name} 1920x1080 tile 3 ({scene.n_lights} lights)", wrapper, *calls[0]))
+    return out
+
+
+def live(a):
+    """The live rays (valid != 0) of a shading kernel's call."""
+    return int((a[10] != 0).sum())
+
+
+def shading():
+    registers()
+    for label, wrapper, a, kw in shading_calls():
+        fn = lambda: wrapper(*a, **kw)  # noqa: E731
+        print(f"{wrapper.__name__} {label}: {a[5].shape[0]} rays, {live(a)} live; device "
+              f"{device_ms(fn, 10)} ms, wrapper by CUDA events {round(cuda_ms(fn, 20), 5)} ms",
+              flush=True)
+
+
 def same(name, x, y):
     if name.startswith("occlude"):  # the sums are specified where `opq` is false
         free = ~x[1]
@@ -250,11 +310,41 @@ def forms():
                 print(f"{name} at {n_rays(name, a)} rays (tile 3), ms by CUDA events and on the "
                       f"device alone: one ray per warp {ms['one']}, {many} {ms['many']}; the "
                       f"same results", flush=True)
+    # shade_eval's two forms, in turns, by its live rays
+    forms_ = {"a warp per ray": 1 << 30, "a ray per lane": -1}
+    for label, wrapper, a, kw in shading_calls(stride=3):
+        if wrapper.__name__ != "shade_eval":
+            continue
+        first = kernels.NODE_WARP_MAX_LIVE
+        ms, outs = {f: [] for f in forms_}, {}
+        for form in (*forms_, *reversed(forms_)):
+            kernels.NODE_WARP_MAX_LIVE = forms_[form]
+            outs[form] = wrapper(*a, **kw)
+            fn = lambda: wrapper(*a, **kw)  # noqa: E731
+            ms[form].append((round(cuda_ms(fn, 20), 4), device_ms(fn, 10)))
+        kernels.NODE_WARP_MAX_LIVE = first
+        x, y = outs.values()
+        assert all(torch.equal(u.view(torch.int32) if u.dtype == torch.float32 else u,
+                               v.view(torch.int32) if v.dtype == torch.float32 else v)
+                   for u, v in zip(flat(x), flat(y))), label
+        print(f"{wrapper.__name__} {label}, {live(a)} live rays, ms by CUDA events and on the "
+              f"device alone: " + ", ".join(f"{f} {m}" for f, m in ms.items()) +
+              "; the same bits", flush=True)
+
+
+def flat(out):
+    """A shading kernel's outputs as a flat list of tensors."""
+    items = []
+    for x in out:
+        items += list(x.values()) if isinstance(x, dict) else [x]
+    return items
 
 
 if ARGS.what == "frames":
     frames(ARGS.n)
 elif ARGS.what == "kernels":
     kernel_times()
+elif ARGS.what == "shading":
+    shading()
 else:
     forms()
