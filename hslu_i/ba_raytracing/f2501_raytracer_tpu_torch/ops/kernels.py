@@ -671,7 +671,7 @@ def light_shade(light_pack, sph_pack, trb_pack, tri_blk_pack, tri_blk_aabb,
 
 # The most live rays (valid != 0) for which shade_eval takes a warp per ray;
 # from there on, a ray per lane. The kernel reads the count on the device.
-# Measured on an H100 (PERF.md, PR 6): at 4,636 live rays of a stack
+# Measured on an H100 (PERF.md, section 6): at 4,636 live rays of a stack
 # wavefront a warp per ray took 0.076 ms and a ray per lane 0.246, at 30,653
 # 0.364 and 0.283; the two lines cross near 22,000.
 NODE_WARP_MAX_LIVE = 22528

@@ -103,7 +103,7 @@ def _scenes(partition, **kw):
 
 @pytest.mark.parametrize("partition", sorted(PARTITIONS))
 def test_partition_scene_matches_jax(partition):
-    """The port's builder gives the JAX package's partition and tables."""
+    """The port's scene build gives the JAX package's partition and tables."""
     _, _, jds, own, _ = _scenes(partition)
     B = PARTITIONS[partition]["triangle_block"]
     assert own.tri_block == jds.tri_block == B
