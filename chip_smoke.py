@@ -117,6 +117,15 @@ from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops.intersect import (  # no
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.scene.builder import Scene  # noqa: E402
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops.vecmath import normalized  # noqa: E402
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.renderer import plan_frame  # noqa: E402
+from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.utils.harness import (  # noqa: E402
+    PARTITIONS,
+    assert_node_bits,
+    caught_calls,
+    cuda_ms,
+    device_ms,
+    same_bits,
+    tile_call,
+)
 
 PKG = "hslu_i/ba_raytracing/f2501_raytracer_tpu_torch"
 TPU_KERNELS = "hslu_i/ba_raytracing/f2501_raytracer_tpu/ops/pallas_kernels.py"
@@ -158,40 +167,6 @@ def phase(name):
     log(f"[phase {name}: {s:.1f} s]")
 
 
-def cuda_ms(fn, iters, warmup=3):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
-
-
-def device_ms(fn, iters, per_call=1):
-    """Device time of one call's CUDA kernels written in this repository
-    (torch.profiler; mean over `iters` calls, each of which launches
-    `per_call` of them): what CUDA events cannot show for a kernel shorter
-    than its wrapper's time on the host."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):  # a trace may miss launches, now and then all of them
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        ours = [e for e in prof.key_averages() if "anonymous namespace" in e.key]
-        n = sum(e.count for e in ours)
-        assert n <= iters * per_call, [(e.key, e.count) for e in ours]
-        if n == iters * per_call or (n and per_call == 1):
-            return sum(e.self_device_time_total for e in ours) / 1e3 / n * per_call
-    return None  # not measured: the CUDA events' time stands alone
-
-
 def run_frame(r, scene):
     """One frame: (u32 pixels, wall s, launches, dropped)."""
     torch.cuda.synchronize()
@@ -207,14 +182,6 @@ def max_err(a, b):
     fin = torch.isfinite(b)
     assert torch.equal(torch.isfinite(a), fin), "non-finite values differ"
     return float((a[fin] - b[fin]).abs().max()) if fin.any() else 0.0
-
-
-def same_bits(a, b):
-    """Equal bit for bit, NaN included (the child fields of a ray without a
-    hit may be NaN in the kernels and their twins alike)."""
-    if a.dtype != torch.float32:
-        return torch.equal(a, b)
-    return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
 
 
 def checksum(fb):
@@ -245,7 +212,7 @@ def entry_registers(ptxas):
     out, name = {}, None
     for line in ptxas.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:  # ...<length><name>_kernel, then I<template arguments>E: K and RAGGED
+        if m:  # ...<length><name>_kernel, then I<template arguments>E: K, RAGGED, WIDE
             f = re.search(r"\d([a-z_]+_kernel)(I(?:L[ib]\d+E)+E)?", m.group(1))
             args = re.findall(r"(\d+)E", f.group(2) or "") if f else []
             name = (f.group(1) if f else m.group(1)) + (f"<{','.join(args)}>" if args else "")
@@ -461,7 +428,7 @@ def check_rows(label, args, iters):
         (contrib, c_ref), (rfl[rfl_m], rfl_ref[rfl_m]), (rfr[rfr_m], rfr_ref[rfr_m])])
     # the same bits as the per-field node kernel (shade_eval) on the same
     # inputs, and on every run
-    assert_node_bits(f"shade_eval_rows {label}", got, kernels.shade_eval(*args[:-1], **kw))
+    assert_node_bits(got, kernels.shade_eval(*args[:-1], **kw), f"shade_eval_rows {label}")
     for _ in range(2):
         again = kernels.shade_eval_rows(*args, **kw)
         assert all(same_bits(a, b) for a, b in zip(got, again)), f"{label}: runs differ"
@@ -499,19 +466,6 @@ def check_light(label, scene, args, iters):
     log(f"  on the device alone {'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}")
 
 
-def assert_node_bits(label, rows_out, fields_out):
-    """shade_eval_rows and shade_eval on the same inputs: contrib, every
-    child field and the masks bit for bit, rays without a hit included."""
-    contrib, rfl, rfl_m, rfr, rfr_m = rows_out
-    f_contrib, f_rfl, f_rfr = fields_out
-    assert same_bits(contrib, f_contrib), f"{label}: contrib bits"
-    for rows_, m_, f in ((rfl, rfl_m, f_rfl), (rfr, rfr_m, f_rfr)):
-        assert torch.equal(m_, f["mask"]), f"{label}: masks"
-        assert same_bits(rows_[:, 0:9], torch.cat([f["o"], f["d"], f["w"]], 1)), label
-        assert same_bits(rows_[:, 10], f["budget"].float()), label
-    assert same_bits(rfr[:, 9], f_rfr["ior"]), label
-
-
 def node_forms_bits(label, args, kw):
     """shade_eval in both forms, three runs each: bit for bit shade_eval_rows
     on the same inputs. Returns the form the live rays choose."""
@@ -522,7 +476,7 @@ def node_forms_bits(label, args, kw):
     for most in (1 << 30, -1):  # a warp per ray; a ray per lane
         kernels.NODE_WARP_MAX_LIVE = most
         for _ in range(3):
-            assert_node_bits(f"shade_eval {label}", rows_out, kernels.shade_eval(*args, **kw))
+            assert_node_bits(rows_out, kernels.shade_eval(*args, **kw), f"shade_eval {label}")
     kernels.NODE_WARP_MAX_LIVE = keep
     return "a warp per ray" if int((args[10] != 0).sum()) <= keep else "a ray per lane"
 
@@ -552,45 +506,11 @@ def check_fields(label, scene, c, args, iters, note=""):
            f"; {live} live rays, {form}{note}; children refl {int(refl['mask'].sum())} refr "
            f"{int(refr['mask'].sum())}; bit-identical to shade_eval_rows in both forms, three "
            f"runs")
-    # three kernels per call: the live list, then each form (one leaves at once)
-    dev_ms = device_ms(fn, iters, per_call=3)
+    # four kernels per call: the live list, its offsets, then each form (one
+    # leaves at once)
+    dev_ms = device_ms(fn, iters, per_call=4)
     results["shade_eval"][label].update(device_ms=dev_ms, live=live, form=form)
     log(f"  on the device alone {'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}")
-
-
-def tile_call(scene, c, k):
-    """A call that renders tile k of the frame of config c (one sample per
-    pixel) on `scene`."""
-    p = plan_frame(c)
-    n = p.pix_per_tile
-    order = np.full((n,), -1, np.int64)  # -1: a padding slot past the frame
-    part = p.order[k * n: (k + 1) * n]
-    order[:part.shape[0]] = part
-    order = torch.from_numpy(order).to(DEV)
-    per_tile = trace.make_raygen_per_tile(scene, c, torch.zeros((1, 3), device=DEV),
-                                          torch.ones(1, device=DEV), n)
-    return lambda: per_tile(order)
-
-
-def caught_calls(name, run, limit=None):
-    """The first `limit` (None: all) calls of kernels.<name> while `run`
-    runs, as (args, kw), tensor arguments copied (the pool and the stack
-    reuse their buffers)."""
-    wrapper = getattr(kernels, name)
-    calls = []
-
-    def catch(*a, **kw):
-        if limit is None or len(calls) < limit:
-            calls.append(([x.clone() if isinstance(x, torch.Tensor) else x for x in a], kw))
-        return wrapper(*a, **kw)
-
-    setattr(kernels, name, catch)
-    try:
-        run()
-        torch.cuda.synchronize()
-    finally:
-        setattr(kernels, name, wrapper)
-    return calls
 
 
 # ---- phase 2: kernels against their twins at the paths' shapes -----------
@@ -634,7 +554,7 @@ with phase("kernels"):
                              **REALISTIC)
     ds_stack = RaytracerRenderer(cfg_stack, device="cuda").device_scene(
         build("semesterbild", cfg_stack))
-    stack_calls = caught_calls("shade_eval", tile_call(ds_stack, cfg_stack, 1))
+    stack_calls = caught_calls(["shade_eval"], tile_call(ds_stack, cfg_stack, 1))["shade_eval"]
     stack_live = [int((a[10] != 0).sum()) for a, _ in stack_calls]
     log(f"stack tile 1: {len(stack_calls)} wavefronts of {stack_calls[0][0][5].shape[0]} slots; "
         f"live rays per wavefront {stack_live}")
@@ -650,7 +570,8 @@ with phase("kernels"):
                                 **REALISTIC)
     r_unpacked = RaytracerRenderer(cfg_unpacked, device="cuda")
     ds_unpacked = r_unpacked.device_scene(build("semesterbild", cfg_unpacked))
-    (_, _), (args_w, _) = caught_calls("shade_eval", tile_call(ds_unpacked, cfg_unpacked, 0), 2)
+    (_, _), (args_w, _) = caught_calls(["shade_eval"], tile_call(ds_unpacked, cfg_unpacked, 0),
+                                       2)["shade_eval"]
     assert args_w[5].shape[0] == 512, args_w[5].shape
     check_fields("W", ds_unpacked, cfg_unpacked, args_w, 100)
 
@@ -933,10 +854,8 @@ with phase("stream_kernels"):
 
 
 # ---- phase 2c: block partitions that the JAX package takes ---------------
-# (pallas_kernels.py:149-160): more than 32 Morton blocks in one superblock
-# (rounds of 32 lanes), and blocks of 48 rows (a ragged last round of rows)
-PARTITIONS = {"superblock64": dict(triangle_block=32, superblock=64),
-              "block48": dict(triangle_block=48)}
+# (harness.PARTITIONS): more than 32 Morton blocks in one superblock (rounds
+# of 32 lanes), and blocks of 48 rows (a ragged last round of rows)
 
 
 def partition_scene(name, w, h, feats, edge_sigma):

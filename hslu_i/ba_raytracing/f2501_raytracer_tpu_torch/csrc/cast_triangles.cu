@@ -38,8 +38,9 @@
 // with the lanes over rows took twice as long there). The gate boxes are
 // widened (rt_common.cuh), so every form equals the ungated plain twin bit
 // for bit. Any block partition: superblocks of more than 32 blocks go in
-// rounds of 32 lanes, and a ragged last round of rows leaves lanes idle
-// (no collective runs inside a round). Shared memory: P * 80 B of big rows,
+// rounds of 32 lanes (the WIDE build, chosen at launch, so that the usual
+// partition keeps its registers), and a ragged last round of rows leaves
+// lanes idle (no collective runs inside a round). Shared memory: P * 80 B of big rows,
 // and in the warp form 20 KB of staged block rows and 48 B of ray record per
 // warp.
 #include "rt_common.cuh"
@@ -96,8 +97,9 @@ __device__ __forceinline__ void lane_cast(int r, const float* __restrict__ o,
 }
 
 // A warp per ray (K = 1; the template takes K consecutive rays from r0):
-// the lanes share each ray's scan (see the note above).
-template <int K>
+// the lanes share each ray's scan (see the note above). WIDE: superblocks
+// of more than 32 blocks (rt_common.cuh::rt_warp_blocks).
+template <int K, bool WIDE>
 __device__ __forceinline__ void warp_cast(int r0, int lane, const float* __restrict__ o,
                                           const float* __restrict__ d, int R, const float4* big,
                                           int P, const float* __restrict__ pack, int B,
@@ -140,7 +142,7 @@ __device__ __forceinline__ void warp_cast(int r0, int lane, const float* __restr
 
   // Morton blocks, behind the superblock and block gates against the best t
   unsigned stale = 0;  // rays whose best t shrank since the boxes were tested
-  rt_warp_blocks<K>(
+  rt_warp_blocks<K, WIDE>(
       aabb, saabb, sb_start, nsb, sb_shift, nullptr, lane, rays, alive,
       [&](int k) { return best_t[k]; },
       [&](int b, unsigned who, float, bool first) {
@@ -158,7 +160,7 @@ __device__ __forceinline__ void warp_cast(int r0, int lane, const float* __restr
   }
 }
 
-template <int K>
+template <int K, bool WIDE>
 __global__ void __launch_bounds__(32 * RT_WARPS, 2) cast_triangles_kernel(
     const float* __restrict__ o, const float* __restrict__ d, int R,
     const float* __restrict__ trb, int P, const float* __restrict__ pack, int B,
@@ -178,16 +180,16 @@ __global__ void __launch_bounds__(32 * RT_WARPS, 2) cast_triangles_kernel(
                 t_out, idx_out);
   } else {
     if (r0 >= R) return;  // by whole warps: the shuffles below need all 32 lanes
-    warp_cast<K>(r0, lane, o, d, R, s_big, P, pack, B, aabb, saabb, sb_start, nsb, sb_shift,
-                 backface != 0, s_rays[warp], s_stage[warp], t_out, idx_out);
+    warp_cast<K, WIDE>(r0, lane, o, d, R, s_big, P, pack, B, aabb, saabb, sb_start, nsb,
+                       sb_shift, backface != 0, s_rays[warp], s_stage[warp], t_out, idx_out);
   }
 }
-template <int K>
+template <int K, bool WIDE>
 void launch(const float* o, const float* d, int R, const float* trb, int P, const float* pack,
             int B, const float* aabb, const float* saabb, const int* sb_start, int nsb,
             int sb_shift, int backface, float* t_out, int* idx_out, cudaStream_t stream) {
   const int per_block = RT_WARPS * K;
-  cast_triangles_kernel<K><<<(R + per_block - 1) / per_block, 32 * RT_WARPS,
+  cast_triangles_kernel<K, WIDE><<<(R + per_block - 1) / per_block, 32 * RT_WARPS,
                              sizeof(float4) * RT_ROW4 * P, stream>>>(
       o, d, R, trb, P, pack, B, aabb, saabb, sb_start, nsb, sb_shift, backface, t_out, idx_out);
 }
@@ -203,12 +205,13 @@ extern "C" int rt_cast_triangles(const float* o, const float* d, int R, const fl
   (void)nb;
   if (rays_per_warp != 1 && rays_per_warp != 32) return (int)cudaErrorInvalidValue;
   if (R > 0) {
-    if (rays_per_warp == 32)
-      launch<32>(o, d, R, trb, P, pack, B, aabb, saabb, sb_start, nsb, sb_shift, backface, t_out,
-                idx_out, (cudaStream_t)stream);
+    if (rays_per_warp == 32)  // the one-thread scan: any superblock
+      launch<32, false>(o, d, R, trb, P, pack, B, aabb, saabb, sb_start, nsb, sb_shift, backface,
+                        t_out, idx_out, (cudaStream_t)stream);
     else
-      launch<1>(o, d, R, trb, P, pack, B, aabb, saabb, sb_start, nsb, sb_shift, backface, t_out,
-                idx_out, (cudaStream_t)stream);
+      RT_BOOL_SWITCH(sb_shift > 5, WIDE,
+                     launch<1, WIDE>(o, d, R, trb, P, pack, B, aabb, saabb, sb_start, nsb,
+                                     sb_shift, backface, t_out, idx_out, (cudaStream_t)stream));
   }
   return (int)cudaGetLastError();
 }

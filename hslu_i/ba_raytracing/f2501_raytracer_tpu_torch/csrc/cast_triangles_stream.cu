@@ -33,7 +33,8 @@
 // split the work of their ray at every level (rt_common.cuh::
 // rt_warp_blocks): 32 superboxes per step, then the boxes of the crossed
 // superblocks, then the rows of each crossed block, two per lane at B = 64
-// (any B; a superblock of more than 32 blocks in rounds of 32 lanes).
+// (any B; a superblock of more than 32 blocks in rounds of 32 lanes, the
+// WIDE build, chosen at launch).
 // No lane diverges from its warp. A block's rows reach the lanes through
 // shared memory (rt_stage_rows: cp.async, consecutive lanes copying
 // consecutive 16-byte words), because a lane that loads its own 128-byte row
@@ -52,7 +53,7 @@
 
 namespace {
 
-template <int K>
+template <int K, bool WIDE>
 __global__ void __launch_bounds__(32 * RT_WARPS, 2) cast_triangles_stream_kernel(
     const float* __restrict__ o, const float* __restrict__ d, int R,
     const float* __restrict__ pack, int B, const float* __restrict__ aabb,
@@ -76,7 +77,7 @@ __global__ void __launch_bounds__(32 * RT_WARPS, 2) cast_triangles_stream_kernel
     lane_idx[k] = 0x7fffffff;
   }
   unsigned stale = 0;  // rays whose best t shrank since the boxes were tested
-  rt_warp_blocks<K>(
+  rt_warp_blocks<K, WIDE>(
       aabb, saabb, sb_start, nsb, sb_shift, nullptr, lane, rays, alive,
       [&](int k) { return best_t[k]; },
       [&](int b, unsigned who, float, bool first) {
@@ -99,8 +100,11 @@ void launch(const float* o, const float* d, int R, const float* pack, int B,
             const float* aabb, const float* saabb, const int* sb_start, int nsb, int sb_shift,
             int backface, float* t_out, int* idx_out, cudaStream_t stream) {
   const int per_block = RT_WARPS * K;
-  cast_triangles_stream_kernel<K><<<(R + per_block - 1) / per_block, 32 * RT_WARPS, 0, stream>>>(
-      o, d, R, pack, B, aabb, saabb, sb_start, nsb, sb_shift, backface, t_out, idx_out);
+  RT_BOOL_SWITCH(sb_shift > 5, WIDE,  // superblocks of more than 32 blocks
+                 cast_triangles_stream_kernel<K, WIDE>
+                 <<<(R + per_block - 1) / per_block, 32 * RT_WARPS, 0, stream>>>(
+                     o, d, R, pack, B, aabb, saabb, sb_start, nsb, sb_shift, backface, t_out,
+                     idx_out));
 }
 
 }  // namespace

@@ -36,8 +36,8 @@
 // skips exactly the lights it skips (behind the surface, or occluded), so
 // the sums are added in the same order and have the same bits. A chunk is
 // at most LS_LIGHTS lights, so that the sums stay small (10 KB) and the SM
-// holds many thread blocks; kernels.light_shade picks the warps that leave
-// the fewest idle in a chunk's rounds (5 at 5 lights, 8 at 50). The small
+// holds many thread blocks; the launch picks the warps that leave the
+// fewest idle in a chunk's rounds (block_warps: 5 at 5 lights, 8 at 50). The small
 // tables (lights in use, spheres, big primitives) are staged in shared
 // memory where they fit 48 KB, the Morton rows are read through the L1
 // (staging the 1080p stand-in's 16 KB pack per thread block was 3% faster
@@ -122,17 +122,28 @@ __global__ void __launch_bounds__(32 * LS_MAX_WARPS) light_shade_kernel(
   }
 }
 
+// Warps of a thread block, one light each at a time: of 4 to LS_MAX_WARPS
+// (fewer with fewer lights), the count whose rounds over a chunk leave the
+// fewest warps idle, the most warps of those
+int block_warps(int n_lights) {
+  const int chunk = std::max(1, std::min(n_lights, LS_LIGHTS));
+  int best = 0, least_idle = 0;
+  for (int w = std::min(chunk, LS_MAX_WARPS); w >= std::min(chunk, 4); --w) {
+    const int idle = (chunk + w - 1) / w * w - chunk;
+    if (best == 0 || idle < least_idle) best = w, least_idle = idle;
+  }
+  return best;
+}
+
 }  // namespace
 
-// warps: warps per thread block (1 to LS_MAX_WARPS)
 extern "C" int rt_light_shade(const float* lights, int n_lights, const float* sph, int S,
                               const float* trb, int P, int trans_rows, const float* blk,
                               const float* blk_aabb, int nb, int B, int n_trans_blocks,
                               const float* point, const float* normal, const float* view,
                               const float* color, const float* shin, const float* valid,
-                              int R, float eps, int backface, int warps, float* direct,
-                              float* spec, void* stream) {
-  if (warps < 1 || warps > LS_MAX_WARPS) return (int)cudaErrorInvalidValue;
+                              int R, float eps, int backface, float* direct, float* spec,
+                              void* stream) {
   const ShadeScene sc = {lights, sph, trb, blk, blk_aabb, n_lights, S, P, trans_rows,
                          nb, B, n_trans_blocks, backface};
   const bool staged = rt_tables_fit(sc);
@@ -142,7 +153,8 @@ extern "C" int rt_light_shade(const float* lights, int n_lights, const float* sp
     const cudaError_t err = cudaFuncSetAttribute(
         light_shade_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    light_shade_kernel<<<(R + 31) / 32, 32 * warps, smem, (cudaStream_t)stream>>>(
+    light_shade_kernel<<<(R + 31) / 32, 32 * block_warps(n_lights), smem,
+                         (cudaStream_t)stream>>>(
         sc, staged, eps, R, point, normal, view, color, shin, valid, direct, spec);
   }
   return (int)cudaGetLastError();

@@ -36,16 +36,17 @@
 // from the lowest slot by ballot and shuffle, and each block's partial sums
 // are added to the ray's total. No atomics and no tree over f32 sums: the
 // bits are those of a one-thread scan, on every run. Any block partition:
-// superblocks of more than 32 blocks go in rounds of 32 lanes, and blocks
-// whose row count is no multiple of 32 take the RAGGED form of the row scan
-// (a build of its own, so that the usual case keeps its registers). Rays are
-// read as given, (R, 3). Static shared memory: 20 KB of staged rows, 1.5 KB of ray records
-// and 1 KB of sums per thread block at 8 rays per warp.
+// superblocks of more than 32 blocks go in rounds of 32 lanes (the WIDE
+// build), and blocks whose row count is no multiple of 32 take the RAGGED
+// build of the row scan; each is chosen at launch, so that the usual
+// partition keeps its registers. Rays are read as given, (R, 3). Static
+// shared memory: 20 KB of staged rows, 1.5 KB of ray records and 1 KB of
+// sums per thread block at 8 rays per warp.
 #include "rt_occlude.cuh"
 
 namespace {
 
-template <int K, bool RAGGED>
+template <int K, bool RAGGED, bool WIDE>
 __global__ void __launch_bounds__(32 * RT_WARPS, 2) occlude_triangles_stream_kernel(
     const float* __restrict__ o, const float* __restrict__ d,
     const float* __restrict__ maxd, int R, const float* __restrict__ pack, int B,
@@ -73,7 +74,7 @@ __global__ void __launch_bounds__(32 * RT_WARPS, 2) occlude_triangles_stream_ker
   }
   unsigned alive = __ballot_sync(RT_WARP, can_hit), opq = 0;
   __syncwarp();  // the ray records are written
-  rt_warp_blocks<K>(
+  rt_warp_blocks<K, WIDE>(
       aabb, saabb, sb_start, nsb, sb_shift, block_httr, lane, rays, alive,
       [&](int k) { return rays[k * RT_RAY + 9]; },
       [&](int b, unsigned who, float httr, bool) {
@@ -87,29 +88,19 @@ __global__ void __launch_bounds__(32 * RT_WARPS, 2) occlude_triangles_stream_ker
   }
 }
 
-template <int K, bool RAGGED>
-void launch_form(const float* o, const float* d, const float* maxd, int R, const float* pack,
-                 int B, const float* aabb, const float* saabb, const int* sb_start, int nsb,
-                 int sb_shift, const float* block_httr, int backface, float* dec,
-                 unsigned char* opq, float* fsub, cudaStream_t stream) {
-  const int per_block = RT_WARPS * K;
-  occlude_triangles_stream_kernel<K, RAGGED>
-      <<<(R + per_block - 1) / per_block, 32 * RT_WARPS, 0, stream>>>(
-          o, d, maxd, R, pack, B, aabb, saabb, sb_start, nsb, sb_shift, block_httr, backface,
-          dec, opq, fsub);
-}
-
 template <int K>
 void launch(const float* o, const float* d, const float* maxd, int R, const float* pack, int B,
             const float* aabb, const float* saabb, const int* sb_start, int nsb, int sb_shift,
             const float* block_httr, int backface, float* dec, unsigned char* opq, float* fsub,
             cudaStream_t stream) {
-  if (B % 32)  // a ragged last round of rows in every block
-    launch_form<K, true>(o, d, maxd, R, pack, B, aabb, saabb, sb_start, nsb, sb_shift,
-                         block_httr, backface, dec, opq, fsub, stream);
-  else
-    launch_form<K, false>(o, d, maxd, R, pack, B, aabb, saabb, sb_start, nsb, sb_shift,
-                          block_httr, backface, dec, opq, fsub, stream);
+  const int per_block = RT_WARPS * K;
+  // RAGGED: a ragged last round of rows in every block; WIDE: superblocks of
+  // more than 32 blocks
+  RT_BOOL_SWITCH(B % 32 != 0, RAGGED, RT_BOOL_SWITCH(sb_shift > 5, WIDE,
+      occlude_triangles_stream_kernel<K, RAGGED, WIDE>
+      <<<(R + per_block - 1) / per_block, 32 * RT_WARPS, 0, stream>>>(
+          o, d, maxd, R, pack, B, aabb, saabb, sb_start, nsb, sb_shift, block_httr, backface,
+          dec, opq, fsub)));
 }
 
 }  // namespace

@@ -204,20 +204,22 @@ __device__ __forceinline__ unsigned rt_gate_rays(const float* box, const float* 
 // The two-level box gate of a warp that owns K rays (`alive`: a bit per ray
 // still in play; `limit(k)`: ray k's segment end). Lane l tests the superbox
 // 32i + l of `saabb` against every live ray; the superblocks that any ray
-// crosses are taken in storage order. Where no superblock holds more than 32
-// blocks (2^sb_shift <= 32), 32 >> sb_shift of them go in one step, lane l
-// testing block (l & (2^sb_shift - 1)) of superblock (l >> sb_shift); a
-// larger superblock goes alone, its blocks in rounds of 32, lane l testing
-// block 32j + l in round j. `visit(b, who, flag, first)` then runs,
-// warp-uniform, for every block b in storage order that the rays `who`
-// cross; `flag` is block_flag[b] (0 without a table), loaded beside the box
-// so that visit need not wait for it, and `first` says that b is the first
-// block since the boxes were tested. A limit may shrink inside visit (the
-// cast's best t) and visit may take rays out of `alive`: later gates see
-// both. Both levels are conservative (a superbox is the union of its
-// boxes), so a ray visits every block that holds a hit within its limit.
-// All 32 lanes call this together.
-template <int K, class Limit, class Visit>
+// crosses are taken in storage order. Without WIDE (no superblock holds more
+// than 2^sb_shift <= 32 blocks), 32 >> sb_shift of them go in one step, lane
+// l testing block (l & (2^sb_shift - 1)) of superblock (l >> sb_shift);
+// with WIDE (sb_shift > 5), a superblock goes alone, its blocks in rounds of
+// 32, lane l testing block 32j + l in round j. WIDE is a build of its own,
+// chosen at launch, so that the usual partition keeps its registers.
+// `visit(b, who, flag, first)` then runs, warp-uniform, for every block b in
+// storage order that the rays `who` cross; `flag` is block_flag[b] (0
+// without a table), loaded beside the box so that visit need not wait for
+// it, and `first` says that b is the first block since the boxes were
+// tested. A limit may shrink inside visit (the cast's best t) and visit may
+// take rays out of `alive`: later gates see both. Both levels are
+// conservative (a superbox is the union of its boxes), so a ray visits
+// every block that holds a hit within its limit. All 32 lanes call this
+// together.
+template <int K, bool WIDE, class Limit, class Visit>
 __device__ __forceinline__ void rt_warp_blocks(const float* __restrict__ aabb,
                                                const float* __restrict__ saabb,
                                                const int* __restrict__ sb_start, int nsb,
@@ -225,7 +227,7 @@ __device__ __forceinline__ void rt_warp_blocks(const float* __restrict__ aabb,
                                                const float* __restrict__ block_flag, int lane,
                                                const float* rays, const unsigned& alive,
                                                Limit limit, Visit visit) {
-  const int shift = min(sb_shift, 5);
+  const int shift = WIDE ? 5 : sb_shift;
   const int per_step = 32 >> shift;
   const int slot = lane >> shift, member = lane & ((1 << shift) - 1);
   float box[8];
@@ -249,18 +251,18 @@ __device__ __forceinline__ void rt_warp_blocks(const float* __restrict__ aabb,
       const int src = (mine == 0xffffffffu) ? 0 : (int)mine;
       const int b0 = __shfl_sync(RT_WARP, first, src) + member;
       const int n = __shfl_sync(RT_WARP, count, src);
-      const unsigned cand = __shfl_sync(RT_WARP, sees, src);
-      // one round, or the rounds of a superblock of more than 32 blocks (the
-      // step's only one, so n is the same on every lane)
-      const int span = sb_shift > 5 ? n : 32;
-      for (int m0 = 0; m0 < span && alive; m0 += 32) {
+      const unsigned cand = __shfl_sync(RT_WARP, sees, src) & alive;
+      // one round; with WIDE, the rounds of the step's one superblock (n is
+      // the same on every lane), each against the rays still alive
+      for (int m0 = 0;; m0 += 32) {
         const int b = b0 + m0;
+        const unsigned who_may = WIDE ? cand & alive : cand;
         unsigned in_box = 0;  // the rays that cross this lane's box
         float flag = 0.0f;
-        if (mine != 0xffffffffu && m0 + member < n && (cand & alive)) {
+        if (mine != 0xffffffffu && m0 + member < n && who_may) {
           if (block_flag) flag = block_flag[b];
           if (rt_load_box(aabb + (size_t)b * 8, box))
-            in_box = rt_gate_rays<K>(box, rays, cand & alive, limit);
+            in_box = rt_gate_rays<K>(box, rays, who_may, limit);
         }
         unsigned blocks = __ballot_sync(RT_WARP, in_box != 0);
         bool first_visit = true;
@@ -274,10 +276,24 @@ __device__ __forceinline__ void rt_warp_blocks(const float* __restrict__ aabb,
           visit(bb, who, bb_flag, first_visit);
           first_visit = false;
         }
+        if (!WIDE || m0 + 32 >= n || !alive) break;
       }
     }
   }
 }
+
+// Runs the statement `...` with FLAG a constexpr bool equal to COND: the
+// build of a template for each value, chosen at launch. It nests.
+#define RT_BOOL_SWITCH(COND, FLAG, ...) \
+  do {                                  \
+    if (COND) {                         \
+      constexpr bool FLAG = true;       \
+      __VA_ARGS__;                      \
+    } else {                            \
+      constexpr bool FLAG = false;      \
+      __VA_ARGS__;                      \
+    }                                   \
+  } while (0)
 
 // One Morton block of `pack` (nb, B, 32; any B) for the casts of a warp's
 // rays `who`: the rows go through `stage` (RT_STAGE_ROWS * RT_ROW4 words of

@@ -138,7 +138,9 @@ __device__ __forceinline__ Occl rt_shadow_scan(const ShadeScene& sc, const Table
 }
 
 // The superblock partition of the block gate of rt_warp_shadow_scan
-// (rt_common.cuh::rt_warp_blocks over sc.blk_aabb).
+// (rt_common.cuh::rt_warp_blocks over sc.blk_aabb). Each block is a
+// superblock of its own (kernels._node_gate: sb_shift 0), so the gate is
+// never WIDE.
 struct WarpGate {
   const float* saabb;
   const int* sb_start;
@@ -208,7 +210,7 @@ __device__ __forceinline__ unsigned rt_warp_shadow_scan(const ShadeScene& sc, co
                             &opq, &touched);
     occl_warp_fold<K>(sums, lane, touched);
   }
-  rt_warp_blocks<K>(
+  rt_warp_blocks<K, false>(
       sc.blk_aabb, g.saabb, g.sb_start, g.nsb, g.sb_shift, nullptr, lane, rays, alive,
       [&](int k) { return rays[k * RT_RAY + 9]; },
       [&](int b, unsigned who, float, bool) {

@@ -25,28 +25,30 @@
 // dependent pair tests while its other 31 lanes idled. The unpacked pool
 // sends it W = 512 rays: 4 thread blocks of one thread per ray on 132 SMs.
 //
-// Design: three launches, with no host synchronisation between them and no
+// Design: four launches, with no host synchronisation between them and no
 // atomics.
 //   1. live_slots_kernel, one thread per slot: each segment of 128 slots
 //      writes the indices of its slots whose ray hit (valid != 0), in slot
 //      order (a ballot per warp), to its part of the live list, and their
 //      count; every other slot gets its outputs at once: no light reaches
 //      it, so its node is the epilogue alone (rt_node_unlit).
-//   2. shade_eval_warp_kernel: each thread block sums the segments' counts
-//      (a block-wide scan in shared memory); up to `warp_max_live` live
-//      rays (kernels.NODE_WARP_MAX_LIVE, measured on the card) a warp takes
-//      a ray of the list at a time, its lanes sharing the ray's shadow
-//      scans, on a grid of as many thread blocks as the card runs at once.
-//      Its first thread block also stores the live count.
-//   3. shade_eval_lane_kernel: beyond that count, a thread block per
+//   2. scan_counts_kernel, one thread block: the counts, in place, into the
+//      segments' offsets in the list of live rays, and the live count.
+//   3. shade_eval_warp_kernel: up to `warp_max_live` live rays
+//      (kernels.NODE_WARP_MAX_LIVE, measured on the card) a warp takes a ray
+//      of the list at a time (its segment found by a binary search of the
+//      offsets), its lanes sharing the ray's shadow scans, on a grid of as
+//      many thread blocks as the card runs at once.
+//   4. shade_eval_lane_kernel: beyond that count, a thread block per
 //      segment, a ray per lane over the segment's live slots (neighbouring
 //      pixels); thread blocks of empty segments leave at once. The card's
 //      scheduler places each thread block as one ends: a grid of as many
 //      thread blocks as the card holds, with fixed shares of the list and a
 //      scan in each, was 10% slower at 114,847 live rays.
-// Shared memory as shade_eval_rows.cu, without its rows, plus the segments'
-// offsets in launch 2. Scratch (from the wrapper): the live list, the
-// segments' counts and the live count, R + ceil(R / 128) + 1 int32.
+// Shared memory as shade_eval_rows.cu, without its rows; the offsets stay
+// in global memory, so any R fits. Scratch (from the wrapper): the live
+// list and the segments' counts, then offsets, and the live count, R +
+// ceil(R / 128) + 1 int32.
 #include <algorithm>
 
 #include "rt_node.cuh"
@@ -122,64 +124,59 @@ __global__ void __launch_bounds__(SEG) live_slots_kernel(NodeParams p, Out out,
   }
 }
 
-// offsets[s] = the live slots of the segments before s, offsets[nseg] =
-// all of them, from counts[0, nseg), in shared memory. Every thread of the
-// block calls this (it synchronises).
-__device__ __forceinline__ void scan_segments(const int* __restrict__ counts, int nseg,
-                                              int* offsets) {
-  __shared__ int s_warp[RT_WARPS];
-  for (int k = threadIdx.x; k < nseg; k += blockDim.x) offsets[k] = counts[k];
-  __syncthreads();
+#define SCAN_THREADS 1024
+
+// Launch 2: counts[0, nseg) in place into their exclusive prefix sums (the
+// offsets of the segments' parts in the live list), and the live count
+// into counts[nseg]. One thread block, SCAN_THREADS segments a round.
+__global__ void __launch_bounds__(SCAN_THREADS) scan_counts_kernel(int* __restrict__ counts,
+                                                                   int nseg) {
+  __shared__ int s_warp[SCAN_THREADS / 32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int per = (nseg + blockDim.x - 1) / blockDim.x;  // a run of segments per thread
-  const int s0 = min((int)threadIdx.x * per, nseg), s1 = min(s0 + per, nseg);
-  int mine = 0;
-  for (int k = s0; k < s1; ++k) mine += offsets[k];
-  int incl = mine;  // inclusive prefix over the warp's lanes
-  for (int dist = 1; dist < 32; dist <<= 1) {
-    const int up = __shfl_up_sync(RT_WARP, incl, dist);
-    if (lane >= dist) incl += up;
+  int carry = 0;  // the live slots of the rounds before
+  for (int k0 = 0; k0 < nseg; k0 += SCAN_THREADS) {
+    const int k = k0 + threadIdx.x;
+    const int mine = k < nseg ? counts[k] : 0;
+    int incl = mine;  // inclusive prefix over the warp's lanes
+    for (int dist = 1; dist < 32; dist <<= 1) {
+      const int up = __shfl_up_sync(RT_WARP, incl, dist);
+      if (lane >= dist) incl += up;
+    }
+    if (lane == 31) s_warp[warp] = incl;
+    __syncthreads();
+    int before = carry, round = 0;
+    for (int w = 0; w < SCAN_THREADS / 32; ++w) {
+      if (w < warp) before += s_warp[w];
+      round += s_warp[w];
+    }
+    if (k < nseg) counts[k] = before + incl - mine;
+    carry += round;
+    __syncthreads();  // s_warp is read before the next round writes it
   }
-  if (lane == 31) s_warp[warp] = incl;
-  __syncthreads();
-  int run = incl - mine;
-  for (int w = 0; w < warp; ++w) run += s_warp[w];
-  for (int k = s0; k < s1; ++k) {
-    const int c = offsets[k];
-    offsets[k] = run;
-    run += c;
-  }
-  if (threadIdx.x == blockDim.x - 1) offsets[nseg] = run;
-  __syncthreads();
+  if (threadIdx.x == 0) counts[nseg] = carry;
 }
 
 // The slot of entry i (< offsets[nseg]) of the live list
-__device__ __forceinline__ int live_slot(const int* __restrict__ live, const int* offsets,
-                                         int nseg, int i) {
+__device__ __forceinline__ int live_slot(const int* __restrict__ live,
+                                         const int* __restrict__ offsets, int nseg, int i) {
   int lo = 0, hi = nseg - 1;  // the last segment s with offsets[s] <= i
   while (lo < hi) {
     const int mid = (lo + hi + 1) >> 1;
-    if (offsets[mid] <= i) lo = mid;
+    if (__ldg(offsets + mid) <= i) lo = mid;
     else hi = mid - 1;
   }
-  return live[lo * SEG + (i - offsets[lo])];
+  return live[lo * SEG + (i - __ldg(offsets + lo))];
 }
 
-// Launch 2: the form with a warp per ray. Each thread block sums the
-// segments' counts; if the live rays are no more than `warp_max_live`, the
-// list's entries are dealt to the grid's warps in turn. Block 0 also
-// stores the live count in *total for launch 3.
+// Launch 3: the form with a warp per ray. If the live rays are no more than
+// `warp_max_live`, the list's entries are dealt to the grid's warps in turn.
 template <bool RAGGED>
 __global__ void __launch_bounds__(32 * RT_WARPS, 2) shade_eval_warp_kernel(
     ShadeScene sc, WarpGate g, NodeParams p, Out out, const int* __restrict__ live,
-    const int* __restrict__ counts, int nseg, size_t table_bytes, int warp_max_live,
-    int* __restrict__ total) {
+    const int* __restrict__ offsets, int nseg, int warp_max_live) {
   extern __shared__ float4 s_dyn[];
   __shared__ NodeWarpShared<1> s_warp[RT_WARPS];
-  int* offsets = reinterpret_cast<int*>(reinterpret_cast<char*>(s_dyn) + table_bytes);
-  scan_segments(counts, nseg, offsets);
   const int n = offsets[nseg];
-  if (blockIdx.x == 0 && threadIdx.x == 0) *total = n;
   if (n > warp_max_live) return;  // the other form's count: the whole grid
   const Tables tb = rt_node_stage<1>(sc, s_dyn);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -192,16 +189,16 @@ __global__ void __launch_bounds__(32 * RT_WARPS, 2) shade_eval_warp_kernel(
                             store);
 }
 
-// Launch 3: the form with a ray per lane, if the live rays are more than
+// Launch 4: the form with a ray per lane, if the live rays are more than
 // `warp_max_live`: thread block s takes the live slots of segment s, a ray
 // per lane, in slot order (neighbouring pixels).
 __global__ void __launch_bounds__(SEG, 2) shade_eval_lane_kernel(
     ShadeScene sc, WarpGate g, NodeParams p, Out out, const int* __restrict__ live,
-    const int* __restrict__ counts, const int* __restrict__ total, int warp_max_live) {
+    const int* __restrict__ offsets, int nseg, int warp_max_live) {
   extern __shared__ float4 s_dyn[];
   __shared__ NodeWarpShared<32> s_warp[SEG / 32];
-  const int n = counts[blockIdx.x];
-  if (*total <= warp_max_live || n == 0) return;  // whole thread blocks
+  const int n = offsets[blockIdx.x + 1] - offsets[blockIdx.x];
+  if (offsets[nseg] <= warp_max_live || n == 0) return;  // whole thread blocks
   const Tables tb = rt_node_stage<32>(sc, s_dyn);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   auto store = [&](int r, const float* contrib, const Child& rfl, const Child& rfr) {
@@ -225,22 +222,21 @@ int sm_count() {
 
 template <bool RAGGED>
 void launch_warp_form(const ShadeScene& sc, const WarpGate& g, const NodeParams& p,
-                      const Out& out, const int* live, const int* counts, int nseg,
-                      int warp_max_live, int* total, cudaStream_t stream) {
-  const size_t tables = rt_node_dyn_bytes(sc, 1);
-  const size_t smem = tables + sizeof(int) * (nseg + 1);
+                      const Out& out, const int* live, const int* offsets, int nseg,
+                      int warp_max_live, cudaStream_t stream) {
+  const size_t smem = rt_node_dyn_bytes(sc, 1);
   int per_sm = 0;  // as many thread blocks as the card runs at once
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, shade_eval_warp_kernel<RAGGED>,
                                                 32 * RT_WARPS, smem);
   const int blocks = std::max(1, std::min((p.R + RT_WARPS - 1) / RT_WARPS, per_sm * sm_count()));
   shade_eval_warp_kernel<RAGGED><<<blocks, 32 * RT_WARPS, smem, stream>>>(
-      sc, g, p, out, live, counts, nseg, tables, warp_max_live, total);
+      sc, g, p, out, live, offsets, nseg, warp_max_live);
 }
 
 }  // namespace
 
 // blk_saabb, sb_start, nsb, sb_shift: the superblocks of the gate over
-// blk_aabb; warp_max_live: the most live rays the form with a warp per ray
+// blk_aabb (a superblock per block: sb_shift 0); warp_max_live: the most live rays the form with a warp per ray
 // takes; scratch: R + ceil(R / 128) + 1 int32 of device memory
 extern "C" int rt_shade_eval(
     const float* lights, int n_lights, const float* sph, int S, const float* trb, int P,
@@ -255,6 +251,7 @@ extern "C" int rt_shade_eval(
     float* rfl_o, float* rfl_d, float* rfl_w, int* rfl_b, unsigned char* rfl_m,
     float* rfr_o, float* rfr_d, float* rfr_w, int* rfr_b, float* rfr_i,
     unsigned char* rfr_m, void* stream) {
+  if (sb_shift != 0) return (int)cudaErrorInvalidValue;
   ShadeScene sc;
   NodeParams p;
   rt_fill_node(&sc, &p, lights, n_lights, sph, S, trb, P, trans_rows, blk, blk_aabb, nb, B,
@@ -268,15 +265,14 @@ extern "C" int rt_shade_eval(
     const cudaStream_t s = (cudaStream_t)stream;
     const int nseg = (R + SEG - 1) / SEG;
     int* live = scratch;
-    int* counts = scratch + R;
-    int* total = counts + nseg;
-    live_slots_kernel<<<nseg, SEG, 0, s>>>(p, out, live, counts);
-    if (B % 32)
-      launch_warp_form<true>(sc, g, p, out, live, counts, nseg, warp_max_live, total, s);
-    else
-      launch_warp_form<false>(sc, g, p, out, live, counts, nseg, warp_max_live, total, s);
+    int* offsets = scratch + R;  // the counts, then (launch 2) their offsets
+    live_slots_kernel<<<nseg, SEG, 0, s>>>(p, out, live, offsets);
+    scan_counts_kernel<<<1, SCAN_THREADS, 0, s>>>(offsets, nseg);
+    RT_BOOL_SWITCH(B % 32 != 0, RAGGED,
+                   launch_warp_form<RAGGED>(sc, g, p, out, live, offsets, nseg, warp_max_live,
+                                            s));
     shade_eval_lane_kernel<<<nseg, SEG, rt_node_dyn_bytes(sc, 32), s>>>(  // any B
-        sc, g, p, out, live, counts, total, warp_max_live);
+        sc, g, p, out, live, offsets, nseg, warp_max_live);
   }
   return (int)cudaGetLastError();
 }

@@ -131,6 +131,7 @@ extern "C" int rt_shade_eval_rows(
     float* contrib, float* rfl_rows, unsigned char* rfl_m, float* rfr_rows,
     unsigned char* rfr_m, void* stream) {
   if (rays_per_warp != 1 && rays_per_warp != 32) return (int)cudaErrorInvalidValue;
+  if (sb_shift != 0) return (int)cudaErrorInvalidValue;  // a superblock per block
   ShadeScene sc;
   NodeParams p;
   rt_fill_node(&sc, &p, lights, n_lights, sph, S, trb, P, trans_rows, blk, blk_aabb, nb, B,

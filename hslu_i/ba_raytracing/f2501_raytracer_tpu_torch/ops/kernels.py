@@ -165,9 +165,9 @@ _ARGTYPES = {
         *([_P] * 16), _I,  # per-ray fields, R
         _F, _I, _I, _I, _I, _I, _F, _F,  # node constants
         _P, *([_P] * 13)]),  # scratch, 12 outputs, stream
-    # scene, 6 per-ray inputs, R, eps, backface, warps per thread block, 2 outputs, stream
+    # scene, 6 per-ray inputs, R, eps, backface, 2 outputs, stream
     "light_shade": ("rt_light_shade", [
-        *_SCENE, *([_P] * 6), _I, _F, _I, _I, _P, _P, _P]),
+        *_SCENE, *([_P] * 6), _I, _F, _I, _P, _P, _P]),
 }
 
 
@@ -608,16 +608,6 @@ def _node_plain(light_pack, sph_pack, trb_pack, tri_blk_pack, point, normal, vie
 # ---------------------------------------------------------------------------
 
 
-def _light_warps(n_lights):
-    """Warps of a light_shade thread block, one light each at a time: of 4
-    to 8 (fewer with fewer lights), the count whose rounds over a chunk of
-    at most 16 lights leave the fewest warps idle, the most warps of
-    those."""
-    chunk = min(int(n_lights), 16)
-    return min(range(min(chunk, 8), min(chunk, 4) - 1, -1),
-               key=lambda w: -(-chunk // w) * w - chunk)
-
-
 def light_shade_plain(light_pack, sph_pack, trb_pack, tri_blk_pack, tri_blk_aabb,
                       point, normal, view, color, shininess, valid, *, n_lights,
                       eps_dist, n_trans_blocks=0, backface_culling=False,
@@ -659,7 +649,7 @@ def light_shade(light_pack, sph_pack, trb_pack, tri_blk_pack, tri_blk_aabb,
     _launch(
         "light_shade", *scene, _ptr(point), _ptr(normal), _ptr(view), _ptr(color),
         _ptr(shininess), _ptr(valid), R, float(eps_dist), int(bool(backface_culling)),
-        _light_warps(n_lights), _ptr(direct), _ptr(spec),
+        _ptr(direct), _ptr(spec),
     )
     return direct, spec
 
@@ -757,7 +747,8 @@ def shade_eval(
                 budget=torch.empty((R,), dtype=torch.int32, device=dev),
                 ior=torch.empty((R,), dtype=f32, device=dev),
                 mask=torch.empty((R,), dtype=torch.bool, device=dev))
-    # the live list, its segments' counts and the live count (csrc/shade_eval.cu)
+    # the live list, its segments' counts (then their offsets) and the live
+    # count (csrc/shade_eval.cu)
     scratch = torch.empty((R + -(-R // 128) + 1,), dtype=torch.int32, device=dev)
     _launch(
         "shade_eval", *scene, *gate, int(NODE_WARP_MAX_LIVE),

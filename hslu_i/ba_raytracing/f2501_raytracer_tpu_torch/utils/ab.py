@@ -24,7 +24,8 @@ kernels    the two kernels of each scene's path (`semesterbild`:
            primary node of tile 3 of the 1080p `realistic` frame (R) and at
            that tile's first pool iteration (W), both caught from a render:
            the time on the device alone (torch.profiler, the mean over 20
-           calls at R and 100 at W) and of the wrapper by CUDA events; before
+           calls at R and 100 at W, or over the launches a trace caught)
+           and of the wrapper by CUDA events; before
            them, tile 3 traced with torch.profiler (device busy time,
            launches per node evaluation); first, the registers per thread
            that ptxas gave the kernels' build.
@@ -66,18 +67,19 @@ parser.add_argument("--scene", nargs="+", choices=("semesterbild", "semesterbild
 parser.add_argument("--root", default=os.path.join(os.path.dirname(__file__), *[".."] * 4),
                     help="the checkout whose package is imported (default: this one)")
 ARGS = parser.parse_args()
-sys.path[0] = os.path.abspath(ARGS.root)
+# the package of checkout ARGS.root; the shared helpers (harness.py) of this
+# one, which a parent checkout may lack
+sys.path[0:1] = [os.path.abspath(ARGS.root), os.path.dirname(os.path.abspath(__file__))]
 
-import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from harness import caught_calls, cuda_ms, device_ms, flat, tile_call  # noqa: E402
 
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch import (  # noqa: E402
     RaytracerRenderer,
     RenderConfig,
 )
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.models import build  # noqa: E402
-from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops import kernels, trace  # noqa: E402
-from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.renderer import plan_frame  # noqa: E402
+from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops import kernels  # noqa: E402
 
 if not torch.cuda.is_available():
     sys.exit("ab.py: no CUDA device available")
@@ -121,77 +123,6 @@ def frames(n):
                   f"{wall * 1e3:.1f} ms, launches "
                   f"{ {k: v for k, v in kernels.LAUNCHES.items() if v} }, "
                   f"u32 sha256 {hashlib.sha256(fb.tobytes()).hexdigest()[:16]}", flush=True)
-
-
-def cuda_ms(fn, iters=50):
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
-
-
-def device_ms(fn, iters):
-    """Device time of one call's kernels written in this repository, all of
-    them (torch.profiler; chip_smoke.py's `device_ms`), None if a trace
-    missed some."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        ours = [e for e in prof.key_averages() if "anonymous namespace" in e.key]
-        n = sum(e.count for e in ours)
-        if n and n % iters == 0:
-            return round(sum(e.self_device_time_total for e in ours) / 1e3 / iters, 5)
-    return None
-
-
-def caught_calls(scene, names, run=None, limit=2):
-    """The first `limit` calls (None: all) of each wrapper in `names` while
-    `run` renders (default: tile 3 of the frame of `scene`; then the tile's
-    primary node and its first pool iteration). Tensor arguments are
-    copied: the pool reuses its buffers."""
-    wrappers = {name: getattr(kernels, name) for name in names}
-    caught = {name: [] for name in names}
-
-    def catching(name):
-        def catch(*a, **kw):
-            if limit is None or len(caught[name]) < limit:
-                caught[name].append(([x.clone() if isinstance(x, torch.Tensor) else x
-                                      for x in a], kw))
-            return wrappers[name](*a, **kw)
-        return catch
-
-    for name in names:
-        setattr(kernels, name, catching(name))
-    (run or tile_call(scene, cfg, 3))()
-    torch.cuda.synchronize()
-    for name, wrapper in wrappers.items():
-        setattr(kernels, name, wrapper)
-    return {name: (wrappers[name], calls) for name, calls in caught.items()}
-
-
-def tile_call(scene, c, k):
-    """A call that renders tile k of the frame of config c (one sample per
-    pixel) on `scene`."""
-    plan = plan_frame(c)
-    R = plan.pix_per_tile
-    order = np.full((R,), -1, np.int64)  # -1: a padding slot past the frame
-    part = plan.order[k * R: (k + 1) * R]
-    order[:part.shape[0]] = part
-    order = torch.from_numpy(order).to("cuda")
-    per_tile = trace.make_raygen_per_tile(
-        scene, c, torch.zeros((1, 3), device="cuda"), torch.ones(1, device="cuda"), R)
-    return lambda: per_tile(order)
 
 
 def traced_tile(name, scene):
@@ -239,11 +170,14 @@ def kernel_times():
     for scene_name in ARGS.scene:
         scene = scene_of(scene_name)
         traced_tile(scene_name, scene)
-        for name, (wrapper, calls) in caught_calls(scene, KERNELS[scene_name]).items():
+        caught = caught_calls(KERNELS[scene_name], tile_call(scene, cfg, 3), 2)
+        for name, calls in caught.items():
+            wrapper = getattr(kernels, name)
             for label, (a, kw), n in zip(("R", "W"), calls, (20, 100)):
                 fn = lambda: wrapper(*a, **kw)  # noqa: E731
-                print(f"{name} {label} ({n_rays(name, a)} rays): device {device_ms(fn, n)} ms, "
-                      f"wrapper by CUDA events {round(cuda_ms(fn, n), 5)} ms", flush=True)
+                print(f"{name} {label} ({n_rays(name, a)} rays): device "
+                      f"{device_ms(fn, n)} ms, wrapper by CUDA events "
+                      f"{cuda_ms(fn, n)} ms", flush=True)
 
 
 def shading_calls(stride=1):
@@ -253,20 +187,19 @@ def shading_calls(stride=1):
     out = []
     c = RenderConfig(width=960, height=540, **dict(MAIN, compaction_ratio=1), **REALISTIC)
     scene = scene_of("semesterbild", c)
-    (wrapper, calls), = caught_calls(scene, ["shade_eval"], tile_call(scene, c, 1),
-                                     limit=None).values()
-    out += [(f"stack 960x540 tile 1 wavefront {i}", wrapper, a, kw)
+    calls = caught_calls(["shade_eval"], tile_call(scene, c, 1))["shade_eval"]
+    out += [(f"stack 960x540 tile 1 wavefront {i}", kernels.shade_eval, a, kw)
             for i, (a, kw) in enumerate(calls) if i < 4 or i % stride == 0]
     c = RenderConfig(width=240, height=135, **dict(MAIN, packed_stage=False), **REALISTIC)
     scene = scene_of("semesterbild", c)
-    (wrapper, calls), = caught_calls(scene, ["shade_eval"], tile_call(scene, c, 0)).values()
-    out.append(("unpacked 240x135 first pool iteration", wrapper, *calls[1]))
+    calls = caught_calls(["shade_eval"], tile_call(scene, c, 0), 2)["shade_eval"]
+    out.append(("unpacked 240x135 first pool iteration", kernels.shade_eval, *calls[1]))
     for name, feats in (("default", {}), ("soft_shadows", dict(soft_shadows=True))):
         c = RenderConfig(width=1920, height=1080, **MAIN, **feats)
         scene = scene_of("semesterbild", c)
-        (wrapper, calls), = caught_calls(scene, ["light_shade"], tile_call(scene, c, 3),
-                                         limit=1).values()
-        out.append((f"{name} 1920x1080 tile 3 ({scene.n_lights} lights)", wrapper, *calls[0]))
+        calls = caught_calls(["light_shade"], tile_call(scene, c, 3), 1)["light_shade"]
+        out.append((f"{name} 1920x1080 tile 3 ({scene.n_lights} lights)", kernels.light_shade,
+                    *calls[0]))
     return out
 
 
@@ -280,8 +213,8 @@ def shading():
     for label, wrapper, a, kw in shading_calls():
         fn = lambda: wrapper(*a, **kw)  # noqa: E731
         print(f"{wrapper.__name__} {label}: {a[5].shape[0]} rays, {live(a)} live; device "
-              f"{device_ms(fn, 10)} ms, wrapper by CUDA events {round(cuda_ms(fn, 20), 5)} ms",
-              flush=True)
+              f"{device_ms(fn, 10, per_call=None)} ms, wrapper by CUDA events "
+              f"{cuda_ms(fn, 20)} ms", flush=True)
 
 
 def same(name, x, y):
@@ -295,7 +228,9 @@ def same(name, x, y):
 def forms():
     least = kernels.PACKET_MIN_RAYS
     for scene_name, kernel_names in KERNELS.items():
-        for name, (wrapper, calls) in caught_calls(scene_of(scene_name), kernel_names).items():
+        scene = scene_of(scene_name)
+        for name, calls in caught_calls(kernel_names, tile_call(scene, cfg, 3), 2).items():
+            wrapper = getattr(kernels, name)
             # the streamed kernels at the pool's width only, the resident ones at R and W
             for a, kw in calls if scene_name == "semesterbild" else calls[1:]:
                 ms, outs = {"one": [], "many": []}, {}
@@ -303,7 +238,7 @@ def forms():
                     kernels.PACKET_MIN_RAYS = 1 << 30 if form == "one" else 0
                     outs[form] = wrapper(*a, **kw)
                     fn = lambda: wrapper(*a, **kw)  # noqa: E731
-                    ms[form].append((round(cuda_ms(fn), 4), device_ms(fn, 20)))
+                    ms[form].append((cuda_ms(fn, 50), device_ms(fn, 20)))
                 kernels.PACKET_MIN_RAYS = least
                 assert same(name, outs["one"], outs["many"]), name
                 many = "a ray per lane" if scene_name == "semesterbild" else "eight rays per warp"
@@ -321,7 +256,7 @@ def forms():
             kernels.NODE_WARP_MAX_LIVE = forms_[form]
             outs[form] = wrapper(*a, **kw)
             fn = lambda: wrapper(*a, **kw)  # noqa: E731
-            ms[form].append((round(cuda_ms(fn, 20), 4), device_ms(fn, 10)))
+            ms[form].append((cuda_ms(fn, 20), device_ms(fn, 10, per_call=None)))
         kernels.NODE_WARP_MAX_LIVE = first
         x, y = outs.values()
         assert all(torch.equal(u.view(torch.int32) if u.dtype == torch.float32 else u,
@@ -330,14 +265,6 @@ def forms():
         print(f"{wrapper.__name__} {label}, {live(a)} live rays, ms by CUDA events and on the "
               f"device alone: " + ", ".join(f"{f} {m}" for f, m in ms.items()) +
               "; the same bits", flush=True)
-
-
-def flat(out):
-    """A shading kernel's outputs as a flat list of tensors."""
-    items = []
-    for x in out:
-        items += list(x.values()) if isinstance(x, dict) else [x]
-    return items
 
 
 if ARGS.what == "frames":

@@ -36,6 +36,12 @@ from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.models import triangle_cloud
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops.intersect import cast_rays, occlude_rays
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops.trace import AIR, _commit
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.scene.builder import Scene
+from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.utils.harness import (
+    PARTITIONS,
+    assert_node_bits,
+    flat,
+    same_bits,
+)
 
 REALISTIC = dict(reflections=True, light_reflections=True, refractions=True)
 
@@ -88,13 +94,6 @@ def test_cast_kernel_matches_twin(cuda, backface):
 
 
 RESIDENT_WIDTHS = (0, 1, 7, 2049, 131072)  # ragged warps and thread blocks; a tile
-
-
-def _same_bits(a, b):
-    """Equal bit for bit, NaN included."""
-    if a.dtype != torch.float32:
-        return torch.equal(a, b)
-    return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
 
 
 def _other_form(monkeypatch, n):
@@ -153,16 +152,16 @@ def test_cast_kernel_widths_forms_and_ties(cuda, monkeypatch, backface, case):
         assert kernels.LAUNCHES["cast_triangles"] == 1
         t_ref, idx_ref = kernels.cast_triangles_plain(ds.trb_pack, tables[0], o, d, backface)
         assert t.shape == (n,) and idx.dtype == torch.int32
-        assert torch.equal(idx, idx_ref) and _same_bits(t, t_ref), n
+        assert torch.equal(idx, idx_ref) and same_bits(t, t_ref), n
         for _ in range(2):
             again = kernels.cast_triangles(*args, o, d, backface_culling=backface,
                                            sb_sizes=ds.sb_sizes)
-            assert _same_bits(again[0], t) and torch.equal(again[1], idx)
+            assert same_bits(again[0], t) and torch.equal(again[1], idx)
         with monkeypatch.context() as m:
             _other_form(m, n)
             other = kernels.cast_triangles(*args, o, d, backface_culling=backface,
                                            sb_sizes=ds.sb_sizes)
-        assert _same_bits(other[0], t) and torch.equal(other[1], idx), n
+        assert same_bits(other[0], t) and torch.equal(other[1], idx), n
     assert torch.isfinite(t).sum() > 1000 and (~torch.isfinite(t)).any()
     if case == "ties":
         big, big_copy, early = same
@@ -286,28 +285,6 @@ def test_shade_kernel_matches_twin(cuda):
     assert rfl_m.any() and rfr_m.any()
 
 
-def _flat(out):
-    """A kernel's outputs as a flat list of tensors (dicts of fields opened)."""
-    items = []
-    for x in out:
-        items += list(x.values()) if isinstance(x, dict) else [x]
-    return items
-
-
-def _assert_node_bits(rows_out, fields_out):
-    """shade_eval_rows and shade_eval on the same inputs: contrib, every
-    child field and the masks bit for bit, rays without a hit included."""
-    contrib, rfl, rfl_m, rfr, rfr_m = rows_out
-    f_contrib, f_rfl, f_rfr = fields_out
-    n = contrib.shape[0]
-    assert _same_bits(contrib, f_contrib), n
-    for rows, m, f in ((rfl, rfl_m, f_rfl), (rfr, rfr_m, f_rfr)):
-        assert torch.equal(m, f["mask"]), n
-        assert _same_bits(rows[:, 0:9], torch.cat([f["o"], f["d"], f["w"]], 1)), n
-        assert _same_bits(rows[:, 10], f["budget"].float()), n
-    assert _same_bits(rfr[:, 9], f_rfr["ior"]), n
-
-
 def _node_scene(dev, scene):
     """(cfg, scene) of the node kernels' tests: the 1080p scene with 5 or 50
     lights, or the resident cloud, whose Morton blocks hold glass."""
@@ -341,7 +318,7 @@ def test_shade_rows_kernel_widths_forms_and_bits(cuda, monkeypatch, scene):
         assert kernels.LAUNCHES["shade_eval_rows"] == 1
         contrib, rfl, rfl_m, rfr, rfr_m = got
         assert contrib.shape == (n, 3) and rfl.shape == rfr.shape == (n, 16)
-        _assert_node_bits(got, kernels.shade_eval(*args[:-1], **kw))
+        assert_node_bits(got, kernels.shade_eval(*args[:-1], **kw))
         assert torch.equal(rfl[:, 12], rays[-1].float()) and not rfl[:, 13:].any()
         ref = kernels.shade_eval_rows_plain(*args, **kw)
         assert torch.equal(rfl_m, ref[2]) and torch.equal(rfr_m, ref[4])
@@ -350,11 +327,11 @@ def test_shade_rows_kernel_widths_forms_and_bits(cuda, monkeypatch, scene):
             np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=2e-5, atol=2e-6)
         for _ in range(2):
             again = kernels.shade_eval_rows(*args, **kw)
-            assert all(_same_bits(x, y) for x, y in zip(got, again))
+            assert all(same_bits(x, y) for x, y in zip(got, again))
         with monkeypatch.context() as mp:
             _other_form(mp, n)
             other = kernels.shade_eval_rows(*args, **kw)
-        assert all(_same_bits(x, y) for x, y in zip(got, other)), n
+        assert all(same_bits(x, y) for x, y in zip(got, other)), n
     assert rfl_m.any() and rfr_m.any() and (contrib.amax(1) > 0).any()
 
 
@@ -384,9 +361,33 @@ def test_shade_eval_forms_match_shade_eval_rows(cuda, monkeypatch, scene):
                 got = kernels.shade_eval(*args[:-1], **kw)
                 torch.cuda.synchronize()
                 assert kernels.LAUNCHES["shade_eval"] == 1
-                _assert_node_bits(rows, got)
+                assert_node_bits(rows, got)
                 again = kernels.shade_eval(*args[:-1], **kw)
-                assert all(_same_bits(x, y) for x, y in zip(_flat(got), _flat(again))), n
+                assert all(same_bits(x, y) for x, y in zip(flat(got), flat(again))), n
+    assert rows[2].any() and rows[4].any()
+
+
+@pytest.mark.gpu
+def test_shade_eval_takes_any_slot_count(cuda, monkeypatch):
+    """shade_eval at 2^20 + 37 slots (8193 segments of the list of live
+    rays, whose offsets stay in global memory), with every ray that hits
+    live and with one in twenty, in both forms: bit for bit the outputs of
+    shade_eval_rows on the same inputs."""
+    cfg, ds = _node_scene(cuda, "5_lights")
+    light, node, _, kw = _shade_inputs(cfg, ds, cuda, 131072, 35)
+    kw = _node_kw(cfg, kw)
+    n = (1 << 20) + 37
+    rays = [torch.cat([a] * -(-n // 131072))[:n].contiguous() for a in (*light[5:], *node)]
+    pix = torch.arange(n, dtype=torch.int32, device=cuda)
+    sparse = torch.from_numpy(np.random.default_rng(36).random(n) < 0.05).to(cuda)
+    for thin in (False, True):
+        if thin:
+            rays[5] = rays[5] * sparse  # valid
+        args = (*light[:5], *rays)
+        rows = kernels.shade_eval_rows(*args, pix, **kw)
+        for most in (1 << 30, -1):
+            monkeypatch.setattr(kernels, "NODE_WARP_MAX_LIVE", most)
+            assert_node_bits(rows, kernels.shade_eval(*args, **kw))
     assert rows[2].any() and rows[4].any()
 
 
@@ -408,18 +409,8 @@ def test_light_shade_kernel_widths_and_bits(cuda, scene):
         for a, b in zip(got, ref):
             np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=2e-5, atol=2e-6)
         for _ in range(2):
-            assert all(_same_bits(x, y) for x, y in zip(got, kernels.light_shade(*args, **kw)))
+            assert all(same_bits(x, y) for x, y in zip(got, kernels.light_shade(*args, **kw)))
     assert (got[0].amax(dim=1) > 0).any()
-
-
-# Block partitions that the JAX package takes (pallas_kernels.py:149-160) and
-# that the kernels with a warp per ray take too
-PARTITIONS = {
-    # more than 32 Morton blocks in one superblock: rounds of 32 lanes
-    "superblock64": dict(triangle_block=32, superblock=64),
-    # blocks of 48 rows: a ragged last round of rows
-    "block48": dict(triangle_block=48),
-}
 
 
 def _partition_scene(dev, name, width=1920, height=1080, edge_sigma=0.006, **features):
@@ -455,11 +446,11 @@ def test_warp_kernels_take_any_partition(cuda, monkeypatch, partition):
             t, idx = kernels.cast_triangles(ds.trb_pack, *tables, o, d, sb_sizes=ds.sb_sizes,
                                             backface_culling=bf)
             t_ref, idx_ref = kernels.cast_triangles_plain(ds.trb_pack, tables[0], o, d, bf)
-            assert torch.equal(idx, idx_ref) and _same_bits(t, t_ref)
+            assert torch.equal(idx, idx_ref) and same_bits(t, t_ref)
             t, idx = kernels.cast_triangles_stream(*tables, o, d, sb_sizes=ds.sb_sizes,
                                                    backface_culling=bf)
             t_ref, idx_ref = kernels.cast_triangles_stream_plain(tables[0], o, d, bf)
-            assert torch.equal(idx, idx_ref) and _same_bits(t, t_ref)
+            assert torch.equal(idx, idx_ref) and same_bits(t, t_ref)
             assert torch.isfinite(t).sum() > 100
             got = kernels.occlude_triangles_stream(
                 *tables, o, d, md, sb_sizes=ds.sb_sizes, backface_culling=bf,
@@ -476,7 +467,7 @@ def test_warp_kernels_take_any_partition(cuda, monkeypatch, partition):
             np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=2e-5, atol=2e-6)
         for most in (1 << 30, -1):
             monkeypatch.setattr(kernels, "NODE_WARP_MAX_LIVE", most)
-            _assert_node_bits(rows, kernels.shade_eval(*light, *node, **kw))
+            assert_node_bits(rows, kernels.shade_eval(*light, *node, **kw))
     assert rows[2].any() and rows[4].any()
 
 

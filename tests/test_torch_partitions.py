@@ -49,12 +49,9 @@ from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.models import triangle_cloud
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops import trace
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops.intersect import cast_rays, occlude_rays
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops.vecmath import normalized
+from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.utils.harness import PARTITIONS
 from test_torch_trace import _rays, carry
 
-PARTITIONS = {
-    "superblock64": dict(triangle_block=32, superblock=64),
-    "block48": dict(triangle_block=48),
-}
 CLOUD = dict(n=1100, edge_sigma=0.05, glass_share=0.25, seed=7)
 PATHS = {
     # 288 rays >= kernel_ray_tile * ratio = 256: the pool, W = 128
