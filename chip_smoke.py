@@ -21,7 +21,7 @@ seconds):
      iteration of the 240x135 `packed_stage=False` frame (W = 512), in both
      of its forms bit for bit shade_eval_rows, three runs each. The six
      kernels with a warp per ray or a (ray, light) split are also timed on
-     the device alone (torch.profiler). Then the pool's chunk commit three
+     the device alone (torch.profiler), as is occlude_triangles. Then the pool's chunk commit three
      times on the same rows: identical bits. Phase 2b:
      cast_triangles_stream and occlude_triangles_stream on the synthetic
      streaming validation scene (200,000 small matte triangles in a 10^3
@@ -30,15 +30,17 @@ seconds):
      streamed frame (the primary node of a 1080p tile: 131072 rays and
      their 655,360 shadow rays; one pool iteration: 2048 rays and 10,240
      shadow rays); occlude_triangles on the 655,360 shadow rays of the
-     resident 1080p tile through `occlude_rays(scene, ...)`. Occlusion sums
-     are compared where `opq` is false and must have the same bits on every
-     run. For the two streamed kernels (one warp per ray, a two-level box
+     resident 1080p tile and the 10,240 of its first pool iteration, in
+     both of its forms bit for bit, and on the 655,360 through
+     `occlude_rays(scene, ...)`. Occlusion sums are compared where `opq` is
+     false and must have the same bits on every run. For the two streamed kernels (one warp per ray, a two-level box
      gate) each line also gives the superblocks and blocks a ray crosses
      and the operations of the gate's box tests (this design's own work,
-     kept out of `bound_ms`). Phase 2c: the four kernels with a warp per
+     kept out of `bound_ms`). Phase 2c: the five kernels with a warp per
      ray and shade_eval on block partitions the JAX package takes, a
      superblock of more than 32 blocks and blocks of 48 rows (a cloud scene
-     at 1080p), against their twins at W and R rays;
+     at 1080p), against their twins at W and R rays (and their shadow
+     rays), occlude_triangles also in its other form bit for bit;
   3. render the full 1920x1080 `realistic` frame (bench.py's settings, the
      packed-row pool path) through RaytracerRenderer(cfg, device="cuda"):
      warm frame wall time, launch counts (cast_triangles and
@@ -105,7 +107,7 @@ from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.models.triangle_cloud import
     add_triangle_cloud,
     build_scene as build_cloud,
 )
-from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops import kernels, shading, trace  # noqa: E402
+from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops import kernels, trace  # noqa: E402
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops.intersect import (  # noqa: E402
     _homogeneous,
     _sphere_ts,
@@ -118,20 +120,24 @@ from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.scene.builder import Scene  
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops.vecmath import normalized  # noqa: E402
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.renderer import plan_frame  # noqa: E402
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.utils.harness import (  # noqa: E402
+    OPS_OCCL,
     PARTITIONS,
+    PEAK_F32,
     assert_node_bits,
+    bound_ms,
     caught_calls,
     cuda_ms,
     device_ms,
+    gate_hits,
+    nbytes,
+    occlusion_tests,
     same_bits,
+    shadow_rays,
     tile_call,
 )
 
 PKG = "hslu_i/ba_raytracing/f2501_raytracer_tpu_torch"
 TPU_KERNELS = "hslu_i/ba_raytracing/f2501_raytracer_tpu/ops/pallas_kernels.py"
-# published H100 SXM peaks: fp32 outside the tensor cores, HBM bandwidth
-PEAK_F32 = 67e12
-PEAK_BYTES = 3.35e12
 # f32 operations (mul, add, div, sqrt) per test, counted from the sources:
 # Woop triangle test (rt_tri_test), sphere shadow test incl. its normal,
 # per-(ray, light) setup, per-ray shading epilogue with both children
@@ -188,21 +194,12 @@ def checksum(fb):
     return hashlib.sha256(fb.tobytes()).hexdigest()[:16]
 
 
-def nbytes(*ts):
-    return sum(t.numel() * t.element_size() for t in ts)
-
-
-def bound_ms(byts, ops):
-    by, op = byts / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
-    return max(by, op), ("bytes" if by >= op else "operations")
-
-
 # the kernels whose lines also give the time on the device alone
 # (torch.profiler) and the registers per thread of each build (form); those
 # with a warp per ray must not spill (light_shade, one lane per shadow ray,
 # spills a few bytes in its fastest build)
 TIMED_KERNELS = ("cast_triangles", "cast_triangles_stream", "occlude_triangles_stream",
-                 "shade_eval_rows", "shade_eval", "light_shade")
+                 "occlude_triangles", "shade_eval_rows", "shade_eval", "light_shade")
 NO_SPILL = TIMED_KERNELS[:-1]
 
 
@@ -303,20 +300,6 @@ def prim_state(n):
     )
 
 
-def gate_hits(boxes, o, d, t_limit):
-    """(N, n_boxes) bool: does the segment [0, t_limit] cross each box (the
-    kernels' widened slab test, rt_common.cuh::rt_gate)?"""
-    inv = 1.0 / d
-    lo, hi = boxes[None, :, 0:3], boxes[None, :, 3:6]
-    m = 1e-5 * (1.0 + torch.maximum(lo.abs(), hi.abs()))
-    t1 = (lo - m - o[:, None, :]) * inv[:, None, :]
-    t2 = (hi + m - o[:, None, :]) * inv[:, None, :]
-    nan = torch.isnan(t1) | torch.isnan(t2)
-    a = torch.where(nan, -float("inf"), torch.minimum(t1, t2)).amax(-1)
-    b = torch.where(nan, float("inf"), torch.maximum(t1, t2)).amin(-1)
-    return (b >= a.clamp(min=0)) & (a <= t_limit[:, None])
-
-
 def cast_ops(scene, o, d, t_final):
     """Pair tests a front-to-back gated scan needs on this data: every big
     triangle, plus the B triangles of each block the segment [0, t] crosses."""
@@ -377,10 +360,11 @@ def record(name, label, n, err, ms, plain, byts, ops, extra=""):
     results[name][label] = dict(R=n, err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
 
 
-def alone(res, n_rays, dev_ms):
+def alone(res, n_rays, dev_ms, many=32):
     """The time on the device alone of a resident kernel with a warp per
-    ray (the CUDA events above also time the wrapper's host work)."""
-    k = kernels.rays_per_warp(n_rays, many=32)
+    ray (the CUDA events above also time the wrapper's host work); `many`:
+    its rays per warp from PACKET_MIN_RAYS on."""
+    k = kernels.rays_per_warp(n_rays, many=many)
     res.update(device_ms=dev_ms, rays_per_warp=k)
     log(f"  on the device alone {'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}; "
         f"{k} rays per warp")
@@ -594,20 +578,8 @@ with phase("kernels"):
     report["commit"] = dict(rows=n_rows, sorted_ms=commit_ms, index_add_ms=atomic_ms)
 
 # ---- phase 2b: the streamed cast and the two occlusion kernels ------------
-# f32 operations of one shadow pair test (rt_occlude.cuh::occl_tri: the Woop
-# test and the normal's cosine; the Fresnel of a transmissive hit is rare)
-OPS_OCCL = 46
 # one widened slab test of a box (rt_common.cuh::rt_gate)
 OPS_BOX = 30
-
-
-def crossed_blocks(boxes, o, d, t_limit, chunk=8192):
-    """How many (ray, block) pairs there are whose segment [0, t_limit]
-    crosses the block's box (in chunks of rays: the pair matrix of 655,360
-    rays and 3125 blocks does not fit)."""
-    return sum(int(gate_hits(boxes, o[s0:s0 + chunk], d[s0:s0 + chunk],
-                             t_limit[s0:s0 + chunk]).sum())
-               for s0 in range(0, o.shape[0], chunk))
 
 
 def timed_once(fn):
@@ -703,15 +675,34 @@ def check_cast_stream(label, scene, o, d, iters, backface):
               gate_ops, dev_ms)
 
 
+def occl_bits(x, y):
+    """Two occlusion results with `opq` identical and, where it is false,
+    the sums' bits identical."""
+    free = ~x[1]
+    return (torch.equal(x[1], y[1]) and same_bits(x[0][free], y[0][free])
+            and same_bits(x[2][free], y[2][free]))
+
+
+def other_form(kernel_fn, n_rays):
+    """The result of kernel_fn with the wrappers' other form for n_rays rays
+    (one ray per warp, or many)."""
+    least = kernels.PACKET_MIN_RAYS
+    kernels.PACKET_MIN_RAYS = 0 if kernels.rays_per_warp(n_rays) == 1 else 1 << 30
+    try:
+        return kernel_fn()
+    finally:
+        kernels.PACKET_MIN_RAYS = least
+
+
 def check_occlusion(name, label, scene, kernel_fn, twin_fn, o, d, md, tables, iters,
                     real=None, big_rows=0, streamed=False):
     """An occlusion kernel against its twin: `opq` identical, the sums within
-    1e-5 where `opq` is false, the same bits on three runs. `real` leaves out
-    the shadow rays of lanes without a hit: they start at the parking point
-    1e9, where f32 has a spacing of 64, so the ungated twin's pair tests and
-    the kernel's box tests both work on noise (the light loop discards
-    their results). `streamed`: the kernel with a warp per ray, whose gate
-    and time on the device alone are printed too."""
+    1e-5 where `opq` is false, the same bits on three runs and, for the
+    resident kernel, in its other form. `real` leaves out the shadow rays of
+    lanes without a hit: they start at the parking point 1e9, where f32 has
+    a spacing of 64, so the ungated twin's pair tests and the kernel's box
+    tests both work on noise (the light loop discards their results).
+    `streamed`: the streamed kernel, whose gate is printed too."""
     got = kernel_fn()
     torch.cuda.synchronize()
     ref, plain = timed_once(twin_fn)
@@ -726,26 +717,27 @@ def check_occlusion(name, label, scene, kernel_fn, twin_fn, o, d, md, tables, it
     for _ in range(2):
         assert all(torch.equal(a, b) for a, b in zip(got, kernel_fn())), \
             f"{name} {label}: bits differ from run to run"
+    if not streamed:
+        assert occl_bits(got, other_form(kernel_fn, o.shape[0])), f"{name} {label}: forms differ"
     ms = cuda_ms(kernel_fn, iters)
-    # the pair tests this data needs: for a ray that reaches its light, the
-    # big rows and every block its segment crosses; for an occluded ray, one
-    live = free & (md > 0)
-    n_live = int(live.sum())
-    n_opq = int((opq & real).sum())
-    note = (f"; real rays {int(real.sum())}, occluded {n_opq}, partly shaded "
+    dev_ms = device_ms(kernel_fn, iters)
+    note = (f"; real rays {int(real.sum())}, occluded {int((opq & real).sum())}, partly shaded "
             f"{int(((dec > 0) & free).sum())}")
     if streamed:
-        dev_ms = device_ms(kernel_fn, iters)
+        live = free & (md > 0)
         n_sb, crossed, most, gate_ops = gate_work(scene, o[live], d[live], md[live])
+        tests, n_live, _, _ = occlusion_tests(scene, o, d, md, opq_ref, real, big_rows, crossed)
         note += f", {n_live} live"
     else:
-        crossed = crossed_blocks(scene.tri_aabb, o[live], d[live], md[live])
-        note += f", {crossed / max(n_live, 1):.1f} blocks crossed per live ray"
-    tests = scene.tri_block * crossed + big_rows * n_live + n_opq
+        tests, n_live, _, crossed = occlusion_tests(scene, o, d, md, opq_ref, real, big_rows)
+        note += (f", {crossed / max(n_live, 1):.1f} blocks crossed per live ray; the same bits "
+                 f"in both forms")
     record(name, label, o.shape[0], err, ms, plain, nbytes(o, d, md, *tables, *got),
            OPS_OCCL * tests, note)
     if streamed:
         gate_note(name, label, scene, o.shape[0], n_live, n_sb, crossed, most, gate_ops, dev_ms)
+    else:
+        alone(results[name][label], o.shape[0], dev_ms)
     return got
 
 
@@ -759,21 +751,16 @@ def check_occl_stream(label, scene, o, d, md, iters, backface, real=None):
         o, d, md, tables, iters, real=real, streamed=True)
 
 
-def shadow_rays(scene, c, o, d, active):
-    """What the streamed node sends to the occlusion kernel for this
-    wavefront: the (origin, direction, max distance, real) of every light
-    chunk, taken from the port's own light loop; `real` marks the rays of
-    lanes that hit something (light-major, as the rays are)."""
-    hit, hval, point, d = trace._cast_active(scene, c, o, d, active)
-    sent = []
-
-    def occlude(so, sd, md):
-        sent.append((so, sd, md, hval.repeat(so.shape[0] // hval.shape[0])))
-        return occlude_rays(scene, so, sd, md, c.backface_culling)
-
-    shading._light_loop(scene.light_pack, scene.n_lights, occlude, point, hit.normal, d,
-                        hit.color, hit.shininess, hval, eps)
-    return sent
+def check_occl_resident(label, scene, o, d, md, iters, backface, real):
+    tables = (scene.trb_pack, scene.tri_cast_pack, scene.tri_aabb, scene.tri_saabb)
+    kw = dict(backface_culling=backface, bigtri_trans=scene.bigtri_trans,
+              block_has_trans=scene.block_has_trans, sb_sizes=scene.sb_sizes)
+    return check_occlusion(
+        "occlude_triangles", label, scene,
+        lambda: kernels.occlude_triangles(*tables, o, d, md, **kw),
+        lambda: kernels.occlude_triangles_plain(scene.trb_pack, scene.tri_cast_pack, o, d, md,
+                                                backface),
+        o, d, md, tables, iters, real=real, big_rows=int((scene.trb_pack[:, 13] != 0).sum()))
 
 
 # the streamed frame's scene: semesterbild plus a cloud of 120,000 small
@@ -820,19 +807,14 @@ with phase("stream_kernels"):
     assert so_W.shape[0] == ds_cloud.n_lights * W == 10240
     check_occl_stream("W", ds_cloud, so_W, sd_W, md_W, 20, bf, real_W)
 
-    # occlude_triangles: the 655,360 shadow rays of the resident tile
+    # occlude_triangles: the 655,360 shadow rays of the resident tile, and
+    # the 10,240 of its first pool iteration (W rays, 5 lights)
     (so_4, sd_4, md_4, real_4), = shadow_rays(ds, cfg, o_prim, d_prim, ones)
     assert so_4.shape[0] == 655360
-    tables_4 = (ds.trb_pack, ds.tri_cast_pack, ds.tri_aabb, ds.tri_saabb)
-    kw_4 = dict(backface_culling=bf, bigtri_trans=ds.bigtri_trans,
-                block_has_trans=ds.block_has_trans, sb_sizes=ds.sb_sizes)
-    check_occlusion(
-        "occlude_triangles", "R", ds,
-        lambda: kernels.occlude_triangles(*tables_4, so_4, sd_4, md_4, **kw_4),
-        lambda: kernels.occlude_triangles_plain(ds.trb_pack, ds.tri_cast_pack, so_4, sd_4,
-                                                md_4, bf),
-        so_4, sd_4, md_4, tables_4, 30, real=real_4,
-        big_rows=int((ds.trb_pack[:, 13] != 0).sum()))
+    check_occl_resident("R", ds, so_4, sd_4, md_4, 30, bf, real_4)
+    (so_4w, sd_4w, md_4w, real_4w), = shadow_rays(ds, cfg, e["o"], e["d"], active)
+    assert so_4w.shape[0] == 10240
+    check_occl_resident("W", ds, so_4w, sd_4w, md_4w, 100, bf, real_4w)
     # its main path is the entry point itself: one call, counted from zero,
     # held against the pack-level scan of the light kernels' twin
     torch.cuda.synchronize()
@@ -866,13 +848,13 @@ def partition_scene(name, w, h, feats, edge_sigma):
 
 
 def check_partition(name):
-    """The four kernels with a warp per ray and shade_eval on the primary
+    """The five kernels with a warp per ray and shade_eval on the primary
     rays of tile 3 (W of them: one ray per warp; R: many per warp) of a
     partition scene, against their twins: both casts' t and index
-    identical, the streamed occlusion's `opq` identical on the shadow rays
-    of lanes that hit (sums within 1e-5 where it is false), shade_eval_rows
-    within the traced-colour bar and shade_eval bit for bit equal to it in
-    both forms."""
+    identical, both occlusions' `opq` identical on the shadow rays of lanes
+    that hit (sums within 1e-5 where it is false; the resident one's bits
+    the same in both forms), shade_eval_rows within the traced-colour bar
+    and shade_eval bit for bit equal to it in both forms."""
     c, host = partition_scene(name, 1920, 1080, REALISTIC, 0.006)
     ds_p = RaytracerRenderer(c, device="cuda").device_scene(host)
     assert not ds_p.streaming and ds_p.tri_block == PARTITIONS[name]["triangle_block"]
@@ -897,6 +879,19 @@ def check_partition(name):
         assert torch.equal(opq[real], opq_r[real]), f"{name} occlusion at {n}"
         free = ~opq_r & real
         assert max(max_err(dec[free], dec_r[free]), max_err(fsub[free], fsub_r[free])) <= 1e-5
+        # the resident occlusion on the same shadow rays: the big rows, then
+        # the same blocks; both forms
+        occl = lambda: kernels.occlude_triangles(  # noqa: E731
+            ds_p.trb_pack, *tables, so, sd, md, sb_sizes=ds_p.sb_sizes, backface_culling=bf,
+            bigtri_trans=ds_p.bigtri_trans, block_has_trans=ds_p.block_has_trans)
+        got4 = occl()
+        dec_r, opq_r, fsub_r = kernels.occlude_triangles_plain(ds_p.trb_pack, tables[0], so, sd,
+                                                               md, bf)
+        assert torch.equal(got4[1][real], opq_r[real]), f"{name} resident occlusion at {n}"
+        free = ~opq_r & real
+        assert max(max_err(got4[0][free], dec_r[free]),
+                   max_err(got4[2][free], fsub_r[free])) <= 1e-5
+        assert occl_bits(got4, other_form(occl, so.shape[0])), f"{name} occlusion forms at {n}"
         args = shade_args(ds_p, c, o, d, ones[:n], **prim_state(n))
         kw = shade_kw(ds_p, c)
         pix = torch.arange(n, dtype=torch.int32, device=DEV)
@@ -909,8 +904,9 @@ def check_partition(name):
         node_forms_bits(f"{name} at {n}", args, kw)
         log(f"partition {name}: {ds_p.triangle_blocks} blocks of {ds_p.tri_block}, superblocks "
             f"of up to {max(ds_p.sb_sizes)}; at {n} rays: both casts identical to their twins "
-            f"({int(torch.isfinite(t).sum())} Morton hits), occlusion opq identical on "
-            f"{int(real.sum())} real shadow rays ({int((opq & real).sum())} occluded), "
+            f"({int(torch.isfinite(t).sum())} Morton hits), both occlusions' opq identical on "
+            f"{int(real.sum())} real shadow rays ({int((opq & real).sum())} occluded; the "
+            f"resident one {int((got4[1] & real).sum())}, its forms bit-identical), "
             f"shade_eval_rows within its bar, shade_eval bit-identical to it in both forms")
 
 
@@ -1138,7 +1134,7 @@ ENTRIES = {
                               ["W", "V", "V_glass"]),
     "occlude_triangles_stream": ("occlude_triangles_stream.cu", 604, "streamed", "R",
                                  ["W", "V", "V_glass"]),
-    "occlude_triangles": ("occlude_triangles.cu", 964, "occlude_rays", "R", []),
+    "occlude_triangles": ("occlude_triangles.cu", 964, "occlude_rays", "R", ["W"]),
     "shade_eval_rows": ("shade_eval_rows.cu", 1858, "realistic", "R", ["W"]),
     "light_shade": ("light_shade.cu", 1834, "default", "R", ["R_soft"]),
     "shade_eval": ("shade_eval.cu", 1858, "stack", "R", ["S", "W"]),

@@ -152,9 +152,10 @@ _ARGTYPES = {
     "occlude_triangles_stream": ("rt_occlude_triangles_stream", [
         _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P]),
     # o, d, maxd, R, trb, P, bigtri_trans, pack, nb, B, aabb, saabb, sb_start,
-    # nsb, block_httr, backface, dec, opq, fsub, stream
+    # nsb, sb_shift, rays_per_warp, block_httr, backface, dec, opq, fsub, stream
     "occlude_triangles": ("rt_occlude_triangles", [
-        _P, _P, _P, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P]),
+        _P, _P, _P, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P,
+        _P]),
     "shade_eval_rows": ("rt_shade_eval_rows", [
         *_SCENE, _P, _P, _I, _I, _I,  # the gate's superblocks, rays_per_warp
         *([_P] * 17), _I,  # per-ray fields, R
@@ -488,28 +489,26 @@ def occlude_triangles(trb_pack, tri_cast_pack, tri_aabb, tri_saabb, o, d, max_di
     returns what `occlude_triangles_stream` returns, under the same
     contract for occluded rays. `bigtri_trans`: whether any big primitive
     is transmissive; `sb_sizes`: the superblock partition under
-    `tri_saabb`. The caller folds in the spheres."""
+    `tri_saabb` (empty: a superblock per block). The caller folds in the
+    spheres."""
     R, dev = _check_rays("occlude_triangles", o, d, max_distance)
     P = trb_pack.shape[0]
-    nb, B, _ = tri_cast_pack.shape
-    nsb = len(sb_sizes) or nb
     _check(trb_pack, "trb_pack", torch.float32, (P, 32), dev)
-    _check(tri_cast_pack, "tri_cast_pack", torch.float32, (nb, B, 32), dev)
-    _check(tri_aabb, "tri_aabb", torch.float32, (nb, 8), dev)
-    _check(tri_saabb, "tri_saabb", torch.float32, (len(sb_sizes) or tri_saabb.shape[0], 8), dev)
+    sb_sizes = tuple(sb_sizes) or (1,) * tri_cast_pack.shape[0]
+    nb, B = _check_block_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes, dev)
     if dev.type == "cpu":
         return occlude_triangles_plain(trb_pack, tri_cast_pack, o, d, max_distance,
                                        backface_culling)
+    _check_big_rows(trb_pack)
+    sb, nsb, sb_shift = _warp_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes,
+                                     trb_pack=trb_pack)
     httr = _block_httr(block_has_trans, nb, dev)
-    sb = _sb_start(sb_sizes, nb, dev)
-    o_soa = o.t().contiguous()
-    d_soa = d.t().contiguous()
     dec, opq, fsub = _occlusion_outputs(R, dev)
     _launch(
-        "occlude_triangles", _ptr(o_soa), _ptr(d_soa), _ptr(max_distance), R,
+        "occlude_triangles", _ptr(o), _ptr(d), _ptr(max_distance), R,
         _ptr(trb_pack), P, int(bool(bigtri_trans)), _ptr(tri_cast_pack), nb, B,
-        _ptr(tri_aabb), _ptr(tri_saabb), _ptr(sb), nsb, _ptr(httr),
-        int(bool(backface_culling)), _ptr(dec), _ptr(opq), _ptr(fsub),
+        _ptr(tri_aabb), _ptr(tri_saabb), _ptr(sb), nsb, sb_shift, rays_per_warp(R, many=32),
+        _ptr(httr), int(bool(backface_culling)), _ptr(dec), _ptr(opq), _ptr(fsub),
     )
     return dec, opq, fsub
 

@@ -7,10 +7,11 @@ file from anywhere:
     python3 hslu_i/ba_raytracing/f2501_raytracer_tpu_torch/utils/ab.py \
         frames N [--scene semesterbild semesterbild_cloud] [--root DIR]
     python3 hslu_i/ba_raytracing/f2501_raytracer_tpu_torch/utils/ab.py \
-        kernels [--scene semesterbild semesterbild_cloud] [--root DIR]
+        kernels [--scene semesterbild semesterbild_cloud occlusion] [--root DIR]
     python3 hslu_i/ba_raytracing/f2501_raytracer_tpu_torch/utils/ab.py \
         shading [--root DIR]
-    python3 hslu_i/ba_raytracing/f2501_raytracer_tpu_torch/utils/ab.py forms
+    python3 hslu_i/ba_raytracing/f2501_raytracer_tpu_torch/utils/ab.py \
+        forms [--scene semesterbild semesterbild_cloud occlusion]
 
 frames N   render the 1920x1080 `realistic` frame (chip_smoke.py's settings)
            of each scene named: `semesterbild` (the resident packed-row pool
@@ -28,7 +29,18 @@ kernels    the two kernels of each scene's path (`semesterbild`:
            and of the wrapper by CUDA events; before
            them, tile 3 traced with torch.profiler (device busy time,
            launches per node evaluation); first, the registers per thread
-           that ptxas gave the kernels' build.
+           that ptxas gave the kernels' build. `occlusion` (not a frame's
+           scene; not taken by default): occlude_triangles, the resident
+           occlusion, at the three widths of its callers on four resident
+           scenes (see OCCLUSION_SCENES). The widths are the shadow rays of
+           the port's light loop: 10,240 from the first pool iteration of
+           the 1080p `realistic` frame's tile 3 (5 lights x W = 2048),
+           655,360 from that tile's primary rays (5 lights x R = 131072)
+           and 2,097,152 from the same rays under `soft_shadows` (the
+           light loop's first chunk of 16 of its 50 lights). Each: the time
+           on the device alone and by CUDA events, the bound as
+           chip_smoke.py counts it and a hash of the results (`opq` and the
+           sums where it is false), which two trees must share.
 shading    the two shading kernels off the main path at every shape they
            run, caught from renders: shade_eval at every wavefront of tile
            1 of the 960x540 stack-path frame (its live rays, valid != 0,
@@ -37,15 +49,18 @@ shading    the two shading kernels off the main path at every shape they
            the 1080p `default` (5 lights) and `soft_shadows` (50 lights)
            frames. Each: the time on the device alone (all of a call's
            kernels) and of the wrapper by CUDA events; first, the registers.
-forms      the four kernels with a warp per ray, with one ray per warp and
-           with many (eight for the two streamed kernels, a ray per lane for
-           the resident two), in turns one, many, many, one: the streamed
-           kernels at the pool's width (2048 rays and 10,240 shadow rays),
-           the resident ones at W and at R; what `kernels.PACKET_MIN_RAYS`
-           decides between. Then shade_eval's two forms at every wavefront
-           of the stack tile and at W = 512, against its live rays (what
-           `kernels.NODE_WARP_MAX_LIVE` decides between). The results must
-           be the same.
+forms      the kernels with a warp per ray, with one ray per warp and with
+           many, in turns one, many, many, one, for each scene named: on
+           `semesterbild` cast_triangles and shade_eval_rows (a ray per
+           lane) at W and at R, then shade_eval's two forms at every
+           wavefront of the stack tile and at W = 512, against its live
+           rays (what `kernels.NODE_WARP_MAX_LIVE` decides between); on
+           `semesterbild_cloud` the two streamed kernels (eight rays per
+           warp) at the pool's width (2048 rays and 10,240 shadow rays);
+           with `occlusion`, occlude_triangles on the cases of `kernels`
+           in its forms: one ray per warp, a ray per lane, and eight rays
+           per warp with the lanes over the rows. `kernels.PACKET_MIN_RAYS`
+           decides between one and many. The results must be the same.
 --root DIR imports the package from another checkout (one unpacked with
            `git archive`).
 """
@@ -56,13 +71,15 @@ import argparse
 import hashlib
 import os
 import re
+import subprocess
 import sys
 import time
 
 parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
 parser.add_argument("what", choices=("frames", "kernels", "shading", "forms"))
 parser.add_argument("n", type=int, nargs="?", default=2, help="frames: warm frames per scene")
-parser.add_argument("--scene", nargs="+", choices=("semesterbild", "semesterbild_cloud"),
+parser.add_argument("--scene", nargs="+",
+                    choices=("semesterbild", "semesterbild_cloud", "occlusion"),
                     default=["semesterbild", "semesterbild_cloud"])
 parser.add_argument("--root", default=os.path.join(os.path.dirname(__file__), *[".."] * 4),
                     help="the checkout whose package is imported (default: this one)")
@@ -72,13 +89,29 @@ ARGS = parser.parse_args()
 sys.path[0:1] = [os.path.abspath(ARGS.root), os.path.dirname(os.path.abspath(__file__))]
 
 import torch  # noqa: E402
-from harness import caught_calls, cuda_ms, device_ms, flat, tile_call  # noqa: E402
+from harness import (  # noqa: E402
+    OPS_OCCL,
+    PARTITIONS,
+    bound_ms,
+    caught_calls,
+    cuda_ms,
+    device_ms,
+    flat,
+    nbytes,
+    occlusion_tests,
+    scan_lengths,
+    shadow_rays,
+    tile_call,
+)
 
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch import (  # noqa: E402
     RaytracerRenderer,
     RenderConfig,
 )
-from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.models import build  # noqa: E402
+from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.models import (  # noqa: E402
+    build,
+    triangle_cloud,
+)
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops import kernels  # noqa: E402
 
 if not torch.cuda.is_available():
@@ -92,7 +125,9 @@ MAIN = dict(
 REALISTIC = dict(reflections=True, light_reflections=True, refractions=True)
 cfg = RenderConfig(width=1920, height=1080, **MAIN, **REALISTIC)
 renderer = RaytracerRenderer(cfg, device="cuda")
-print(f"{torch.cuda.get_device_name(0)}; package from {sys.path[0]}", flush=True)
+card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                      capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+print(f"{card}; package from {sys.path[0]}", flush=True)
 
 
 # the kernels of each scene's path, its node kernel first
@@ -167,7 +202,11 @@ def registers():
 
 def kernel_times():
     registers()
+    if "occlusion" in ARGS.scene:
+        occlusion_times()
     for scene_name in ARGS.scene:
+        if scene_name not in KERNELS:
+            continue
         scene = scene_of(scene_name)
         traced_tile(scene_name, scene)
         caught = caught_calls(KERNELS[scene_name], tile_call(scene, cfg, 3), 2)
@@ -225,9 +264,115 @@ def same(name, x, y):
     return all(torch.equal(u, v) for u, v in zip(x, y))
 
 
+# the resident scenes of `occlusion`: the 1080p stand-in (2 blocks of 64), the
+# two partitions of harness.PARTITIONS (semesterbild plus 2400 small
+# triangles, a quarter glass: a superblock of 64 blocks; blocks of 48 rows)
+# and a cloud of ~230 blocks below `stream_triangles` (semesterbild plus
+# 15,000 small triangles, triangle_cloud.build_scene's other defaults)
+OCCLUSION_SCENES = {
+    "stand-in": (dict(), lambda c: build("semesterbild", c)),
+    **{name: (part, lambda c: triangle_cloud.build_scene(c, n=2400, edge_sigma=0.006,
+                                                         glass_share=0.25))
+       for name, part in PARTITIONS.items()},
+    "cloud": (dict(), lambda c: triangle_cloud.build_scene(c, n=15000)),
+}
+
+
+def occlusion_cases():
+    """(label, scene, kw, (o, d, max distance), real) of every scene of
+    OCCLUSION_SCENES at 10,240, 655,360 and 2,097,152 shadow rays."""
+    out = []
+    for name, (part, make) in OCCLUSION_SCENES.items():
+        c = RenderConfig(width=1920, height=1080, **MAIN, **REALISTIC, **part)
+        c_soft = RenderConfig(width=1920, height=1080, **MAIN, **REALISTIC, **part,
+                              soft_shadows=True)
+        host = make(c)
+        scene = RaytracerRenderer(c, device="cuda").device_scene(host)
+        assert not scene.streaming
+        soft = RaytracerRenderer(c_soft, device="cuda").device_scene(host)
+        # tile 3's primary rays and its first pool iteration's W rays, as
+        # the cast of the render saw them
+        (prim, _), (pool, _) = caught_calls(["cast_triangles"], tile_call(scene, c, 3),
+                                            2)["cast_triangles"]
+        kw = dict(backface_culling=c.backface_culling, bigtri_trans=scene.bigtri_trans,
+                  block_has_trans=scene.block_has_trans, sb_sizes=scene.sb_sizes)
+        for sc, cc, (o, d) in ((scene, c, pool[4:6]), (scene, c, prim[4:6]),
+                               (soft, c_soft, prim[4:6])):
+            so, sd, md, real = shadow_rays(sc, cc, o, d, torch.ones(o.shape[0], dtype=torch.bool,
+                                                                    device="cuda"))[0]
+            label = (f"{name} ({scene.triangle_blocks} blocks of {scene.tri_block}, superblocks "
+                     f"of up to {max(scene.sb_sizes)}), {so.shape[0]} rays")
+            out.append((label, scene, kw, (so, sd, md), real))
+    return out
+
+
+def occl_hash(out):
+    """A hash of an occlusion result: `opq`, and the sums' bits where it is
+    false (the sums of an occluded ray are not specified)."""
+    dec, opq, fsub = out
+    free = ~opq
+    h = hashlib.sha256(opq.cpu().numpy().tobytes())
+    for x in (dec[free], fsub[free]):
+        h.update(x.contiguous().view(torch.int32).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def occlusion_times():
+    for label, scene, kw, rays, real in occlusion_cases():
+        tables = (scene.trb_pack, scene.tri_cast_pack, scene.tri_aabb, scene.tri_saabb)
+        fn = lambda: kernels.occlude_triangles(*tables, *rays, **kw)  # noqa: E731
+        out = fn()
+        n = 20 if rays[0].shape[0] > 100_000 else 100
+        dev, ev = device_ms(fn, n), cuda_ms(fn, n)
+        tests, n_live, n_opq, crossed = occlusion_tests(
+            scene, *rays, out[1], real, int((scene.trb_pack[:, 13] != 0).sum()))
+        b, by = bound_ms(nbytes(*rays, *tables, *out), OPS_OCCL * tests)
+        share = "not measured" if dev is None else f"{b / dev:.1%} of it on the device alone"
+        # the one-thread scan's pair tests, and the share of a warp's lanes
+        # busy when each of 32 consecutive rays takes a lane
+        lens = scan_lengths(scene, *rays, kw["backface_culling"])
+        per_warp = torch.nn.functional.pad(lens, (0, -lens.shape[0] % 32)).view(-1, 32)
+        busy = float(per_warp.sum() / (32 * per_warp.amax(1)).sum().clamp(min=1))
+        rate = "" if dev is None else f", {float(lens.sum()) / dev / 1e9:.3f} per ns"
+        print(f"occlude_triangles {label}: device {dev} ms, by CUDA events {ev} ms; bound "
+              f"{b:.5f} ms ({by}), {share}; real rays {int(real.sum())}, occluded {n_opq}, "
+              f"live {n_live}, {crossed / max(n_live, 1):.2f} blocks crossed per live ray; "
+              f"the one-thread scan's pair tests {int(lens.sum())}{rate}, lanes busy {busy:.1%} "
+              f"with a ray per lane; results {occl_hash(out)}", flush=True)
+
+
+# occlude_triangles's forms: (name, PACKET_MIN_RAYS, rays per warp from there on)
+OCCL_FORMS = (("one ray per warp", 1 << 30, None), ("a ray per lane", 0, 32),
+              ("eight rays per warp", 0, 8))
+
+
+def occlusion_forms():
+    every = kernels.rays_per_warp
+    least = kernels.PACKET_MIN_RAYS
+    for label, scene, kw, rays, _ in occlusion_cases():
+        tables = (scene.trb_pack, scene.tri_cast_pack, scene.tri_aabb, scene.tri_saabb)
+        fn = lambda: kernels.occlude_triangles(*tables, *rays, **kw)  # noqa: E731
+        ms, hashes = {f[0]: [] for f in OCCL_FORMS}, set()
+        n = 20 if rays[0].shape[0] > 100_000 else 100
+        for name, packet_min, many in (*OCCL_FORMS, *reversed(OCCL_FORMS)):
+            kernels.PACKET_MIN_RAYS = packet_min
+            if many:
+                kernels.rays_per_warp = lambda n_rays, many=8, k=many: k
+            try:
+                hashes.add(occl_hash(fn()))
+                ms[name].append((cuda_ms(fn, n), device_ms(fn, n)))
+            finally:
+                kernels.PACKET_MIN_RAYS, kernels.rays_per_warp = least, every
+        assert len(hashes) == 1, (label, hashes)
+        print(f"occlude_triangles {label}, ms by CUDA events and on the device alone: " +
+              ", ".join(f"{f} {m}" for f, m in ms.items()) + "; the same results", flush=True)
+
+
 def forms():
     least = kernels.PACKET_MIN_RAYS
     for scene_name, kernel_names in KERNELS.items():
+        if scene_name not in ARGS.scene:
+            continue
         scene = scene_of(scene_name)
         for name, calls in caught_calls(kernel_names, tile_call(scene, cfg, 3), 2).items():
             wrapper = getattr(kernels, name)
@@ -245,6 +390,10 @@ def forms():
                 print(f"{name} at {n_rays(name, a)} rays (tile 3), ms by CUDA events and on the "
                       f"device alone: one ray per warp {ms['one']}, {many} {ms['many']}; the "
                       f"same results", flush=True)
+    if "occlusion" in ARGS.scene:
+        occlusion_forms()
+    if "semesterbild" not in ARGS.scene:
+        return
     # shade_eval's two forms, in turns, by its live rays
     forms_ = {"a warp per ray": 1 << 30, "a ray per lane": -1}
     for label, wrapper, a, kw in shading_calls(stride=3):
@@ -268,6 +417,7 @@ def forms():
 
 
 if ARGS.what == "frames":
+    assert "occlusion" not in ARGS.scene, "occlusion is no frame's scene"
     frames(ARGS.n)
 elif ARGS.what == "kernels":
     kernel_times()

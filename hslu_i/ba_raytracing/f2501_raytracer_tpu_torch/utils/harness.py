@@ -1,7 +1,8 @@
 """Helpers that chip_smoke.py, utils/ab.py and the card tests share: the
 block partitions that the warp kernels must take, a tile of a frame as one
-call, the calls of a kernel wrapper caught from a render, bitwise checks of
-the node kernels, and timing by CUDA events and by torch.profiler.
+call, the calls of a kernel wrapper caught from a render, the shadow rays
+of the light loop, bitwise checks of the node kernels, the card's peaks and
+the occlusion's bound, and timing by CUDA events and by torch.profiler.
 
 utils/ab.py imports this file from its own directory (as `harness`), so
 that it can measure through it the package of another checkout, one that
@@ -13,7 +14,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops import kernels, trace
+from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops import kernels, shading, trace
+from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops.intersect import (
+    _backface_mask,
+    _dot3_planes,
+    _homogeneous,
+    _tri_block_ts,
+    occlude_rays,
+)
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.renderer import plan_frame
 
 # Block partitions that the JAX package takes (pallas_kernels.py:149-160)
@@ -24,6 +32,114 @@ PARTITIONS = {
     # blocks of 48 rows: a ragged last round of rows
     "block48": dict(triangle_block=48),
 }
+
+
+# published H100 SXM peaks: fp32 outside the tensor cores, HBM bandwidth
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+# f32 operations of one shadow pair test (rt_occlude.cuh::occl_tri: the Woop
+# test and the normal's cosine; the Fresnel of a transmissive hit is rare)
+OPS_OCCL = 46
+
+
+def bound_ms(byts, ops):
+    """(the least time the card could take, "bytes" or "operations")"""
+    by, op = byts / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return max(by, op), ("bytes" if by >= op else "operations")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def gate_hits(boxes, o, d, t_limit):
+    """(N, n_boxes) bool: does the segment [0, t_limit] cross each box (the
+    kernels' widened slab test, rt_common.cuh::rt_gate)?"""
+    inv = 1.0 / d
+    lo, hi = boxes[None, :, 0:3], boxes[None, :, 3:6]
+    m = 1e-5 * (1.0 + torch.maximum(lo.abs(), hi.abs()))
+    t1 = (lo - m - o[:, None, :]) * inv[:, None, :]
+    t2 = (hi + m - o[:, None, :]) * inv[:, None, :]
+    nan = torch.isnan(t1) | torch.isnan(t2)
+    a = torch.where(nan, -float("inf"), torch.minimum(t1, t2)).amax(-1)
+    b = torch.where(nan, float("inf"), torch.maximum(t1, t2)).amin(-1)
+    return (b >= a.clamp(min=0)) & (a <= t_limit[:, None])
+
+
+def crossed_blocks(boxes, o, d, t_limit, chunk=8192):
+    """How many (ray, block) pairs there are whose segment [0, t_limit]
+    crosses the block's box (in chunks of rays: the pair matrix of 655,360
+    rays and 3125 blocks does not fit)."""
+    return sum(int(gate_hits(boxes, o[s0:s0 + chunk], d[s0:s0 + chunk],
+                             t_limit[s0:s0 + chunk]).sum())
+               for s0 in range(0, o.shape[0], chunk))
+
+
+def occlusion_tests(scene, o, d, md, opq, real, big_rows=0, crossed=None):
+    """The shadow pair tests this data needs, as the bound counts them: for
+    a real ray that reaches its light, the `big_rows` big rows and the rows
+    of every block its segment crosses (`crossed` such (ray, block) pairs,
+    counted here if None); for an occluded one, one. Returns (tests, live
+    rays, occluded rays, crossed)."""
+    live = ~opq & real & (md > 0)
+    n_live = int(live.sum())
+    n_opq = int((opq & real).sum())
+    if crossed is None:
+        crossed = crossed_blocks(scene.tri_aabb, o[live], d[live], md[live])
+    return scene.tri_block * crossed + big_rows * n_live + n_opq, n_live, n_opq, crossed
+
+
+def scan_lengths(scene, o, d, md, backface, chunk=1 << 17):
+    """Per ray, the pair tests of the resident occlusion's one-thread scan
+    (occlude_triangles.cu's ray per lane): every big row, then the rows of
+    each block that passes its superblock's and its own gate, in storage
+    order, each pack up to its first opaque hit, none after one. (R,) int64."""
+    starts = np.concatenate([[0], np.cumsum(scene.sb_sizes)]).tolist()
+    out = []
+    for s0 in range(0, o.shape[0], chunk):
+        oc, dc, mc = o[s0:s0 + chunk], d[s0:s0 + chunk], md[s0:s0 + chunk]
+        o4 = _homogeneous(oc)
+
+        def pack_tests(pack, scan):
+            t, valid = _tri_block_ts(pack[:, 0:12].T, pack[:, 12], pack[:, 13], o4, dc)
+            httr = pack[None, :, 14] != 0.0
+            if backface:
+                valid = valid & _backface_mask(_dot3_planes(dc, pack[:, 15:18].T), httr)
+            stop = valid & (t <= mc[:, None]) & ~httr
+            hit = stop.any(1)
+            rows = torch.where(hit, stop.int().argmax(1) + 1, pack.shape[0])
+            return torch.where(scan, rows, 0), scan & hit
+
+        done = ~(mc > 0)
+        n, opq = pack_tests(scene.trb_pack, ~done)
+        done = done | opq
+        sb_hit = gate_hits(scene.tri_saabb, oc, dc, mc)
+        blk_hit = gate_hits(scene.tri_aabb, oc, dc, mc)
+        for g, (b0, b1) in enumerate(zip(starts[:-1], starts[1:])):
+            for b in range(b0, b1):
+                scan = ~done & blk_hit[:, b] & (sb_hit[:, g] | (b1 - b0 == 1))
+                tests, opq = pack_tests(scene.tri_cast_pack[b], scan)
+                n, done = n + tests, done | opq
+        out.append(n)
+    return torch.cat(out)
+
+
+def shadow_rays(scene, c, o, d, active):
+    """What a node sends to the occlusion kernels for these rays: the
+    (origin, direction, max distance, real) of every light chunk, taken from
+    the port's own light loop (`C = min(L, 2^21 // R)` lights a chunk);
+    `real` marks the rays of lanes that hit something (light-major, as the
+    rays are)."""
+    hit, hval, point, d = trace._cast_active(scene, c, o, d, active)
+    sent = []
+
+    def occlude(so, sd, md):
+        sent.append((so, sd, md, hval.repeat(so.shape[0] // hval.shape[0])))
+        return occlude_rays(scene, so, sd, md, c.backface_culling)
+
+    shading._light_loop(scene.light_pack, scene.n_lights, occlude, point, hit.normal, d,
+                        hit.color, hit.shininess, hval, float(c.camera.epsilon_distance))
+    return sent
 
 
 def same_bits(a, b):

@@ -429,11 +429,11 @@ def _partition_scene(dev, name, width=1920, height=1080, edge_sigma=0.006, **fea
 @pytest.mark.gpu
 @pytest.mark.parametrize("partition", sorted(PARTITIONS))
 def test_warp_kernels_take_any_partition(cuda, monkeypatch, partition):
-    """The four kernels with a warp per ray, and shade_eval, on a superblock
+    """The five kernels with a warp per ray, and shade_eval, on a superblock
     of more than 32 blocks and on blocks of 48 rows, in each form: both
-    casts' t and index identical to their twins, the streamed occlusion's
-    `opq` identical (sums within 1e-5 where it is false), shade_eval_rows
-    within its twin's bar and shade_eval bit for bit equal to it."""
+    casts' t and index identical to their twins, both occlusions' `opq`
+    identical (sums within 1e-5 where it is false), shade_eval_rows within
+    its twin's bar and shade_eval bit for bit equal to it."""
     cfg, ds, _ = _partition_scene(cuda, partition)
     o, d = _hard_rays(cfg, ds, cuda, 4096 + 37, 41)
     md = _max_distances(o.shape[0], 42, cuda)
@@ -458,6 +458,11 @@ def test_warp_kernels_take_any_partition(cuda, monkeypatch, partition):
             _assert_occlusion(got, kernels.occlude_triangles_stream_plain(tables[0], o, d, md, bf),
                               varied=False)
             assert got[1].any()
+            got = kernels.occlude_triangles(
+                ds.trb_pack, *tables, o, d, md, sb_sizes=ds.sb_sizes, backface_culling=bf,
+                bigtri_trans=ds.bigtri_trans, block_has_trans=ds.block_has_trans)
+            _assert_occlusion(got, kernels.occlude_triangles_plain(ds.trb_pack, tables[0], o, d,
+                                                                   md, bf))
         rows = kernels.shade_eval_rows(*light, *node, pix, **kw)
         ref = kernels.shade_eval_rows_plain(*light, *node, pix, **kw)
         assert torch.equal(rows[2], ref[2]) and torch.equal(rows[4], ref[4])
@@ -501,7 +506,8 @@ def test_partition_render_matches_cpu_twins(cuda, partition, path):
 @pytest.mark.gpu
 def test_resident_wrappers_refuse_what_the_kernels_cannot_take(cuda):
     """On the card: tables off a 16-byte boundary, big-primitive packs of
-    more than 128 rows. The CPU route takes them."""
+    more than 128 rows (the cast, the node kernels and the resident
+    occlusion). The CPU route takes them."""
     cfg, ds = _scene(cuda)
     o, d = _hard_rays(cfg, ds, cuda, 256, 11)
     light, node, pix, kw = _shade_inputs(cfg, ds, cuda, 256, 3)
@@ -520,7 +526,16 @@ def test_resident_wrappers_refuse_what_the_kernels_cannot_take(cuda):
             node_kernel(*light[:4], shifted, *light[5:], *node, *extra, **kw)
         with pytest.raises(ValueError, match="at most 128"):
             node_kernel(*light[:2], wide, *light[3:], *node, *extra, **kw)
+    md = _max_distances(256, 13, cuda)
+    okw = dict(sb_sizes=ds.sb_sizes, bigtri_trans=ds.bigtri_trans)
+    with pytest.raises(ValueError, match="16 bytes"):
+        kernels.occlude_triangles(cast[0], cast[1], shifted, cast[3], o, d, md, **okw)
+    with pytest.raises(ValueError, match="at most 128"):
+        kernels.occlude_triangles(wide, *cast[1:], o, d, md, **okw)
     assert sum(kernels.LAUNCHES.values()) == 0  # a refusal launches nothing
+    dec, _, _ = kernels.occlude_triangles(*(x.cpu() for x in (wide, *cast[1:], o, d, md)),
+                                          **okw)
+    assert dec.shape == (256,)
     t, _ = kernels.cast_triangles(wide.cpu(), ds.tri_cast_pack.cpu(), ds.tri_aabb.cpu(),
                                   ds.tri_saabb.cpu(), o.cpu(), d.cpu(), sb_sizes=ds.sb_sizes)
     assert t.shape == (256,)
@@ -742,25 +757,51 @@ def test_occlude_stream_kernel_matches_twin(cuda, monkeypatch, backface, case):
         assert torch.equal(fsub8[free], got[2][:n][free])
 
 
+def _same_occlusion(x, y):
+    """`opq` identical and, where it is false, the sums' bits identical."""
+    free = ~x[1]
+    return (torch.equal(x[1], y[1]) and same_bits(x[0][free], y[0][free])
+            and same_bits(x[2][free], y[2][free]))
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("form", ["one", "many"])
 @pytest.mark.parametrize("scene", ["semesterbild", "cloud"])
 @pytest.mark.parametrize("backface", [False, True])
-def test_occlude_kernel_matches_twin(cuda, scene, backface):
+def test_occlude_kernel_matches_twin(cuda, monkeypatch, scene, backface, form):
+    """The resident occlusion in each form (one ray per warp; many, from
+    PACKET_MIN_RAYS on) against its twin, at ray counts that leave the last
+    warp and the last thread block ragged; the same bits on every run and
+    in the other form."""
     cfg, ds = _scene(cuda) if scene == "semesterbild" else _cloud_scene(cuda)
-    o, d = _hard_rays(cfg, ds, cuda, 8192 + 37, 14)
-    md = _max_distances(o.shape[0], 15, cuda)
-    args = (ds.trb_pack, ds.tri_cast_pack, ds.tri_aabb, ds.tri_saabb, o, d, md)
+    o_all, d_all = _hard_rays(cfg, ds, cuda, 8192 + 37, 14)
+    md_all = _max_distances(o_all.shape[0], 15, cuda)
     kw = dict(backface_culling=backface, bigtri_trans=ds.bigtri_trans,
               block_has_trans=ds.block_has_trans, sb_sizes=ds.sb_sizes)
-    kernels.reset_launch_counts()
-    got = kernels.occlude_triangles(*args, **kw)
-    torch.cuda.synchronize()
-    assert kernels.LAUNCHES["occlude_triangles"] == 1
-    _assert_occlusion(got, kernels.occlude_triangles_plain(ds.trb_pack, ds.tri_cast_pack, o, d,
-                                                           md, backface))
-    for _ in range(2):
-        again = kernels.occlude_triangles(*args, **kw)
-        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    tables = (ds.trb_pack, ds.tri_cast_pack, ds.tri_aabb, ds.tri_saabb)
+    monkeypatch.setattr(kernels, "PACKET_MIN_RAYS", 1 << 30 if form == "one" else 0)
+    for n in STREAM_WIDTHS + (o_all.shape[0],):
+        o, d, md = (a[:n].contiguous() for a in (o_all, d_all, md_all))
+        kernels.reset_launch_counts()
+        got = kernels.occlude_triangles(*tables, o, d, md, **kw)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["occlude_triangles"] == 1
+        assert got[0].shape == (n,) and got[1].dtype == torch.bool and got[2].shape == (n, 3)
+        _assert_occlusion(got, kernels.occlude_triangles_plain(ds.trb_pack, ds.tri_cast_pack, o,
+                                                               d, md, backface),
+                          varied=n > 2049)
+        dead = ~(md > 0)  # max_distance <= 0 or NaN: zeros
+        assert not got[1][dead].any() and not got[0][dead].any() and not got[2][dead].any()
+        for _ in range(2):
+            again = kernels.occlude_triangles(*tables, o, d, md, **kw)
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+        _other_form(monkeypatch, n)
+        assert _same_occlusion(got, kernels.occlude_triangles(*tables, o, d, md, **kw))
+        monkeypatch.setattr(kernels, "PACKET_MIN_RAYS", 1 << 30 if form == "one" else 0)
+    # a superblock per block (an empty partition) gives the same bits
+    every = kernels.occlude_triangles(*tables[:3], ds.tri_aabb, o, d, md,
+                                      **dict(kw, sb_sizes=()))
+    assert _same_occlusion(got, every)
 
 
 @pytest.mark.gpu
