@@ -21,7 +21,7 @@ seconds):
      iteration of the 240x135 `packed_stage=False` frame (W = 512), in both
      of its forms bit for bit shade_eval_rows, three runs each. The six
      kernels with a warp per ray or a (ray, light) split are also timed on
-     the device alone (torch.profiler), as is occlude_triangles. Then the pool's chunk commit three
+     the device alone (torch.profiler). Then the pool's chunk commit three
      times on the same rows: identical bits. Phase 2b:
      cast_triangles_stream and occlude_triangles_stream on the synthetic
      streaming validation scene (200,000 small matte triangles in a 10^3
@@ -31,9 +31,10 @@ seconds):
      their 655,360 shadow rays; one pool iteration: 2048 rays and 10,240
      shadow rays); occlude_triangles on the 655,360 shadow rays of the
      resident 1080p tile and the 10,240 of its first pool iteration, in
-     both of its forms bit for bit, and on the 655,360 through
-     `occlude_rays(scene, ...)`. Occlusion sums are compared where `opq` is
-     false and must have the same bits on every run. For the two streamed kernels (one warp per ray, a two-level box
+     both of its forms bit for bit, timed on the device alone too, and once
+     on the 655,360 through `occlude_rays(scene, ...)`. Occlusion sums are
+     compared where `opq` is false and must have the same bits on every
+     run. For the two streamed kernels (one warp per ray, a two-level box
      gate) each line also gives the superblocks and blocks a ray crosses
      and the operations of the gate's box tests (this design's own work,
      kept out of `bound_ms`). Phase 2c: the five kernels with a warp per
@@ -132,6 +133,7 @@ from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.utils.harness import (  # no
     nbytes,
     occlusion_tests,
     same_bits,
+    same_occlusion,
     shadow_rays,
     tile_call,
 )
@@ -360,11 +362,10 @@ def record(name, label, n, err, ms, plain, byts, ops, extra=""):
     results[name][label] = dict(R=n, err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
 
 
-def alone(res, n_rays, dev_ms, many=32):
+def alone(res, n_rays, dev_ms):
     """The time on the device alone of a resident kernel with a warp per
-    ray (the CUDA events above also time the wrapper's host work); `many`:
-    its rays per warp from PACKET_MIN_RAYS on."""
-    k = kernels.rays_per_warp(n_rays, many=many)
+    ray (the CUDA events above also time the wrapper's host work)."""
+    k = kernels.rays_per_warp(n_rays, many=32)
     res.update(device_ms=dev_ms, rays_per_warp=k)
     log(f"  on the device alone {'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}; "
         f"{k} rays per warp")
@@ -675,14 +676,6 @@ def check_cast_stream(label, scene, o, d, iters, backface):
               gate_ops, dev_ms)
 
 
-def occl_bits(x, y):
-    """Two occlusion results with `opq` identical and, where it is false,
-    the sums' bits identical."""
-    free = ~x[1]
-    return (torch.equal(x[1], y[1]) and same_bits(x[0][free], y[0][free])
-            and same_bits(x[2][free], y[2][free]))
-
-
 def other_form(kernel_fn, n_rays):
     """The result of kernel_fn with the wrappers' other form for n_rays rays
     (one ray per warp, or many)."""
@@ -718,7 +711,8 @@ def check_occlusion(name, label, scene, kernel_fn, twin_fn, o, d, md, tables, it
         assert all(torch.equal(a, b) for a, b in zip(got, kernel_fn())), \
             f"{name} {label}: bits differ from run to run"
     if not streamed:
-        assert occl_bits(got, other_form(kernel_fn, o.shape[0])), f"{name} {label}: forms differ"
+        assert same_occlusion(got, other_form(kernel_fn, o.shape[0])), \
+            f"{name} {label}: forms differ"
     ms = cuda_ms(kernel_fn, iters)
     dev_ms = device_ms(kernel_fn, iters)
     note = (f"; real rays {int(real.sum())}, occluded {int((opq & real).sum())}, partly shaded "
@@ -891,7 +885,7 @@ def check_partition(name):
         free = ~opq_r & real
         assert max(max_err(got4[0][free], dec_r[free]),
                    max_err(got4[2][free], fsub_r[free])) <= 1e-5
-        assert occl_bits(got4, other_form(occl, so.shape[0])), f"{name} occlusion forms at {n}"
+        assert same_occlusion(got4, other_form(occl, so.shape[0])), f"{name} occlusion forms at {n}"
         args = shade_args(ds_p, c, o, d, ones[:n], **prim_state(n))
         kw = shade_kw(ds_p, c)
         pix = torch.arange(n, dtype=torch.int32, device=DEV)
@@ -1091,9 +1085,10 @@ SMALL = {
     "soft_shadows": (120, 68, LIGHTING["soft_shadows"]),
     # forced past the threshold: the plain node over the streamed kernels
     "streamed": (240, 135, dict(REALISTIC, stream_triangles=1)),
-    # the cloud scene at the two partitions: the pool path, the stack path
-    "superblock64": (240, 135, REALISTIC),
-    "block48": (120, 68, REALISTIC),
+    # the cloud scene at the two partitions, the pool path: their CPU twins
+    # walk 52-78 blocks per node, so these frames are the smallest
+    "superblock64": (120, 68, REALISTIC),
+    "block48": (64, 48, REALISTIC),
 }
 with phase("card_vs_cpu"):
     report["image_check"] = {}

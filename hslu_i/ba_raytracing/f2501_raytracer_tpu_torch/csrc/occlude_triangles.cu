@@ -25,8 +25,8 @@
 // What bounds it on this card: operations: ~45-70 f32 operations per (ray,
 // triangle) pair, P pairs per ray before the first gate; inputs and outputs
 // are 45 B per ray. With one thread per ray and every row read from global
-// memory, 655,360 shadow rays took ~11x the bound, and a pool's width
-// (10,240 rays) would be 80 thread blocks on 132 SMs.
+// memory, a pool's width of shadow rays (10,240) was 80 thread blocks on
+// 132 SMs, each thread one long chain of dependent pair tests.
 //
 // Design: one kernel template, its form chosen by the ray count
 // (kernels.rays_per_warp), as cast_triangles.cu chooses its own. The big
@@ -36,20 +36,21 @@
 // (rt_occlude.cuh::occl_warp_rows), then the lanes share the two-level box
 // gate (rt_common.cuh::rt_warp_blocks) and the rows of each crossed block
 // (occl_warp_block), staged per warp. From PACKET_MIN_RAYS on (coherent
-// light-major rays) a warp takes 8 consecutive rays with the lanes over the
-// rows, each staged row serving up to 8 rays, and a ray with an opaque hit
-// leaves by ballot; or a ray per lane, the one-thread scan over the staged
-// big rows and the blocks' rows through the L1, each lane with its own
-// gates and its own early exit. Hits are added in storage order (the hit
-// rows of a round walked from the lowest slot by ballot and shuffle, each
-// pack's partial sums then into the total): no atomics and no tree, so the
-// sums are the bits of the one-thread scan in every form and on every run.
-// Any block partition: WIDE (superblocks of more than 32 blocks) and RAGGED
-// (a row count no multiple of 32) are builds of their own, chosen at
-// launch, so that the usual partition keeps its registers. Rays are read
-// as given, (R, 3). Shared memory: P * 80 B of big rows; in the warp forms
-// also 20 KB of staged block rows, and 48 B of ray record and 32 B of sums
-// per ray.
+// light-major rays) a warp takes 32 rays, a ray per lane: the one-thread
+// scan over the staged big rows, which every lane reads at once, and the
+// blocks' rows through the L1, each lane with its own gates and its own
+// early exit (on an H100, eight rays per warp with the lanes over the rows
+// took 1.1-2.5x as long on three of four scenes, and 0.6-0.85x on a cloud
+// of 235 blocks, where a ray crosses ~12 of them: utils/ab.py forms).
+// Hits are added in storage order (in the warp form the hit rows of a round
+// walked from the lowest slot by ballot and shuffle, each pack's partial
+// sums then into the total): no atomics and no tree, so the sums are the
+// bits of the one-thread scan in both forms and on every run. Any block
+// partition: WIDE (superblocks of more than 32 blocks) and RAGGED (a row
+// count no multiple of 32) are builds of the warp form, chosen at launch,
+// so that the usual partition keeps its registers. Rays are read as given,
+// (R, 3). Shared memory: P * 80 B of big rows; in the warp form also 20 KB
+// of staged block rows, and 48 B of ray record and 32 B of sums per warp.
 #include "rt_occlude.cuh"
 
 namespace {
@@ -110,10 +111,9 @@ __device__ __forceinline__ void lane_occl(int r, const float* __restrict__ o,
   occl_store(tot, r, dec, opq, fsub);
 }
 
-// K consecutive rays from r0 for one warp (K = 1: a warp per ray; 8: the
-// lanes over the rows of 8 rays): the big rows, then the crossed blocks,
-// each pack's partial sums into the totals in `sums` (see the note above).
-// All 32 lanes.
+// K consecutive rays from r0 for one warp (K = 1: a warp per ray): the big
+// rows, then the crossed blocks, each pack's partial sums into the totals
+// in `sums` (see the note above). All 32 lanes.
 template <int K, bool RAGGED, bool WIDE>
 __device__ __forceinline__ void warp_occl(int r0, int lane, const float* __restrict__ o,
                                           const float* __restrict__ d,
@@ -201,23 +201,9 @@ void launch(const float* o, const float* d, const float* maxd, int R, const floa
       block_httr, backface, dec, opq, fsub);
 }
 
-// The warp forms: RAGGED (a ragged last round of rows in every block) and
-// WIDE (superblocks of more than 32 blocks) chosen here
-template <int K>
-void launch_warps(const float* o, const float* d, const float* maxd, int R, const float* trb,
-                  int P, int bigtri_trans, const float* pack, int B, const float* aabb,
-                  const float* saabb, const int* sb_start, int nsb, int sb_shift,
-                  const float* block_httr, int backface, float* dec, unsigned char* opq,
-                  float* fsub, cudaStream_t stream) {
-  RT_BOOL_SWITCH(B % 32 != 0, RAGGED, RT_BOOL_SWITCH(sb_shift > 5, WIDE,
-      launch<K, RAGGED, WIDE>(o, d, maxd, R, trb, P, bigtri_trans, pack, B, aabb, saabb,
-                              sb_start, nsb, sb_shift, block_httr, backface, dec, opq, fsub,
-                              stream)));
-}
-
 }  // namespace
 
-// rays_per_warp: 1, 8, or 32 (a ray per lane)
+// rays_per_warp: 1 or 32 (a ray per lane)
 extern "C" int rt_occlude_triangles(const float* o, const float* d, const float* maxd, int R,
                                     const float* trb, int P, int bigtri_trans,
                                     const float* pack, int nb, int B, const float* aabb,
@@ -226,19 +212,17 @@ extern "C" int rt_occlude_triangles(const float* o, const float* d, const float*
                                     int backface, float* dec, unsigned char* opq, float* fsub,
                                     void* stream) {
   (void)nb;
-  if (rays_per_warp != 1 && rays_per_warp != 8 && rays_per_warp != 32)
-    return (int)cudaErrorInvalidValue;
+  if (rays_per_warp != 1 && rays_per_warp != 32) return (int)cudaErrorInvalidValue;
   if (R > 0) {
     const cudaStream_t s = (cudaStream_t)stream;
     if (rays_per_warp == 32)  // the one-thread scan: any partition
       launch<32, false, false>(o, d, maxd, R, trb, P, bigtri_trans, pack, B, aabb, saabb,
                                sb_start, nsb, sb_shift, block_httr, backface, dec, opq, fsub, s);
-    else if (rays_per_warp == 8)
-      launch_warps<8>(o, d, maxd, R, trb, P, bigtri_trans, pack, B, aabb, saabb, sb_start, nsb,
-                      sb_shift, block_httr, backface, dec, opq, fsub, s);
-    else
-      launch_warps<1>(o, d, maxd, R, trb, P, bigtri_trans, pack, B, aabb, saabb, sb_start, nsb,
-                      sb_shift, block_httr, backface, dec, opq, fsub, s);
+    else  // RAGGED: a ragged last round of rows in every block; WIDE: superblocks of more than 32
+      RT_BOOL_SWITCH(B % 32 != 0, RAGGED, RT_BOOL_SWITCH(sb_shift > 5, WIDE,
+          launch<1, RAGGED, WIDE>(o, d, maxd, R, trb, P, bigtri_trans, pack, B, aabb, saabb,
+                                  sb_start, nsb, sb_shift, block_httr, backface, dec, opq, fsub,
+                                  s)));
   }
   return (int)cudaGetLastError();
 }

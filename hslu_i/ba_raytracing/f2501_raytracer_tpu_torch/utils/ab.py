@@ -12,6 +12,8 @@ file from anywhere:
         shading [--root DIR]
     python3 hslu_i/ba_raytracing/f2501_raytracer_tpu_torch/utils/ab.py \
         forms [--scene semesterbild semesterbild_cloud occlusion]
+    python3 hslu_i/ba_raytracing/f2501_raytracer_tpu_torch/utils/ab.py \
+        sass [--kernel NAME] [--out PATH]
 
 frames N   render the 1920x1080 `realistic` frame (chip_smoke.py's settings)
            of each scene named: `semesterbild` (the resident packed-row pool
@@ -57,10 +59,16 @@ forms      the kernels with a warp per ray, with one ray per warp and with
            rays (what `kernels.NODE_WARP_MAX_LIVE` decides between); on
            `semesterbild_cloud` the two streamed kernels (eight rays per
            warp) at the pool's width (2048 rays and 10,240 shadow rays);
-           with `occlusion`, occlude_triangles on the cases of `kernels`
-           in its forms: one ray per warp, a ray per lane, and eight rays
-           per warp with the lanes over the rows. `kernels.PACKET_MIN_RAYS`
-           decides between one and many. The results must be the same.
+           with `occlusion`, occlude_triangles (a ray per lane) on the
+           cases of `kernels`. `kernels.PACKET_MIN_RAYS` decides between
+           one and many. The results must be the same.
+sass       the machine code of one kernel's build (cuobjdump -sass) into
+           PATH (default chiprun_out/sass_NAME.txt); printed: for each
+           kernel function (each form) its instructions, and for each of
+           its loops (a backward branch) the instructions of the span, its
+           shared and global loads, f32 arithmetic (FADD, FMUL, FFMA,
+           FSETP, FSEL, FMNMX, FCHK), MUFU and branches: what one pass of a
+           pair test's loop issues.
 --root DIR imports the package from another checkout (one unpacked with
            `git archive`).
 """
@@ -76,11 +84,13 @@ import sys
 import time
 
 parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-parser.add_argument("what", choices=("frames", "kernels", "shading", "forms"))
+parser.add_argument("what", choices=("frames", "kernels", "shading", "forms", "sass"))
 parser.add_argument("n", type=int, nargs="?", default=2, help="frames: warm frames per scene")
 parser.add_argument("--scene", nargs="+",
                     choices=("semesterbild", "semesterbild_cloud", "occlusion"),
                     default=["semesterbild", "semesterbild_cloud"])
+parser.add_argument("--kernel", default="occlude_triangles", help="sass: the kernel")
+parser.add_argument("--out", help="sass: the file for the whole listing")
 parser.add_argument("--root", default=os.path.join(os.path.dirname(__file__), *[".."] * 4),
                     help="the checkout whose package is imported (default: this one)")
 ARGS = parser.parse_args()
@@ -99,6 +109,7 @@ from harness import (  # noqa: E402
     flat,
     nbytes,
     occlusion_tests,
+    same_occlusion,
     scan_lengths,
     shadow_rays,
     tile_call,
@@ -258,9 +269,7 @@ def shading():
 
 def same(name, x, y):
     if name.startswith("occlude"):  # the sums are specified where `opq` is false
-        free = ~x[1]
-        return (torch.equal(x[1], y[1]) and torch.equal(x[0][free], y[0][free])
-                and torch.equal(x[2][free], y[2][free]))
+        return same_occlusion(x, y)
     return all(torch.equal(u, v) for u, v in zip(x, y))
 
 
@@ -341,28 +350,21 @@ def occlusion_times():
               f"with a ray per lane; results {occl_hash(out)}", flush=True)
 
 
-# occlude_triangles's forms: (name, PACKET_MIN_RAYS, rays per warp from there on)
-OCCL_FORMS = (("one ray per warp", 1 << 30, None), ("a ray per lane", 0, 32),
-              ("eight rays per warp", 0, 8))
-
-
 def occlusion_forms():
-    every = kernels.rays_per_warp
+    """occlude_triangles in its two forms on the cases of `kernels`, in
+    turns."""
     least = kernels.PACKET_MIN_RAYS
+    forms_ = {"one ray per warp": 1 << 30, "a ray per lane": 0}
     for label, scene, kw, rays, _ in occlusion_cases():
         tables = (scene.trb_pack, scene.tri_cast_pack, scene.tri_aabb, scene.tri_saabb)
         fn = lambda: kernels.occlude_triangles(*tables, *rays, **kw)  # noqa: E731
-        ms, hashes = {f[0]: [] for f in OCCL_FORMS}, set()
+        ms, hashes = {f: [] for f in forms_}, set()
         n = 20 if rays[0].shape[0] > 100_000 else 100
-        for name, packet_min, many in (*OCCL_FORMS, *reversed(OCCL_FORMS)):
-            kernels.PACKET_MIN_RAYS = packet_min
-            if many:
-                kernels.rays_per_warp = lambda n_rays, many=8, k=many: k
-            try:
-                hashes.add(occl_hash(fn()))
-                ms[name].append((cuda_ms(fn, n), device_ms(fn, n)))
-            finally:
-                kernels.PACKET_MIN_RAYS, kernels.rays_per_warp = least, every
+        for form in (*forms_, *reversed(forms_)):
+            kernels.PACKET_MIN_RAYS = forms_[form]
+            hashes.add(occl_hash(fn()))
+            ms[form].append((cuda_ms(fn, n), device_ms(fn, n)))
+        kernels.PACKET_MIN_RAYS = least
         assert len(hashes) == 1, (label, hashes)
         print(f"occlude_triangles {label}, ms by CUDA events and on the device alone: " +
               ", ".join(f"{f} {m}" for f, m in ms.items()) + "; the same results", flush=True)
@@ -416,6 +418,37 @@ def forms():
               "; the same bits", flush=True)
 
 
+SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+SASS_CLASSES = (("shared loads", ("LDS",)), ("global loads", ("LDG", "LD.")),
+                ("f32 arithmetic", ("FADD", "FMUL", "FFMA", "FSETP", "FSEL", "FMNMX", "FCHK")),
+                ("MUFU", ("MUFU",)), ("branches", ("BRA",)))
+
+
+def sass():
+    kernels.build_kernels([ARGS.kernel])
+    listing = subprocess.run(
+        [os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump"), "-sass",
+         kernels._so_path(ARGS.kernel)], capture_output=True, text=True, check=True).stdout
+    out = ARGS.out or os.path.join("chiprun_out", f"sass_{ARGS.kernel}.txt")
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    with open(out, "w") as fh:
+        fh.write(listing)
+    for part in listing.split("Function : ")[1:]:
+        name = part.split()[0]
+        code = [(int(m.group(1), 16), m.group(3), m.group(4)) for m in SASS_LINE.finditer(part)]
+        print(f"{name}: {len(code)} instructions", flush=True)
+        for addr, op, rest in code:
+            target = re.search(r"0x([0-9a-f]+)", rest) if op.startswith("BRA") else None
+            if not target or int(target.group(1), 16) >= addr:
+                continue  # not a backward branch
+            span = [o for a, o, _ in code if int(target.group(1), 16) <= a <= addr]
+            counts = ", ".join(f"{label} {sum(o.startswith(p) for o in span for p in pre)}"
+                               for label, pre in SASS_CLASSES)
+            print(f"  loop {int(target.group(1), 16):#06x}-{addr:#06x}: {len(span)} "
+                  f"instructions; {counts}", flush=True)
+    print(f"listing: {out}", flush=True)
+
+
 if ARGS.what == "frames":
     assert "occlusion" not in ARGS.scene, "occlusion is no frame's scene"
     frames(ARGS.n)
@@ -423,5 +456,7 @@ elif ARGS.what == "kernels":
     kernel_times()
 elif ARGS.what == "shading":
     shading()
+elif ARGS.what == "sass":
+    sass()
 else:
     forms()

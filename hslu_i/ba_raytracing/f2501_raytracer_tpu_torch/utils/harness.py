@@ -150,6 +150,15 @@ def same_bits(a, b):
     return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
 
 
+def same_occlusion(x, y):
+    """Two occlusion results (dec, opq, fsub) with `opq` identical and,
+    where it is false, the sums' bits identical (the sums of an occluded
+    ray are not specified)."""
+    free = ~x[1]
+    return (torch.equal(x[1], y[1]) and same_bits(x[0][free], y[0][free])
+            and same_bits(x[2][free], y[2][free]))
+
+
 def flat(out):
     """A kernel's outputs as a flat list of tensors (dicts of fields opened)."""
     items = []

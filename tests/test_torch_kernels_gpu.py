@@ -41,6 +41,7 @@ from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.utils.harness import (
     assert_node_bits,
     flat,
     same_bits,
+    same_occlusion,
 )
 
 REALISTIC = dict(reflections=True, light_reflections=True, refractions=True)
@@ -462,7 +463,8 @@ def test_warp_kernels_take_any_partition(cuda, monkeypatch, partition):
                 ds.trb_pack, *tables, o, d, md, sb_sizes=ds.sb_sizes, backface_culling=bf,
                 bigtri_trans=ds.bigtri_trans, block_has_trans=ds.block_has_trans)
             _assert_occlusion(got, kernels.occlude_triangles_plain(ds.trb_pack, tables[0], o, d,
-                                                                   md, bf))
+                                                                   md, bf), varied=False)
+            assert got[1].any()
         rows = kernels.shade_eval_rows(*light, *node, pix, **kw)
         ref = kernels.shade_eval_rows_plain(*light, *node, pix, **kw)
         assert torch.equal(rows[2], ref[2]) and torch.equal(rows[4], ref[4])
@@ -757,13 +759,6 @@ def test_occlude_stream_kernel_matches_twin(cuda, monkeypatch, backface, case):
         assert torch.equal(fsub8[free], got[2][:n][free])
 
 
-def _same_occlusion(x, y):
-    """`opq` identical and, where it is false, the sums' bits identical."""
-    free = ~x[1]
-    return (torch.equal(x[1], y[1]) and same_bits(x[0][free], y[0][free])
-            and same_bits(x[2][free], y[2][free]))
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("form", ["one", "many"])
 @pytest.mark.parametrize("scene", ["semesterbild", "cloud"])
@@ -796,12 +791,12 @@ def test_occlude_kernel_matches_twin(cuda, monkeypatch, scene, backface, form):
             again = kernels.occlude_triangles(*tables, o, d, md, **kw)
             assert all(torch.equal(a, b) for a, b in zip(got, again))
         _other_form(monkeypatch, n)
-        assert _same_occlusion(got, kernels.occlude_triangles(*tables, o, d, md, **kw))
+        assert same_occlusion(got, kernels.occlude_triangles(*tables, o, d, md, **kw))
         monkeypatch.setattr(kernels, "PACKET_MIN_RAYS", 1 << 30 if form == "one" else 0)
     # a superblock per block (an empty partition) gives the same bits
     every = kernels.occlude_triangles(*tables[:3], ds.tri_aabb, o, d, md,
                                       **dict(kw, sb_sizes=()))
-    assert _same_occlusion(got, every)
+    assert same_occlusion(got, every)
 
 
 @pytest.mark.gpu

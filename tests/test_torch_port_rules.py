@@ -155,6 +155,34 @@ def test_cast_wrapper_needs_superblocks_and_takes_rays_as_given():
     assert t.shape == idx.shape == (16,)
 
 
+def test_resident_occlusion_wrapper_takes_the_warp_tables_and_rays_as_given():
+    """`occlude_triangles` takes the block tables as the warp kernels do:
+    `sb_sizes` must partition the blocks, with one superbox per entry, and
+    an empty partition is a superblock per block (superboxes: the blocks'
+    own boxes). Rays are (R, 3) rows as given: (3, R) or a transposed view
+    is refused, on the CPU route as on the card's."""
+    cfg = _small_cfg()
+    ds = build_device_scene(build("semesterbild", cfg), cfg, device="cpu")
+    tables = (ds.trb_pack, ds.tri_cast_pack, ds.tri_aabb, ds.tri_saabb)
+    o = torch.zeros((16, 3))
+    d = torch.nn.functional.normalize(torch.ones((16, 3)), dim=1)
+    md = torch.ones(16)
+    kw = dict(bigtri_trans=ds.bigtri_trans, block_has_trans=ds.block_has_trans)
+    with pytest.raises(ValueError, match="do not cover"):
+        kernels.occlude_triangles(*tables, o, d, md, sb_sizes=(ds.triangle_blocks + 1,), **kw)
+    with pytest.raises(ValueError, match="tri_saabb"):  # a superbox per entry of sb_sizes
+        kernels.occlude_triangles(*tables[:3], torch.zeros((len(ds.sb_sizes) + 1, 8)), o, d, md,
+                                  sb_sizes=ds.sb_sizes, **kw)
+    for bad in (o.t().contiguous(), o.t().contiguous().t()):
+        with pytest.raises(ValueError):
+            kernels.occlude_triangles(*tables, bad, d, md, sb_sizes=ds.sb_sizes, **kw)
+    got = kernels.occlude_triangles(*tables, o, d, md, sb_sizes=ds.sb_sizes, **kw)
+    alone = kernels.occlude_triangles(*tables[:3], ds.tri_aabb, o, d, md, **kw)
+    assert got[0].shape == (16,) and got[2].shape == (16, 3)
+    assert all(torch.equal(a, b) for a, b in zip(got, alone))
+    assert sum(kernels.LAUNCHES.values()) == 0
+
+
 def test_kernel_build_is_keyed_by_sources(tmp_path, monkeypatch):
     """Each kernel builds from the package's csrc/ into the ignored build
     directory, under a name that changes with its source, header or flags."""
@@ -217,7 +245,7 @@ def test_seven_kernels_each_with_source_wrapper_and_twin():
 
 
 @pytest.mark.parametrize("name", ["cast_triangles_stream", "occlude_triangles_stream",
-                                  "cast_triangles", "shade_eval_rows"])
+                                  "cast_triangles", "shade_eval_rows", "occlude_triangles"])
 def test_streamed_kernels_use_no_atomics(name):
     """The warp-per-ray kernels reduce across lanes with ballots, shuffles
     and `redux`, in a fixed order: their code (comments set aside), and that
