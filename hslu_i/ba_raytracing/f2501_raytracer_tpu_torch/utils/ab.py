@@ -63,12 +63,12 @@ forms      the kernels with a warp per ray, with one ray per warp and with
            cases of `kernels`. `kernels.PACKET_MIN_RAYS` decides between
            one and many. The results must be the same.
 sass       the machine code of one kernel's build (cuobjdump -sass) into
-           PATH (default chiprun_out/sass_NAME.txt); printed: for each
-           kernel function (each form) its instructions, and for each of
-           its loops (a backward branch) the instructions of the span, its
-           shared and global loads, f32 arithmetic (FADD, FMUL, FFMA,
-           FSETP, FSEL, FMNMX, FCHK), MUFU and branches: what one pass of a
-           pair test's loop issues.
+           PATH (default: sass_NAME.txt beside the built library); printed:
+           for each kernel function (each form) its instructions, and for
+           each of its loops (a backward branch) the instructions of the
+           span, its shared and global loads, f32 arithmetic (FADD, FMUL,
+           FFMA, FSETP, FSEL, FMNMX, FCHK), MUFU and branches: what one pass
+           of a pair test's loop issues.
 --root DIR imports the package from another checkout (one unpacked with
            `git archive`).
 """
@@ -429,7 +429,7 @@ def sass():
     listing = subprocess.run(
         [os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump"), "-sass",
          kernels._so_path(ARGS.kernel)], capture_output=True, text=True, check=True).stdout
-    out = ARGS.out or os.path.join("chiprun_out", f"sass_{ARGS.kernel}.txt")
+    out = ARGS.out or os.path.join(kernels.BUILD_DIR, f"sass_{ARGS.kernel}.txt")
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     with open(out, "w") as fh:
         fh.write(listing)
