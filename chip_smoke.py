@@ -19,7 +19,12 @@ seconds):
      tile 1 of the 960x540 stack-path frame (131072 slots, caught from a
      render, with the live rays of every wavefront) and at the first pool
      iteration of the 240x135 `packed_stage=False` frame (W = 512), in both
-     of its forms bit for bit shade_eval_rows, three runs each. The six
+     of its forms bit for bit shade_eval_rows, three runs each; at many
+     lights, shade_eval_rows at R and W of tile 3 of the reference_default
+     frame (1140x950, nine AA samples a pixel, R = 131,067, 95 lights) and
+     of the extreme frame (480x270, R = 262,140, 140 lights), the same bits
+     on three runs, and shade_eval at a stack wavefront of reference_default
+     at the CLI's tile_rays (8192). The six
      kernels with a warp per ray or a (ray, light) split are also timed on
      the device alone (torch.profiler). Then the pool's chunk commit three
      times on the same rows: identical bits. Phase 2b:
@@ -68,7 +73,24 @@ seconds):
      this process, and of the cloud scene at the two partitions of phase
      2c: < 0.5% of pixels may differ by more than 2e-3 in linear colour,
      and `valid` may differ only at knife edges (< 0.5%);
-  6. print the {"kernels": [...]} line, then the {"ok": true, ...} line.
+  6. the user's entry points: reference_default at 1140x950 through the
+     f32 frame path (`device_encode=False`: host-built rays, the AA samples
+     reduced on the host) and the u32 path, the two frames' `valid`
+     identical and their u8 pixels at most one step apart at under 1% of
+     pixels, walls, launches, dropped and the u32 checksum; extreme at
+     480x270, two u32 frames with one checksum; tile 3 of each traced
+     with torch.profiler, as in phase 3b; the CLI (`python -m
+     hslu_i.ba_raytracing.f2501_raytracer_tpu_torch`) in a process of its
+     own for semesterbild/realistic at 768x640, test_scene/default and
+     test_text/realistic at 384x320, each PNG (beside the --report file,
+     or in out/) equal to
+     the frame rendered in this process; the progressive path on a 228x190
+     reference_default frame, bit for bit the fused f32 frame, and
+     `get_pixel_color` at five of its pixels; reference_default's and
+     extreme's flags at 40x30 and 20x15 on the card and through the CPU
+     twins (the pool path at kernel_ray_tile 64, compaction_ratio 8), at
+     phase 5's bar;
+  7. print the {"kernels": [...]} line, then the {"ok": true, ...} line.
 With --report, the measurements also go to PATH as JSON.
 
 Exits non-zero without a CUDA device. Imports nothing of JAX.
@@ -78,6 +100,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import hashlib
 import json
 import os
@@ -99,6 +122,7 @@ if not torch.cuda.is_available():
     sys.exit(2)
 
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch import (  # noqa: E402
+    ImageBuffer,
     RaytracerRenderer,
     RenderConfig,
 )
@@ -117,6 +141,7 @@ from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops.intersect import (  # no
     occlude_packs,
     occlude_rays,
 )
+from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.output import read_png  # noqa: E402
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.scene.builder import Scene  # noqa: E402
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops.vecmath import normalized  # noqa: E402
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.renderer import plan_frame  # noqa: E402
@@ -158,6 +183,17 @@ LIGHTING = {
     "anti_aliasing": dict(anti_aliasing_rotation_scale=True, anti_aliasing_randomness=True),
     "soft_shadows": dict(soft_shadows=True),
 }
+# the reference's own configuration (config.py reference_default: realistic,
+# AA rotation + randomness, high_quality: a cloud of 19 lights per light,
+# depths 13/18, the hq block size; 1140x950) and bench.py:49-57's extreme
+# (140 lights, depths 21/21, ~17 rays per pixel) at bench.py's 480x270 and
+# 262,144-ray tiles (bench.py:222-234), both at bench.py's other settings
+EXTREME = dict(REALISTIC, anti_aliasing_rotation_scale=True, anti_aliasing_randomness=True,
+               extreme_quality=True, high_quality_model=True)
+CFG_REF = RenderConfig.reference_default(
+    **{k: v for k, v in MAIN.items() if k != "scene_backface_culling"})
+CFG_EXT = RenderConfig(width=480, height=270, **dict(MAIN, tile_rays=262144), **EXTREME)
+ROOT_DIR = os.path.dirname(os.path.abspath(__file__))
 DEV = torch.device("cuda")
 report = {"phase_s": {}}
 
@@ -175,14 +211,21 @@ def phase(name):
     log(f"[phase {name}: {s:.1f} s]")
 
 
-def run_frame(r, scene):
-    """One frame: (u32 pixels, wall s, launches, dropped)."""
+def timed_run(fn):
+    """(fn's result, wall s, launches) of one synchronised call, every
+    launch count set to 0 just before it."""
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.monotonic()
-    fb = r.render_u32(scene)
+    out = fn()
     torch.cuda.synchronize()
-    return fb, time.monotonic() - t0, dict(kernels.LAUNCHES), r.last_dropped
+    return out, time.monotonic() - t0, dict(kernels.LAUNCHES)
+
+
+def run_frame(r, scene):
+    """One frame: (u32 pixels, wall s, launches, dropped)."""
+    fb, wall, launches = timed_run(lambda: r.render_u32(scene))
+    return fb, wall, launches, r.last_dropped
 
 
 def max_err(a, b):
@@ -311,11 +354,13 @@ def cast_ops(scene, o, d, t_final):
     return OPS_TRI * (o.shape[0] * n_real_big + B * int(crossed))
 
 
-def shade_ops(scene, point, normal, hval, epilogue):
+def shade_ops(scene, point, normal, hval, epilogue, eps_dist=None):
     """Operations the shading needs on this data: per lit (ray, light) pair
     the shadow scan up to the first opaque occluder (spheres, then big
     triangles, then the crossed blocks), plus per-pair and per-ray shading,
-    over the scene's n_lights lights."""
+    over the scene's n_lights lights (shadow rays leave the surface by
+    `eps_dist`, default the 1080p frame's)."""
+    eps_dist = eps if eps_dist is None else eps_dist
     P = point[hval]
     N = normal[hval]
     n_sph = int((scene.sph_pack[:, 12] != 0).sum())
@@ -327,7 +372,7 @@ def shade_ops(scene, point, normal, hval, epilogue):
         lit = (ltp * N).sum(1) / lt > 0
         ops += OPS_LIGHT * int(lit.sum())
         ld = ltp[lit] / lt[lit, None]
-        so = P[lit] + ld * eps
+        so = P[lit] + ld * eps_dist
         maxd = (lp[None, :] - so).norm(dim=1)
         n = so.shape[0]
         ops += OPS_SPHERE * n_sph * n
@@ -400,8 +445,9 @@ def close(label, pairs):
     return err
 
 
-def check_rows(label, args, iters):
-    kw = shade_kw(ds, cfg)
+def check_rows(label, args, iters, scene=None, c=None):
+    scene, c = (ds, cfg) if scene is None else (scene, c)
+    kw = shade_kw(scene, c)
     got = kernels.shade_eval_rows(*args, **kw)
     ref = kernels.shade_eval_rows_plain(*args, **kw)
     torch.cuda.synchronize()
@@ -422,9 +468,9 @@ def check_rows(label, args, iters):
     plain = cuda_ms(lambda: kernels.shade_eval_rows_plain(*args, **kw), 2, 1)
     point, normal, hval = args[5], args[6], args[10] != 0
     record("shade_eval_rows", label, point.shape[0], err, ms, plain, nbytes(*args, *got),
-           shade_ops(ds, point, normal, hval, OPS_EPILOGUE),
-           f"; children refl {int(rfl_m.sum())} refr {int(rfr_m.sum())}; bit-identical to "
-           f"shade_eval")
+           shade_ops(scene, point, normal, hval, OPS_EPILOGUE, kw["eps_dist"]),
+           f"; {scene.n_lights} lights; children refl {int(rfl_m.sum())} refr "
+           f"{int(rfr_m.sum())}; bit-identical to shade_eval, the same bits on three runs")
     alone(results["shade_eval_rows"][label], point.shape[0], device_ms(fn, iters))
     return got
 
@@ -487,8 +533,9 @@ def check_fields(label, scene, c, args, iters, note=""):
     live = int(hval.sum())
     outs = [contrib, *refl.values(), *refr.values()]
     record("shade_eval", label, point.shape[0], err, ms, plain, nbytes(*args, *outs),
-           shade_ops(scene, point, normal, hval, OPS_EPILOGUE),
-           f"; {live} live rays, {form}{note}; children refl {int(refl['mask'].sum())} refr "
+           shade_ops(scene, point, normal, hval, OPS_EPILOGUE, kw["eps_dist"]),
+           f"; {live} live rays, {scene.n_lights} lights, {form}{note}; children refl "
+           f"{int(refl['mask'].sum())} refr "
            f"{int(refr['mask'].sum())}; bit-identical to shade_eval_rows in both forms, three "
            f"runs")
     # four kernels per call: the live list, its offsets, then each form (one
@@ -559,6 +606,32 @@ with phase("kernels"):
                                        2)["shade_eval"]
     assert args_w[5].shape[0] == 512, args_w[5].shape
     check_fields("W", ds_unpacked, cfg_unpacked, args_w, 100)
+
+    # the node kernels at many lights: shade_eval_rows at R and W of tile 3
+    # of reference_default's frame (95 lights: R = 131,067, nine samples a
+    # pixel) and of extreme's (140 lights, R = 262,140), caught from a render
+    # of the tile with its AA samples; shade_eval at the first wavefront of a
+    # stack tile of reference_default at the CLI's tile_rays (8192: R = 8190,
+    # below kernel_ray_tile x compaction_ratio)
+    for n_l, c_hq in (("95", CFG_REF), ("140", CFG_EXT)):
+        ds_hq = RaytracerRenderer(c_hq, device="cuda").device_scene(build("semesterbild", c_hq))
+        assert ds_hq.n_lights == int(n_l), ds_hq.n_lights
+        caught = caught_calls(["shade_eval_rows"], tile_call(ds_hq, c_hq, 3, aa=True),
+                              2)["shade_eval_rows"]
+        for (args_hq, _), which in zip(caught, ("R", "W")):
+            check_rows(which + n_l, args_hq, 5 if which == "R" else 50, ds_hq, c_hq)
+    cfg_cli_ref = RenderConfig.reference_default()
+    ds_cli_ref = RaytracerRenderer(cfg_cli_ref, device="cuda").device_scene(
+        build("semesterbild", cfg_cli_ref))
+    p_cli = plan_frame(cfg_cli_ref)
+    k_mid = p_cli.n_tiles // 2
+    cli_calls = caught_calls(["shade_eval"], tile_call(ds_cli_ref, cfg_cli_ref, k_mid, aa=True)
+                             )["shade_eval"]
+    log(f"reference_default at the CLI's tile_rays: {p_cli.n_tiles} tiles of "
+        f"{p_cli.pix_per_tile * p_cli.aa} rays; stack tile {k_mid}: live rays per wavefront "
+        f"{[int((a[10] != 0).sum()) for a, _ in cli_calls]}")
+    check_fields("S95", ds_cli_ref, cfg_cli_ref, cli_calls[0][0], 10,
+                 f", wavefront 1 of {len(cli_calls)} of stack tile {k_mid}")
 
     # the chunk commit: one chunk's rows (96 x W) onto the tile's pixels
     rng = np.random.default_rng(0)
@@ -917,6 +990,7 @@ CHECKSUMS = {
     "anti_aliasing": "669b1b29c139c6e7", "soft_shadows": "daf24ebea78bbc88",
     "stack": "ee4a32cb7f8eaad1", "unpacked": "f131f2f6a579ad51",
     "streamed": "af79d8e0ae102406",
+    "reference_default": "6f012f95790a4c8d", "extreme": "962119403fd43461",
 }
 
 
@@ -984,11 +1058,12 @@ def node_launch_ms(prof, node_kernel):
     return calls
 
 
-def profile_tile(label, scene, node_kernel, c=cfg, k=3):
-    """Tile k of config c's frame on `scene`, traced: host wall against the
-    summed device time of every kernel; `node_kernel` is launched once per
-    node evaluation, and the device time of each of its calls is kept."""
-    run = tile_call(scene, c, k)
+def profile_tile(label, scene, node_kernel, c=cfg, k=3, aa=False):
+    """Tile k of config c's frame on `scene` (with `aa`, its AA samples),
+    traced: host wall against the summed device time of every kernel;
+    `node_kernel` is launched once per node evaluation, and the device time
+    of each of its calls is kept."""
+    run = tile_call(scene, c, k, aa=aa)
     run()  # warm
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -1118,7 +1193,157 @@ with phase("card_vs_cpu"):
         report["image_check"][label] = dict(size=f"{w}x{h}", pixels=n_px, off=off,
                                             valid_diff=valid_diff)
 
-# ---- phase 6: results ----------------------------------------------------
+# ---- phase 6: the user's entry points at the reference's configurations --
+def used(launches):
+    return {k: v for k, v in launches.items() if v}
+
+
+def same_image(a, b):
+    """Two ImageBuffers with the same `valid` and colour bits."""
+    return (np.array_equal(a.valid, b.valid)
+            and np.array_equal(a.color.view(np.int32), b.color.view(np.int32)))
+
+
+PRESETS = {"default": RenderConfig.default_scene, "realistic": RenderConfig.realistic_scene,
+           "reference_default": RenderConfig.reference_default}
+# the CLI's runs: (scene, preset, width, height; None: the preset's own size)
+CLI_RUNS = (("semesterbild", "realistic", None, None), ("test_scene", "default", 384, 320),
+            ("test_text", "realistic", 384, 320))
+# card against the CPU twins at these flags: the pool path at a width the
+# twins can afford (their shadow scans test every light against every row)
+TWIN_SMALL = dict(kernel_ray_tile=64, compaction_ratio=8, loop_chunk=8)
+HQ_SMALL = {"reference_default": (CFG_REF, 40, 30), "extreme": (CFG_EXT, 20, 15)}
+NODE_PATH = ("cast_triangles", "shade_eval_rows")
+
+with phase("entry_points"):
+    # reference_default 1140x950: the f32 frame (host-built rays, f32
+    # colours fetched, the AA samples reduced on the host) and the u32 frame
+    r_ref = RaytracerRenderer(CFG_REF, device="cuda")
+    ds_ref = r_ref.device_scene(build("semesterbild", CFG_REF))
+    p_ref = plan_frame(CFG_REF)
+    log(f"reference_default {CFG_REF.width}x{CFG_REF.height}: {p_ref.n_tiles} tiles x "
+        f"{p_ref.pix_per_tile * p_ref.aa} rays ({p_ref.aa} per pixel), {ds_ref.n_lights} lights, "
+        f"blocks of {ds_ref.tri_block}, depths {CFG_REF.reflection_max_depth}/"
+        f"{CFG_REF.refraction_max_depth}")
+    r_f32 = RaytracerRenderer(dataclasses.replace(CFG_REF, device_encode=False), device="cuda")
+    buf_f32, wall_f32, l_f32 = timed_run(lambda: r_f32.render_device(ds_ref))
+    fb_ref, wall_u32, l_u32 = timed_run(lambda: r_ref.render_u32(ds_ref))
+    buf_u32 = ImageBuffer.from_u32(fb_ref, CFG_REF.width, CFG_REF.height)
+    du8 = np.abs(buf_f32.as_u8().astype(np.int16) - buf_u32.as_u8().astype(np.int16))
+    px_off = float((du8.max(-1) > 0).mean())
+    log(f"reference_default f32 frame {wall_f32:.1f} s, launches {used(l_f32)}, dropped "
+        f"{r_f32.last_dropped}; u32 frame {wall_u32:.1f} s, launches {used(l_u32)}, dropped "
+        f"{r_ref.last_dropped}, u32 sha256 {checksum(fb_ref)}; valid identical "
+        f"{np.array_equal(buf_f32.valid, buf_u32.valid)}, u8 steps apart at most {du8.max()} "
+        f"at {px_off:.4%} of pixels")
+    assert np.array_equal(buf_f32.valid, buf_u32.valid)
+    assert du8.max() <= 1 and px_off < 0.01, (du8.max(), px_off)
+    assert set(used(l_f32)) == set(used(l_u32)) == set(NODE_PATH), (l_f32, l_u32)
+    assert r_f32.last_dropped == r_ref.last_dropped
+    assert checksum(fb_ref) == CHECKSUMS["reference_default"], checksum(fb_ref)
+    frames["reference_default"] = dict(
+        size=f"{CFG_REF.width}x{CFG_REF.height}", wall_ms_f32=wall_f32 * 1e3,
+        wall_ms=wall_u32 * 1e3, launches=l_u32, launches_f32=l_f32, dropped=r_ref.last_dropped,
+        dropped_f32=r_f32.last_dropped, checksum=checksum(fb_ref), u8_steps_share=px_off,
+        valid_share=float((fb_ref != 0).mean()))
+
+    # extreme 480x270: two u32 frames, one checksum
+    r_ext = RaytracerRenderer(CFG_EXT, device="cuda")
+    ds_ext = r_ext.device_scene(build("semesterbild", CFG_EXT))
+    p_ext = plan_frame(CFG_EXT)
+    runs = [timed_run(lambda: r_ext.render_u32(ds_ext)) for _ in range(2)]
+    log(f"extreme {CFG_EXT.width}x{CFG_EXT.height}: {p_ext.n_tiles} tiles x "
+        f"{p_ext.pix_per_tile * p_ext.aa} rays ({p_ext.aa} per pixel), {ds_ext.n_lights} lights; "
+        f"frames {[round(w, 2) for _, w, _ in runs]} s, launches {used(runs[1][2])}, dropped "
+        f"{r_ext.last_dropped}, u32 sha256 {[checksum(fb) for fb, _, _ in runs]}")
+    assert checksum(runs[0][0]) == checksum(runs[1][0]) == CHECKSUMS["extreme"]
+    assert set(used(runs[1][2])) == set(NODE_PATH), runs[1][2]
+    frames["extreme"] = dict(
+        size=f"{CFG_EXT.width}x{CFG_EXT.height}", wall_ms=runs[1][1] * 1e3,
+        wall_ms_first=runs[0][1] * 1e3, launches=runs[1][2], dropped=r_ext.last_dropped,
+        checksum=checksum(runs[1][0]), valid_share=float((runs[1][0] != 0).mean()))
+    # where a tile's time goes: tile 3 of each, with its AA samples
+    report["tile_profile_reference_default"] = profile_tile(
+        "reference_default", ds_ref, "shade_eval_rows", CFG_REF, 3, aa=True)
+    report["tile_profile_extreme"] = profile_tile("extreme", ds_ext, "shade_eval_rows", CFG_EXT,
+                                                  3, aa=True)
+
+    # the CLI in a process of its own: its PNG is this process's frame
+    out_dir = (os.path.dirname(os.path.abspath(ARGS.report)) if ARGS.report
+               else os.path.join(ROOT_DIR, "out"))
+    os.makedirs(out_dir, exist_ok=True)
+    report["cli"] = {}
+    for scene_name, preset, w, h in CLI_RUNS:
+        out = os.path.join(out_dir, f"cli_{scene_name}_{preset}.png")
+        size = [] if w is None else ["--width", str(w), "--height", str(h)]
+        t0 = time.monotonic()
+        run = subprocess.run(
+            [sys.executable, "-m", "hslu_i.ba_raytracing.f2501_raytracer_tpu_torch", "--scene",
+             scene_name, "--preset", preset, "--out", out, *size],
+            cwd=ROOT_DIR, capture_output=True, text=True, timeout=600)
+        cli_s = time.monotonic() - t0
+        assert run.returncode == 0, run.stderr[-3000:]
+        c = dataclasses.replace(PRESETS[preset](width=w, height=h), scene_backface_culling=True)
+        buf, wall, launches = timed_run(
+            lambda: RaytracerRenderer(c, device="cuda").render(build(scene_name, c)))
+        png = read_png(out)
+        assert np.array_equal(png, buf.as_u8()), f"CLI {scene_name}/{preset}: PNG differs"
+        log(f"CLI {scene_name}/{preset} {c.width}x{c.height}: {cli_s:.1f} s in its process; the "
+            f"PNG equals this process's frame ({wall:.1f} s, launches {used(launches)}, "
+            f"valid {buf.valid.mean():.4f})")
+        report["cli"][f"{scene_name}/{preset}"] = dict(
+            size=f"{c.width}x{c.height}", process_s=cli_s, wall_ms=wall * 1e3, launches=launches)
+
+    # the progressive path and get_pixel_color on a small reference_default
+    c_prog = dataclasses.replace(CFG_REF, width=228, height=190, device_encode=False)
+    r_prog = RaytracerRenderer(c_prog, device="cuda")
+    ds_prog = r_prog.device_scene(build("semesterbild", c_prog))
+    fused, wall_fused, _ = timed_run(lambda: r_prog.render_device(ds_prog))
+    seen = []
+    prog, wall_prog, l_prog = timed_run(
+        lambda: r_prog.render_device(ds_prog, progress=lambda b, f: seen.append(f)))
+    assert seen[-1] == 1.0 and len(seen) == plan_frame(c_prog).n_tiles, seen
+    assert same_image(fused, prog), "the progressive frame differs from the fused f32 frame"
+    log(f"progressive reference_default {c_prog.width}x{c_prog.height}: {len(seen)} tiles, "
+        f"{wall_prog:.2f} s (fused f32 {wall_fused:.2f} s), launches {used(l_prog)}; the fused "
+        f"frame bit for bit, last fraction {seen[-1]}")
+    pixel_err = 0.0
+    for x, y in ((114, 95), (30, 40), (200, 20), (60, 170), (170, 120)):
+        (col, val), _, l_px = timed_run(lambda: r_prog.get_pixel_color(ds_prog, x, y))
+        assert val == bool(fused.valid[y, x]), (x, y)
+        pixel_err = max(pixel_err, float(np.abs(col - fused.as_linear()[y, x]).max()))
+        assert set(used(l_px)) == {"cast_triangles", "shade_eval"}, l_px
+    assert pixel_err <= 1e-6, pixel_err
+    log(f"get_pixel_color at five pixels ({plan_frame(c_prog).aa} rays each, launches "
+        f"{used(l_px)} for the last): max |pixel - frame| {pixel_err:.3g}")
+    report["progressive"] = dict(tiles=len(seen), wall_ms=wall_prog * 1e3,
+                                 wall_ms_fused=wall_fused * 1e3, pixel_err=pixel_err)
+
+    # card against the CPU twins at reference_default's and extreme's flags
+    for label, (c_hq, w, h) in HQ_SMALL.items():
+        c = dataclasses.replace(c_hq, width=w, height=h, **TWIN_SMALL)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            r = RaytracerRenderer(c, device=dev)
+            t0 = time.monotonic()
+            out[dev] = r.render_u32(r.device_scene(build("semesterbild", c)))
+            out[dev + "_s"], out[dev + "_dropped"] = time.monotonic() - t0, r.last_dropped
+        gpu, cpu = out["cuda"], out["cpu"]
+        p_small = plan_frame(c)
+        assert p_small.pix_per_tile * p_small.aa >= c.kernel_ray_tile * c.compaction_ratio
+        valid_diff = int(((gpu != 0) != (cpu != 0)).sum())
+        off = int((np.abs(linear(gpu) - linear(cpu)).max(-1) > 2e-3).sum())
+        log(f"{label} {w}x{h} card vs CPU twins (pool path, W = "
+            f"{(p_small.pix_per_tile * p_small.aa // c.compaction_ratio) // c.kernel_ray_tile * c.kernel_ray_tile}): "
+            f"{off} of {gpu.size} pixels off by > 2e-3, valid differs at {valid_diff}; dropped "
+            f"{out['cuda_dropped']} / {out['cpu_dropped']}; card {out['cuda_s']:.1f} s, CPU "
+            f"{out['cpu_s']:.1f} s")
+        assert off < 0.005 * gpu.size and valid_diff < 0.005 * gpu.size, label
+        assert out["cuda_dropped"] == out["cpu_dropped"] and (gpu != 0).mean() > 0.5, label
+        report["image_check"][label] = dict(size=f"{w}x{h}", pixels=gpu.size, off=off,
+                                            valid_diff=valid_diff, cpu_s=out["cpu_s"])
+
+# ---- phase 7: results ----------------------------------------------------
 # each kernel's launches: from the path it serves (the frame of phase 3/4)
 frames["occlude_rays"] = dict(launches=entry_launches)
 # name: (source, line of the TPU kernel body, path whose run gives the
@@ -1130,12 +1355,14 @@ ENTRIES = {
     "occlude_triangles_stream": ("occlude_triangles_stream.cu", 604, "streamed", "R",
                                  ["W", "V", "V_glass"]),
     "occlude_triangles": ("occlude_triangles.cu", 964, "occlude_rays", "R", ["W"]),
-    "shade_eval_rows": ("shade_eval_rows.cu", 1858, "realistic", "R", ["W"]),
+    "shade_eval_rows": ("shade_eval_rows.cu", 1858, "realistic", "R",
+                        ["W", "R95", "W95", "R140", "W140"]),
     "light_shade": ("light_shade.cu", 1834, "default", "R", ["R_soft"]),
-    "shade_eval": ("shade_eval.cu", 1858, "stack", "R", ["S", "W"]),
+    "shade_eval": ("shade_eval.cu", 1858, "stack", "R", ["S", "W", "S95"]),
 }
 EXTRA = {"W": "pool", "R_soft": "soft", "V": "validation", "V_glass": "validation_glass",
-         "S": "sparse"}
+         "S": "sparse", "R95": "hq95", "W95": "hq95_pool", "R140": "extreme",
+         "W140": "extreme_pool", "S95": "hq95_sparse"}
 assert set(ENTRIES) == set(kernels.KERNEL_SOURCES)
 line = []
 for name, (src, tpu_line, path, main, others) in ENTRIES.items():

@@ -9,12 +9,15 @@ Module layout mirrors the JAX package so each counterpart is easy to find:
   config.py       frozen RenderConfig (every flag and derived constant)
   scene/          host scene builder, OBJ loader, lights, DeviceScene
   ops/            vecmath, intersect, shading, trace, kernels (CUDA wrappers)
-  renderer.py     frame plan, tiles, device-side encode, host assembly
-Entry points run on the card unless the caller passes device="cpu".
-Ported so far: the `default`, `anti_aliasing`, `soft_shadows` and
-`realistic` configs on one device with the device-side u32 encode, through
-the packed-row and unpacked pool paths and the per-ray stack path;
-ROADMAP.md lists what is still to come.
+  renderer.py     frame plan, tiles, the u32 and f32 frame paths, the
+                  progressive path, get_pixel_color
+  models/         the scene zoo (semesterbild, test_scene, test_text)
+  output/         PNG writer, colour encoders, terminal and HTTP previews
+  __main__.py     the CLI (`python -m ...f2501_raytracer_tpu_torch`)
+Entry points run on the card unless the caller passes device="cpu" (the
+CLI: --device cpu). Every preset and feature config renders on one device;
+ROADMAP.md lists what is still to come (packet mode, stage modes, commit
+splits, multi-device meshes).
 """
 
 from .config import (

@@ -628,3 +628,29 @@ def trace_rays_tiled_u32_gen(scene: DeviceScene, cfg: RenderConfig,
     per_tile = make_raygen_per_tile(scene, cfg, offsets, aa_weights, P)
     outs = [per_tile(og) for og in order_group.reshape(n_tiles, P)]
     return torch.stack([u for u, _ in outs]), torch.stack([dr for _, dr in outs])
+
+
+def trace_rays_tiled(scene: DeviceScene, cfg: RenderConfig, o_tiles, d_tiles,
+                     with_stats: bool = False):
+    """Trace (n_tiles, T, 3) ray tiles one after another. Returns color
+    (n_tiles, T, 3) and valid (n_tiles, T); with `with_stats=True` also
+    {"dropped": the count summed over the tiles}."""
+    outs = [trace_rays(scene, cfg, o, d, with_stats=True) for o, d in zip(o_tiles, d_tiles)]
+    color = torch.stack([c for c, _, _ in outs])
+    valid = torch.stack([v for _, v, _ in outs])
+    if with_stats:
+        return color, valid, {"dropped": torch.stack([s["dropped"] for _, _, s in outs]).sum()}
+    return color, valid
+
+
+def trace_rays_tiled_u32(scene: DeviceScene, cfg: RenderConfig, o_tiles, d_tiles,
+                         aa_weights):
+    """`trace_rays_tiled` with the AA reduction and pixel encode on the
+    device: each tile's T rays are U = len(aa_weights) consecutive samples
+    per pixel. Returns (u32 (n_tiles, T // U) as int64, dropped (n_tiles,)
+    int64), as `trace_rays_tiled_u32_gen` does for device-built rays."""
+    outs = []
+    for o, d in zip(o_tiles, d_tiles):
+        color, valid, stats = trace_rays(scene, cfg, o, d, with_stats=True)
+        outs.append((encode_pixels_u32(color, valid, aa_weights), stats["dropped"]))
+    return torch.stack([u for u, _ in outs]), torch.stack([dr for _, dr in outs])

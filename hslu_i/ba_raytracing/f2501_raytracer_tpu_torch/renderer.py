@@ -1,23 +1,31 @@
-"""Top-level renderer: frame plan, tiles, device-side encode, host assembly.
+"""Top-level renderer: frame plan, tiles, AA reduction, host assembly.
 
-The port's counterpart of the JAX package's `renderer.py` for the
-single-device `device_encode` path (ref renderer/raytracer_renderer.rs:
-1140-1379, renderer/mod.rs:80-210): the frame is cut into ray wavefronts of
-`cfg.tile_rays`, primary rays are generated on the device from the
-tile-major pixel permutation, every tile is traced (ops/trace.py:
-the pool or the stack path, or the primary node alone without reflections
-and refractions) and encodes its pixels to 0xFFRRGGBB on the device, and
-the host fetches the 4-byte pixels once at the end.
+The port's counterpart of the JAX package's `renderer.py` on one device
+(ref renderer/raytracer_renderer.rs:1140-1379, renderer/mod.rs:80-210): the
+frame is cut into ray wavefronts of `cfg.tile_rays` in the tile-major pixel
+order, and every tile is traced (ops/trace.py: the pool or the stack path, or
+the primary node alone without reflections and refractions). Three ways to a
+frame, as in the JAX package:
 
-Not in this slice (raise NotImplementedError; ROADMAP.md Queue 1): the
-progress callback path, `device_encode=False`, multi-device meshes and
-packet mode.
+* `device_encode` (and no `render_timing_debug`): primary rays generated on
+  the device, the AA reduction and the 0xFFRRGGBB encode on the device, the
+  4-byte pixels fetched once at the end (`render_u32`);
+* the f32 path: rays built on the host (`build_frame_rays`), each group of
+  `tiles_per_program` tiles traced and its colours fetched, the AA samples
+  reduced on the host in numpy;
+* with a progress callback: one tile at a time, each committed to the frame
+  and handed to the callback as it finishes.
+
+`get_pixel_color` traces one pixel's AA samples. Not in the port yet (raise
+NotImplementedError; ROADMAP.md Queue 1): multi-device meshes and packet
+mode.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import time
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -27,13 +35,19 @@ from .framebuffer import ImageBuffer
 from .ops.camera import (
     antialiasing_offsets,
     antialiasing_weighted_offsets,
+    pixel_scene_coords,
     tile_major_order,
 )
-from .ops.trace import trace_rays_tiled_u32_gen
+from .ops.trace import (
+    trace_rays,
+    trace_rays_tiled,
+    trace_rays_tiled_u32,
+    trace_rays_tiled_u32_gen,
+)
 from .scene.builder import Scene
 from .scene.device import DeviceScene, build_device_scene
 from .utils.devices import resolve_device
-from .utils.timing import RenderTiming
+from .utils.timing import RenderTiming, TileStats
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,6 +98,36 @@ def plan_frame(cfg: RenderConfig) -> FramePlan:
     )
 
 
+def build_frame_rays(cfg: RenderConfig, plan: FramePlan):
+    """(o_all, d_all) each (n_tiles, pix_per_tile * U, 3) float32, pixels in
+    tile-major order, AA samples consecutive per pixel; padding rays beyond
+    the frame get a harmless +z direction."""
+    H, W = cfg.height, cfg.width
+    total_pixels = H * W
+    U = plan.aa
+    focus = np.asarray(cfg.camera.render_ray_focus, np.float32)
+    px, py = np.meshgrid(np.arange(W), np.arange(H))
+    px = px.reshape(-1)[plan.order]
+    py = py.reshape(-1)[plan.order]
+    coords = pixel_scene_coords(cfg, px, py)
+    dirs = (coords - focus[None, :]).astype(np.float32)
+
+    n_rays = plan.n_tiles * plan.pix_per_tile * U
+    o_all = np.zeros((n_rays, 3), np.float32)
+    d_all = np.tile(np.float32([0, 0, 1]), (n_rays, 1))
+    o_all[: total_pixels * U] = (
+        coords[:, None, :] + plan.offsets[None, :, :]
+    ).reshape(-1, 3)
+    d_all[: total_pixels * U] = np.broadcast_to(
+        dirs[:, None, :], (total_pixels, U, 3)
+    ).reshape(-1, 3)
+    T = plan.pix_per_tile * U
+    return (
+        o_all.reshape(plan.n_tiles, T, 3),
+        d_all.reshape(plan.n_tiles, T, 3),
+    )
+
+
 def frame_order_device(cfg: RenderConfig, plan: FramePlan, n_pad: int, device=None):
     """Device inputs for trace_rays_tiled_u32_gen: the tile-major pixel
     permutation padded with -1 to n_pad tiles and the AA offset table."""
@@ -95,6 +139,26 @@ def frame_order_device(cfg: RenderConfig, plan: FramePlan, n_pad: int, device=No
         torch.from_numpy(order_pad).to(dev),
         torch.from_numpy(np.ascontiguousarray(plan.offsets, np.float32)).to(dev),
     )
+
+
+def _aa_reduce(color, valid, weights):
+    """Weighted AA reduction of (n, U, 3) sample colours on the host (weights
+    1/total, or multiplicity/total with dedupe; misses add black -- ref
+    rs:1001-1015): the JAX package's numpy expression, so the same colours
+    give the same bits. Returns ((n, 3) colour, (n,) any sample hit)."""
+    return (
+        np.where(valid[..., None], color, 0.0) * weights[None, :, None]
+    ).sum(axis=1), valid.any(axis=1)
+
+
+def _commit(buf: ImageBuffer, order, color, valid, weights) -> None:
+    """Reduce n pixels' (n, U, 3) samples and write the pixels any sample hit
+    into `buf` at the row-major indices `order` (n,) (ref
+    raytracer_renderer.rs:918-1016)."""
+    px_color, px_valid = _aa_reduce(color, valid, weights)
+    idx = order[px_valid]
+    buf.color.reshape(-1, 3)[idx] = px_color[px_valid]
+    buf.valid.reshape(-1)[idx] = True
 
 
 def _warn_drops(n_dropped: int) -> None:
@@ -118,10 +182,6 @@ class RaytracerRenderer:
             raise NotImplementedError("packet_mode is not ported yet (ROADMAP.md)")
         if cfg.devices != 1:
             raise NotImplementedError("multi-device rendering is not ported yet (ROADMAP.md)")
-        if not cfg.device_encode:
-            raise NotImplementedError(
-                "the port renders through the device_encode path only (ROADMAP.md)"
-            )
         self.cfg = cfg
         self.last_dropped = 0
 
@@ -130,22 +190,48 @@ class RaytracerRenderer:
             scene = Scene.backface_culling(scene, np.array([0.0, 0.0, 1.0]))
         return build_device_scene(scene, self.cfg, device=self.device)
 
-    def render(self, scene: Scene, progress: Optional[object] = None) -> ImageBuffer:
-        if progress is not None:
-            raise NotImplementedError("progressive rendering is not ported yet (ROADMAP.md)")
-        return self.render_device(self.device_scene(scene))
+    def render(
+        self,
+        scene: Scene,
+        progress: Optional[Callable[[ImageBuffer, float], None]] = None,
+    ) -> ImageBuffer:
+        return self.render_device(self.device_scene(scene), progress)
+
+    def _to_dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(self.device)
+
+    def get_pixel_color(self, dscene: DeviceScene, x: int, y: int):
+        """Single-pixel convenience (ref raytracer_renderer.rs:1140-1188):
+        returns (linear RGB (3,) float32, valid) with AA when configured."""
+        cfg = self.cfg
+        plan = plan_frame(cfg)
+        coords = pixel_scene_coords(cfg, np.asarray([x]), np.asarray([y]))[0]
+        direction = coords - np.asarray(cfg.camera.render_ray_focus, np.float32)
+        o = coords[None, :] + plan.offsets
+        d = np.broadcast_to(direction, (plan.aa, 3)).copy()
+        color, valid = trace_rays(dscene, cfg, self._to_dev(o), self._to_dev(d))
+        out, hit = _aa_reduce(color.cpu().numpy()[None], valid.cpu().numpy()[None], plan.weights)
+        return out[0].astype(np.float32), bool(hit[0])
 
     def render_u32(self, dscene: DeviceScene) -> np.ndarray:
         """The frame as (H*W,) uint32 0xFFRRGGBB pixels, row-major; 0 marks a
-        pixel no sample hit. Sets `last_dropped`."""
+        pixel no sample hit. Primary rays come from the device
+        (`cfg.device_ray_gen`) or from the host (`build_frame_rays`), the
+        same bits either way. Sets `last_dropped`."""
         cfg = self.cfg
         plan = plan_frame(cfg)
         n_tiles = plan.n_tiles
-        order_dev, offs_dev = frame_order_device(cfg, plan, n_tiles, self.device)
-        w_dev = torch.from_numpy(np.ascontiguousarray(plan.weights, np.float32)).to(self.device)
-        u32, dropped = trace_rays_tiled_u32_gen(
-            dscene, cfg, order_dev, offs_dev, w_dev, n_tiles=n_tiles
-        )
+        w_dev = self._to_dev(plan.weights)
+        if cfg.device_ray_gen:
+            order_dev, offs_dev = frame_order_device(cfg, plan, n_tiles, self.device)
+            u32, dropped = trace_rays_tiled_u32_gen(
+                dscene, cfg, order_dev, offs_dev, w_dev, n_tiles=n_tiles
+            )
+        else:
+            o_all, d_all = build_frame_rays(cfg, plan)
+            u32, dropped = trace_rays_tiled_u32(
+                dscene, cfg, self._to_dev(o_all), self._to_dev(d_all), w_dev
+            )
         total_pixels = cfg.width * cfg.height
         px = u32.reshape(-1).cpu().numpy().astype(np.uint32)  # one fetch
         self.last_dropped = int(dropped.sum())
@@ -154,10 +240,86 @@ class RaytracerRenderer:
         fb[plan.order] = px[:total_pixels]
         return fb
 
-    def render_device(self, dscene: DeviceScene) -> ImageBuffer:
+    def render_device(
+        self,
+        dscene: DeviceScene,
+        progress: Optional[Callable[[ImageBuffer, float], None]] = None,
+    ) -> ImageBuffer:
+        cfg = self.cfg
         timing = RenderTiming()
-        fb = self.render_u32(dscene)
-        buf = ImageBuffer.from_u32(fb, self.cfg.width, self.cfg.height)
+        stats = TileStats()  # per-tile seconds (ref renderer/mod.rs:39-78)
+        if progress is not None:
+            buf = self._render_progressive(dscene, progress, timing, stats)
+        elif cfg.device_encode and not cfg.render_timing_debug:
+            buf = ImageBuffer.from_u32(self.render_u32(dscene), cfg.width, cfg.height)
+        else:
+            buf = self._render_f32(dscene, stats)
         timing.next()
         buf.timing = timing
+        buf.tile_stats = stats
+        if progress is not None and cfg.render_timing_debug:  # ref renderer/mod.rs:39-78
+            stats.print()
+        return buf
+
+    def _render_f32(self, dscene: DeviceScene, stats: TileStats) -> ImageBuffer:
+        """Host-built rays, traced `tiles_per_program` tiles at a time (all of
+        them by default), their f32 colours fetched per group and reduced on
+        the host. `render_timing_debug` adds the drop warning. Sets
+        `last_dropped`; each group's seconds go to `stats`."""
+        cfg = self.cfg
+        plan = plan_frame(cfg)
+        n_tiles, U = plan.n_tiles, plan.aa
+        total_pixels = cfg.width * cfg.height
+        o_all, d_all = build_frame_rays(cfg, plan)
+        group = cfg.tiles_per_program or n_tiles
+        colors, valids, dropped = [], [], 0
+        for gs in range(0, n_tiles, group):
+            t_group = time.monotonic()
+            c, v, st = trace_rays_tiled(
+                dscene, cfg, self._to_dev(o_all[gs : gs + group]),
+                self._to_dev(d_all[gs : gs + group]), with_stats=True,
+            )
+            colors.append(c.cpu().numpy())
+            valids.append(v.cpu().numpy())
+            dropped += int(st["dropped"])
+            stats.push(time.monotonic() - t_group)
+        self.last_dropped = dropped
+        if cfg.render_timing_debug:
+            _warn_drops(dropped)
+        buf = ImageBuffer(cfg.width, cfg.height)
+        _commit(buf, plan.order, np.concatenate(colors).reshape(-1, U, 3)[:total_pixels],
+                np.concatenate(valids).reshape(-1, U)[:total_pixels], plan.weights)
+        return buf
+
+    def _render_progressive(self, dscene, progress, timing, stats) -> ImageBuffer:
+        """Per-tile launches committed as they finish (the reference's
+        producer/consumer window, main.rs:330-347): each tile of the fused
+        frame's host-built rays is traced, fetched once and committed through
+        the tile-major permutation; then `progress(buf, share of pixels
+        done)`. Sets `last_dropped`."""
+        cfg = self.cfg
+        plan = plan_frame(cfg)
+        U, P = plan.aa, plan.pix_per_tile
+        total_pixels = cfg.width * cfg.height
+        buf = ImageBuffer(cfg.width, cfg.height)
+        o_all, d_all = build_frame_rays(cfg, plan)
+        dropped = 0
+        for k in range(plan.n_tiles):
+            t_tile = time.monotonic()
+            start, end = k * P, min((k + 1) * P, total_pixels)
+            n = end - start
+            color, valid, st = trace_rays(
+                dscene, cfg, self._to_dev(o_all[k]), self._to_dev(d_all[k]), with_stats=True
+            )
+            dropped += int(st["dropped"])
+            _commit(buf, plan.order[start:end], color.cpu().numpy()[: n * U].reshape(n, U, 3),
+                    valid.cpu().numpy()[: n * U].reshape(n, U), plan.weights)
+            if cfg.simulate_slow_render:  # ref renderer/mod.rs:126-129
+                time.sleep(70e-6 * n)
+            stats.push(time.monotonic() - t_tile)
+            timing.next()
+            progress(buf, end / total_pixels)
+        self.last_dropped = dropped
+        if cfg.render_timing_debug:
+            _warn_drops(dropped)
         return buf

@@ -14,6 +14,8 @@ file from anywhere:
         forms [--scene semesterbild semesterbild_cloud occlusion]
     python3 hslu_i/ba_raytracing/f2501_raytracer_tpu_torch/utils/ab.py \
         sass [--kernel NAME] [--out PATH]
+    python3 hslu_i/ba_raytracing/f2501_raytracer_tpu_torch/utils/ab.py \
+        cli [--preset NAME] [--out PATH] [--root DIR]
 
 frames N   render the 1920x1080 `realistic` frame (chip_smoke.py's settings)
            of each scene named: `semesterbild` (the resident packed-row pool
@@ -69,6 +71,13 @@ sass       the machine code of one kernel's build (cuobjdump -sass) into
            span, its shared and global loads, f32 arithmetic (FADD, FMUL,
            FFMA, FSETP, FSEL, FMNMX, FCHK), MUFU and branches: what one pass
            of a pair test's loop issues.
+cli        the package's CLI (`python -m ...f2501_raytracer_tpu_torch`) in a
+           process of its own: semesterbild under `--preset` (default
+           reference_default) at the preset's own size and the CLI's
+           defaults (tile_rays 8192, the f32 frame path), its PNG into
+           PATH (default: out/ of checkout DIR); printed: the process's
+           wall, the render's own elapsed time (the CLI's `RenderTiming`
+           line) and the PNG's hash.
 --root DIR imports the package from another checkout (one unpacked with
            `git archive`).
 """
@@ -84,13 +93,15 @@ import sys
 import time
 
 parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-parser.add_argument("what", choices=("frames", "kernels", "shading", "forms", "sass"))
+parser.add_argument("what", choices=("frames", "kernels", "shading", "forms", "sass", "cli"))
 parser.add_argument("n", type=int, nargs="?", default=2, help="frames: warm frames per scene")
 parser.add_argument("--scene", nargs="+",
                     choices=("semesterbild", "semesterbild_cloud", "occlusion"),
                     default=["semesterbild", "semesterbild_cloud"])
 parser.add_argument("--kernel", default="occlude_triangles", help="sass: the kernel")
-parser.add_argument("--out", help="sass: the file for the whole listing")
+parser.add_argument("--out", help="sass: the file for the whole listing; cli: the PNG")
+parser.add_argument("--preset", default="reference_default",
+                    choices=("default", "realistic", "reference_default"), help="cli: the preset")
 parser.add_argument("--root", default=os.path.join(os.path.dirname(__file__), *[".."] * 4),
                     help="the checkout whose package is imported (default: this one)")
 ARGS = parser.parse_args()
@@ -449,6 +460,24 @@ def sass():
     print(f"listing: {out}", flush=True)
 
 
+def cli():
+    root = os.path.abspath(ARGS.root)
+    out = ARGS.out or os.path.join(root, "out", f"cli_semesterbild_{ARGS.preset}.png")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    t0 = time.monotonic()
+    run = subprocess.run(
+        [sys.executable, "-m", "hslu_i.ba_raytracing.f2501_raytracer_tpu_torch", "--scene",
+         "semesterbild", "--preset", ARGS.preset, "--out", out],
+        cwd=root, capture_output=True, text=True, check=True)
+    wall = time.monotonic() - t0
+    timing = re.search(r"elapsed=([0-9.]+)s", run.stdout)
+    with open(out, "rb") as fh:
+        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
+    print(f"CLI semesterbild/{ARGS.preset}: process {wall:.1f} s, render "
+          f"{timing.group(1) if timing else 'not printed'} s, PNG sha256 {digest}; "
+          f"{run.stdout.strip().splitlines()[1]}", flush=True)
+
+
 if ARGS.what == "frames":
     assert "occlusion" not in ARGS.scene, "occlusion is no frame's scene"
     frames(ARGS.n)
@@ -458,5 +487,7 @@ elif ARGS.what == "shading":
     shading()
 elif ARGS.what == "sass":
     sass()
+elif ARGS.what == "cli":
+    cli()
 else:
     forms()

@@ -181,17 +181,22 @@ def assert_node_bits(rows_out, fields_out, label=""):
     assert same_bits(rfr[:, 9], f_rfr["ior"]), label
 
 
-def tile_call(scene, c, k, device="cuda"):
-    """A call that renders tile k of the frame of config c (one sample per
-    pixel) on `scene`."""
+def tile_call(scene, c, k, device="cuda", aa=False):
+    """A call that renders tile k of the frame of config c on `scene`: one
+    sample per pixel, or with `aa` the frame's AA samples (the plan's U
+    offsets and weights, pix_per_tile * U rays)."""
     plan = plan_frame(c)
     n = plan.pix_per_tile
     order = np.full((n,), -1, np.int64)  # -1: a padding slot past the frame
     part = plan.order[k * n: (k + 1) * n]
     order[:part.shape[0]] = part
     order = torch.from_numpy(order).to(device)
-    per_tile = trace.make_raygen_per_tile(scene, c, torch.zeros((1, 3), device=device),
-                                          torch.ones(1, device=device), n)
+    if aa:
+        offsets = torch.from_numpy(np.ascontiguousarray(plan.offsets, np.float32)).to(device)
+        weights = torch.from_numpy(np.ascontiguousarray(plan.weights, np.float32)).to(device)
+    else:
+        offsets, weights = torch.zeros((1, 3), device=device), torch.ones(1, device=device)
+    per_tile = trace.make_raygen_per_tile(scene, c, offsets, weights, n)
     return lambda: per_tile(order)
 
 

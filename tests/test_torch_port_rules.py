@@ -39,6 +39,9 @@ def test_port_imports_no_jax():
         "from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch import renderer\n"
         "from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops import kernels, trace\n"
         "from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.models import semesterbild\n"
+        "from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch import __main__, output\n"
+        "from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.output import http_preview\n"
+        "from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.models import test_scene\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "       or m == 'hslu_i.ba_raytracing.f2501_raytracer_tpu'\n"
         "       or m.startswith('hslu_i.ba_raytracing.f2501_raytracer_tpu.')]\n"
@@ -89,9 +92,14 @@ def test_unported_paths_raise():
     for bad in unported:
         with pytest.raises(NotImplementedError):
             trace_rays(ds, bad, o, d)
-    # the f32 (device_encode=False) frame path
-    with pytest.raises(NotImplementedError):
-        RaytracerRenderer(RenderConfig(width=16, height=8), device="cpu")
+    for bad in (_small_cfg(packet_mode=True, anti_aliasing=True), _small_cfg(devices=2)):
+        with pytest.raises(NotImplementedError):
+            RaytracerRenderer(bad, device="cpu")
+    # the f32 (device_encode=False) frame path renders
+    cfg = RenderConfig(width=16, height=8)
+    assert not cfg.device_encode
+    buf = RaytracerRenderer(cfg, device="cpu").render(build("semesterbild", cfg))
+    assert buf.color.shape == (8, 16, 3) and buf.valid.mean() > 0.5
 
 
 def test_wrappers_check_inputs_and_count_only_kernel_launches():
