@@ -90,7 +90,23 @@ seconds):
      extreme's flags at 40x30 and 20x15 on the card and through the CPU
      twins (the pool path at kernel_ray_tile 64, compaction_ratio 8), at
      phase 5's bar;
-  7. print the {"kernels": [...]} line, then the {"ok": true, ...} line.
+  7. the reference's SIMD build and the pool's knobs: reference_default
+     with packet_mode (16 AA lanes a pixel, two packets; 133 tiles of
+     131,072 rays, 95 lights) at 1140x950 once, its launches (cast_triangles
+     and light_shade only), dropped and u32 checksum, after a 228x190
+     packet frame with its own checksum; its middle tile traced with
+     torch.profiler and light_shade held against its twin at R and W of
+     that tile; the packet flags at 24x18 (resident) and 12x10 (streamed)
+     on the card and through the CPU twins at phase 5's bar; the 1080p
+     `realistic` frame with stage_mode gather and commit_splits 2, and with
+     stage_mode unique and commit_splits 8 (its checksum: in the port
+     these knobs change nothing), with resort_secondary twice (one checksum;
+     phase 5's bar against phase 3's frame); the 1080p `default` frame
+     with fetch_groups 1 and 8 in turns (its checksum); autotune's
+     triangle_block over (32, 64, 128, 256, 512) on the `realistic` scene,
+     each candidate's ms, and the tuned frame at phase 5's bar against
+     phase 3's;
+  8. print the {"kernels": [...]} line, then the {"ok": true, ...} line.
 With --report, the measurements also go to PATH as JSON.
 
 Exits non-zero without a CUDA device. Imports nothing of JAX.
@@ -125,6 +141,7 @@ from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch import (  # noqa: E402
     ImageBuffer,
     RaytracerRenderer,
     RenderConfig,
+    autotune,
 )
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch import build_device_scene  # noqa: E402
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.models import build  # noqa: E402
@@ -144,7 +161,10 @@ from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops.intersect import (  # no
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.output import read_png  # noqa: E402
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.scene.builder import Scene  # noqa: E402
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops.vecmath import normalized  # noqa: E402
-from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.renderer import plan_frame  # noqa: E402
+from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.renderer import (  # noqa: E402
+    launch_groups,
+    plan_frame,
+)
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.utils.harness import (  # noqa: E402
     OPS_OCCL,
     PARTITIONS,
@@ -475,12 +495,13 @@ def check_rows(label, args, iters, scene=None, c=None):
     return got
 
 
-def check_light(label, scene, args, iters):
-    kw = dict(n_lights=scene.n_lights, eps_dist=eps, n_trans_blocks=scene.n_trans_blocks,
-              bigtri_trans_rows=scene.bigtri_trans_rows)
+def check_light(label, scene, args, iters, kw=None):
+    kw = kw or dict(n_lights=scene.n_lights, eps_dist=eps, n_trans_blocks=scene.n_trans_blocks,
+                    bigtri_trans_rows=scene.bigtri_trans_rows)
     got = kernels.light_shade(*args, **kw)
     ref = kernels.light_shade_plain(*args, **kw)
     torch.cuda.synchronize()
+    assert (got[0].amax(1) > 0).any(), f"light_shade {label}: no ray is lit"
     err = close(f"light_shade {label}", list(zip(got, ref)))
     for _ in range(2):  # the same bits on three runs
         assert all(same_bits(a, b) for a, b in zip(got, kernels.light_shade(*args, **kw))), label
@@ -489,7 +510,7 @@ def check_light(label, scene, args, iters):
     plain = cuda_ms(lambda: kernels.light_shade_plain(*args, **kw), 2, 1)
     point, normal, hval = args[5], args[6], args[10] != 0
     record("light_shade", label, point.shape[0], err, ms, plain, nbytes(*args, *got),
-           shade_ops(scene, point, normal, hval, OPS_LIGHT_EPILOGUE),
+           shade_ops(scene, point, normal, hval, OPS_LIGHT_EPILOGUE, kw["eps_dist"]),
            f"; {scene.n_lights} lights in {scene.light_pack.shape[0]} rows, "
            f"lit rays {int((got[0].amax(1) > 0).sum())}; the same bits on three runs")
     dev_ms = device_ms(fn, iters)
@@ -991,14 +1012,18 @@ CHECKSUMS = {
     "stack": "ee4a32cb7f8eaad1", "unpacked": "f131f2f6a579ad51",
     "streamed": "af79d8e0ae102406",
     "reference_default": "6f012f95790a4c8d", "extreme": "962119403fd43461",
+    "packet": "193430b34cf57603", "packet_small": "400690930b921403",
+    # the Morton resort moves f32 sums by too little to change a u8 pixel
+    "resort": "2f1bddf34a353be8",
 }
 
 
 def frame_phase(label, c, r, scene, expect):
     """Warm frame of one path: the kernels in `expect` launched, every other
-    kernel not launched, dropped == 0."""
-    run_frame(r, scene)  # warm-up (allocator, caches)
+    kernel not launched, dropped == 0, the warm-up frame's checksum."""
+    fb0, wall0, _, _ = run_frame(r, scene)  # warm-up (allocator, caches)
     fb, wall, launches, dropped = run_frame(r, scene)
+    assert checksum(fb0) == checksum(fb), f"{label}: the warm-up frame differs"
     valid = float((fb != 0).mean())
     log(f"{label} ({c.width}x{c.height}): warm frame {wall * 1e3:.1f} ms, launches {launches}, "
         f"dropped {dropped}, valid {valid:.4f}, u32 sha256 {checksum(fb)}")
@@ -1009,7 +1034,8 @@ def frame_phase(label, c, r, scene, expect):
     assert valid > 0.5, valid
     assert checksum(fb) == CHECKSUMS[label], (label, checksum(fb), CHECKSUMS[label])
     frames[label] = dict(size=f"{c.width}x{c.height}", wall_ms=wall * 1e3, launches=launches,
-                         dropped=dropped, checksum=checksum(fb), valid_share=valid)
+                         dropped=dropped, checksum=checksum(fb), valid_share=valid,
+                         wall_ms_first=wall0 * 1e3)
     return fb, wall
 
 
@@ -1150,6 +1176,16 @@ def linear(f):
     return np.stack([(f >> s) & 0xFF for s in (16, 8, 0)], -1).astype(np.float32) / 255.0
 
 
+def phase5_bar(label, a, b):
+    """Two u32 frames within phase 5's bar: under 0.5% of pixels off by more
+    than 2e-3 in linear colour, `valid` different at under 0.5%. Returns
+    (pixels off, valid differences)."""
+    off = int((np.abs(linear(a) - linear(b)).max(-1) > 2e-3).sum())
+    valid_diff = int(((a != 0) != (b != 0)).sum())
+    assert off < 0.005 * a.size and valid_diff < 0.005 * a.size, (label, off, valid_diff)
+    return off, valid_diff
+
+
 # ---- phase 5: small frames, card against the CPU twins --------------------
 SMALL = {
     "realistic": (240, 135, REALISTIC),
@@ -1182,13 +1218,11 @@ with phase("card_vs_cpu"):
             assert r.last_dropped == 0
             out[dev + "_s"] = time.monotonic() - t0
         gpu, cpu = out["cuda"], out["cpu"]
-        valid_diff = int(((gpu != 0) != (cpu != 0)).sum())
-        off = int((np.abs(linear(gpu) - linear(cpu)).max(-1) > 2e-3).sum())
+        off, valid_diff = phase5_bar(label, gpu, cpu)
         n_px = gpu.size
         log(f"{label} {w}x{h} card vs CPU twins: {off} of {n_px} pixels off by > 2e-3 "
             f"({off / n_px:.4%}), valid differs at {valid_diff} (knife edges); card "
             f"{out['cuda_s']:.1f} s, CPU {out['cpu_s']:.1f} s")
-        assert off < 0.005 * n_px and valid_diff < 0.005 * n_px, label
         assert (gpu != 0).mean() > 0.5, label
         report["image_check"][label] = dict(size=f"{w}x{h}", pixels=n_px, off=off,
                                             valid_diff=valid_diff)
@@ -1214,6 +1248,31 @@ CLI_RUNS = (("semesterbild", "realistic", None, None), ("test_scene", "default",
 TWIN_SMALL = dict(kernel_ray_tile=64, compaction_ratio=8, loop_chunk=8)
 HQ_SMALL = {"reference_default": (CFG_REF, 40, 30), "extreme": (CFG_EXT, 20, 15)}
 NODE_PATH = ("cast_triangles", "shade_eval_rows")
+
+def card_vs_twins(label, c, streamed=False):
+    """A small frame of config c on the card and through the CPU twins, on
+    the pool path: phase 5's bar, the same drops."""
+    out = {}
+    for dev in ("cuda", "cpu"):
+        r = RaytracerRenderer(c, device=dev)
+        t0 = time.monotonic()
+        scene = r.device_scene(build("semesterbild", c))
+        assert scene.streaming == streamed
+        out[dev] = r.render_u32(scene)
+        out[dev + "_s"], out[dev + "_dropped"] = time.monotonic() - t0, r.last_dropped
+    gpu, cpu = out["cuda"], out["cpu"]
+    p_small = plan_frame(c)
+    assert p_small.pix_per_tile * p_small.aa >= c.kernel_ray_tile * c.compaction_ratio
+    off, valid_diff = phase5_bar(label, gpu, cpu)
+    log(f"{label} {c.width}x{c.height} card vs CPU twins (pool path, W = "
+        f"{(p_small.pix_per_tile * p_small.aa // c.compaction_ratio) // c.kernel_ray_tile * c.kernel_ray_tile}): "
+        f"{off} of {gpu.size} pixels off by > 2e-3, valid differs at {valid_diff}; dropped "
+        f"{out['cuda_dropped']} / {out['cpu_dropped']}; card {out['cuda_s']:.1f} s, CPU "
+        f"{out['cpu_s']:.1f} s")
+    assert out["cuda_dropped"] == out["cpu_dropped"] and (gpu != 0).mean() > 0.5, label
+    report["image_check"][label] = dict(size=f"{c.width}x{c.height}", pixels=gpu.size, off=off,
+                                        valid_diff=valid_diff, cpu_s=out["cpu_s"])
+
 
 with phase("entry_points"):
     # reference_default 1140x950: the f32 frame (host-built rays, f32
@@ -1321,29 +1380,124 @@ with phase("entry_points"):
 
     # card against the CPU twins at reference_default's and extreme's flags
     for label, (c_hq, w, h) in HQ_SMALL.items():
-        c = dataclasses.replace(c_hq, width=w, height=h, **TWIN_SMALL)
-        out = {}
-        for dev in ("cuda", "cpu"):
-            r = RaytracerRenderer(c, device=dev)
-            t0 = time.monotonic()
-            out[dev] = r.render_u32(r.device_scene(build("semesterbild", c)))
-            out[dev + "_s"], out[dev + "_dropped"] = time.monotonic() - t0, r.last_dropped
-        gpu, cpu = out["cuda"], out["cpu"]
-        p_small = plan_frame(c)
-        assert p_small.pix_per_tile * p_small.aa >= c.kernel_ray_tile * c.compaction_ratio
-        valid_diff = int(((gpu != 0) != (cpu != 0)).sum())
-        off = int((np.abs(linear(gpu) - linear(cpu)).max(-1) > 2e-3).sum())
-        log(f"{label} {w}x{h} card vs CPU twins (pool path, W = "
-            f"{(p_small.pix_per_tile * p_small.aa // c.compaction_ratio) // c.kernel_ray_tile * c.kernel_ray_tile}): "
-            f"{off} of {gpu.size} pixels off by > 2e-3, valid differs at {valid_diff}; dropped "
-            f"{out['cuda_dropped']} / {out['cpu_dropped']}; card {out['cuda_s']:.1f} s, CPU "
-            f"{out['cpu_s']:.1f} s")
-        assert off < 0.005 * gpu.size and valid_diff < 0.005 * gpu.size, label
-        assert out["cuda_dropped"] == out["cpu_dropped"] and (gpu != 0).mean() > 0.5, label
-        report["image_check"][label] = dict(size=f"{w}x{h}", pixels=gpu.size, off=off,
-                                            valid_diff=valid_diff, cpu_s=out["cpu_s"])
+        card_vs_twins(label, dataclasses.replace(c_hq, width=w, height=h, **TWIN_SMALL))
 
-# ---- phase 7: results ----------------------------------------------------
+# ---- phase 7: the reference's SIMD build and the pool's knobs -------------
+# reference_default as the reference's simd_render build (config.py
+# packet_mode): 16 AA lanes a pixel (two packets of 8, no dedupe), 133 tiles
+# of 131,072 rays, every node through the plain node (cast_triangles, then
+# light_shade with 95 lights, then the packet reductions in PyTorch)
+CFG_PKT = dataclasses.replace(CFG_REF, packet_mode=True, aa_packet_lanes=8)
+PACKET_PATH = ("cast_triangles", "light_shade")
+PKT_SMALL = (228, 190)
+
+
+with phase("simd_build"):
+    r_pkt = RaytracerRenderer(CFG_PKT, device="cuda")
+    ds_pkt = r_pkt.device_scene(build("semesterbild", CFG_PKT))
+    p_pkt = plan_frame(CFG_PKT)
+    assert (p_pkt.aa, p_pkt.n_tiles, p_pkt.pix_per_tile * p_pkt.aa) == (16, 133, 131072), p_pkt
+    assert ds_pkt.n_lights == 95
+    # a smaller packet frame first (the warm-up; the full frame's repeat is
+    # its recorded checksum)
+    c_pks = dataclasses.replace(CFG_PKT, width=PKT_SMALL[0], height=PKT_SMALL[1])
+    r_pks = RaytracerRenderer(c_pks, device="cuda")
+    ds_pks = r_pks.device_scene(build("semesterbild", c_pks))
+    small = [timed_run(lambda: r_pks.render_u32(ds_pks))]
+    assert checksum(small[0][0]) == CHECKSUMS["packet_small"], checksum(small[0][0])
+    # the full frame, once
+    fb_pkt, wall_pkt, l_pkt = timed_run(lambda: r_pkt.render_u32(ds_pkt))
+    log(f"SIMD build (reference_default, packet_mode, 16 lanes a pixel) {CFG_PKT.width}x"
+        f"{CFG_PKT.height}: {p_pkt.n_tiles} tiles x 131072 rays, {ds_pkt.n_lights} lights; frame "
+        f"{wall_pkt:.1f} s, launches {used(l_pkt)}, dropped {r_pkt.last_dropped}, valid "
+        f"{(fb_pkt != 0).mean():.4f}, u32 sha256 {checksum(fb_pkt)}; {PKT_SMALL[0]}x{PKT_SMALL[1]} "
+        f"frame {small[0][1]:.2f} s, sha256 {checksum(small[0][0])}")
+    assert set(used(l_pkt)) == set(PACKET_PATH), l_pkt
+    assert r_pkt.last_dropped == 0 and (fb_pkt != 0).mean() > 0.5
+    assert checksum(fb_pkt) == CHECKSUMS["packet"], checksum(fb_pkt)
+    # beside the scalar build's frame (phase 6): other AA samples and shared
+    # decisions, the same primary hits at the pixel's centre
+    scalar_off = int((np.abs(linear(fb_pkt) - linear(fb_ref)).max(-1) > 2e-3).sum())
+    log(f"  against the scalar build's u32 frame: {scalar_off} of {fb_pkt.size} pixels differ by "
+        f"> 2e-3, valid differs at {int(((fb_pkt != 0) != (fb_ref != 0)).sum())}")
+    frames["packet"] = dict(
+        size=f"{CFG_PKT.width}x{CFG_PKT.height}", wall_ms=wall_pkt * 1e3, launches=l_pkt,
+        dropped=r_pkt.last_dropped, checksum=checksum(fb_pkt),
+        valid_share=float((fb_pkt != 0).mean()), small_wall_ms=[w * 1e3 for _, w, _ in small],
+        small_checksum=checksum(small[0][0]), scalar_off=scalar_off)
+    # where a packet tile's time goes, and light_shade at R and W, 95 lights:
+    # the middle tile (the first tiles of the tile-major order lie in the
+    # frame's empty top band at 8192 pixels a tile)
+    k_pkt = p_pkt.n_tiles // 2
+    report["tile_profile_packet"] = profile_tile("packet", ds_pkt, "light_shade", CFG_PKT,
+                                                 k_pkt, aa=True)
+    assert report["tile_profile_packet"]["iterations"] > 0
+    caught = caught_calls(["light_shade"], tile_call(ds_pkt, CFG_PKT, k_pkt, aa=True),
+                          2)["light_shade"]
+    assert [a[5].shape[0] for a, _ in caught] == [131072, 2048], [a[5].shape for a, _ in caught]
+    for (args_l, kw_l), label in zip(caught, ("Rpk", "Wpk")):
+        check_light(label, ds_pkt, args_l, 5 if label == "Rpk" else 50, kw_l)
+
+    # the packet flags on the card and through the CPU twins: resident, and
+    # on a streamed scene (the plain node over the streamed kernels)
+    card_vs_twins("packet", dataclasses.replace(CFG_PKT, width=24, height=18, **TWIN_SMALL))
+    card_vs_twins("packet_streamed", dataclasses.replace(
+        CFG_PKT, width=12, height=10, stream_triangles=1, **TWIN_SMALL), streamed=True)
+
+    # the pool's knobs at 1080p realistic: the same frame (the port takes
+    # one row scatter and one commit per chunk whatever they say)
+    knobs = {}
+    for knob in (dict(stage_mode="gather", commit_splits=2),
+                 dict(stage_mode="unique", commit_splits=8)):
+        r_k = RaytracerRenderer(dataclasses.replace(cfg, **knob), device="cuda")
+        fb, wall, launches = timed_run(lambda: r_k.render_u32(ds))
+        name = ",".join(f"{k}={v}" for k, v in knob.items())
+        knobs[name] = dict(wall_ms=wall * 1e3, checksum=checksum(fb))
+        log(f"realistic 1080p {name}: {wall * 1e3:.1f} ms, launches {used(launches)}, dropped "
+            f"{r_k.last_dropped}, u32 sha256 {checksum(fb)}")
+        assert checksum(fb) == CHECKSUMS["realistic"] and set(used(launches)) == set(NODE_PATH)
+    # the Morton resort: one checksum on two frames, phase 5's bar against
+    # the unsorted frame (phase 3)
+    r_rs = RaytracerRenderer(dataclasses.replace(cfg, resort_secondary=True), device="cuda")
+    resort = [timed_run(lambda: r_rs.render_u32(ds)) for _ in range(2)]
+    off, valid_diff = phase5_bar("resort", resort[1][0], fb1)
+    log(f"realistic 1080p resort_secondary: {[round(w * 1e3, 1) for _, w, _ in resort]} ms, u32 "
+        f"sha256 {[checksum(fb) for fb, _, _ in resort]}; against the unsorted frame {off} pixels "
+        f"off by > 2e-3, valid differs at {valid_diff}")
+    assert checksum(resort[0][0]) == checksum(resort[1][0]) == CHECKSUMS["resort"]
+    knobs["resort_secondary"] = dict(wall_ms=[w * 1e3 for _, w, _ in resort],
+                                     checksum=checksum(resort[1][0]), off=off)
+
+    # the overlapped fetch: 1080p default with fetch_groups 1 and 8 (taper),
+    # in turns 1, 8, 8, 1
+    c_def = RenderConfig(width=1920, height=1080, **MAIN, **LIGHTING["default"])
+    fetch = {1: [], 8: []}
+    for fg in (1, 8, 8, 1):
+        r_f = RaytracerRenderer(dataclasses.replace(c_def, fetch_groups=fg), device="cuda")
+        fb, wall, _ = timed_run(lambda: r_f.render_u32(scenes["default"]))
+        assert checksum(fb) == CHECKSUMS["default"], (fg, checksum(fb))
+        fetch[fg].append(wall * 1e3)
+    log(f"default 1080p, fetch_groups 1 / 8 (taper, groups {launch_groups(c_def, 16)}) in turns: "
+        f"{fetch[1]} / {fetch[8]} ms, one checksum")
+    knobs["fetch_groups"] = fetch
+
+    # autotune's triangle_block on the realistic frame's scene
+    t0 = time.monotonic()
+    tuned = autotune(Scene.backface_culling(build("semesterbild", cfg), np.array([0.0, 0.0, 1.0])),
+                     cfg, candidates=(32, 64, 128, 256, 512), verbose=True)
+    tune_s = time.monotonic() - t0
+    r_t = RaytracerRenderer(tuned.cfg, device="cuda")
+    fb_t, wall_t, _ = timed_run(lambda: r_t.render_u32(tuned.device_scene))
+    off, valid_diff = phase5_bar("autotune", fb_t, fb1)
+    log(f"autotune ({tune_s:.1f} s): ms by triangle_block {tuned.timings_ms}, tuned "
+        f"{tuned.tuned_block} (the realistic frame's: {ds.tri_block}); tuned frame "
+        f"{wall_t * 1e3:.1f} ms, u32 sha256 {checksum(fb_t)}, against the default frame {off} "
+        f"pixels off by > 2e-3, valid differs at {valid_diff}")
+    knobs["autotune"] = dict(timings_ms=tuned.timings_ms, tuned_block=tuned.tuned_block,
+                             seconds=tune_s, wall_ms=wall_t * 1e3, off=off)
+    report["knobs"] = knobs
+
+# ---- phase 8: results ----------------------------------------------------
 # each kernel's launches: from the path it serves (the frame of phase 3/4)
 frames["occlude_rays"] = dict(launches=entry_launches)
 # name: (source, line of the TPU kernel body, path whose run gives the
@@ -1357,12 +1511,12 @@ ENTRIES = {
     "occlude_triangles": ("occlude_triangles.cu", 964, "occlude_rays", "R", ["W"]),
     "shade_eval_rows": ("shade_eval_rows.cu", 1858, "realistic", "R",
                         ["W", "R95", "W95", "R140", "W140"]),
-    "light_shade": ("light_shade.cu", 1834, "default", "R", ["R_soft"]),
+    "light_shade": ("light_shade.cu", 1834, "default", "R", ["R_soft", "Rpk", "Wpk"]),
     "shade_eval": ("shade_eval.cu", 1858, "stack", "R", ["S", "W", "S95"]),
 }
 EXTRA = {"W": "pool", "R_soft": "soft", "V": "validation", "V_glass": "validation_glass",
          "S": "sparse", "R95": "hq95", "W95": "hq95_pool", "R140": "extreme",
-         "W140": "extreme_pool", "S95": "hq95_sparse"}
+         "W140": "extreme_pool", "S95": "hq95_sparse", "Rpk": "packet", "Wpk": "packet_pool"}
 assert set(ENTRIES) == set(kernels.KERNEL_SOURCES)
 line = []
 for name, (src, tpu_line, path, main, others) in ENTRIES.items():
@@ -1375,6 +1529,7 @@ for name, (src, tpu_line, path, main, others) in ENTRIES.items():
         max_abs_err=max(v["err"] for v in results[name].values()), ms=m["ms"],
         plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
         library_ms=None, launches_path=path, rays=m["R"],
+        launches_packet=frames["packet"]["launches"][name],
     )
     for label in others:
         o_res = results[name][label]

@@ -11,13 +11,14 @@ Module layout mirrors the JAX package so each counterpart is easy to find:
   ops/            vecmath, intersect, shading, trace, kernels (CUDA wrappers)
   renderer.py     frame plan, tiles, the u32 and f32 frame paths, the
                   progressive path, get_pixel_color
+  tune.py         `autotune`: the fastest triangle_block for a scene
   models/         the scene zoo (semesterbild, test_scene, test_text)
   output/         PNG writer, colour encoders, terminal and HTTP previews
   __main__.py     the CLI (`python -m ...f2501_raytracer_tpu_torch`)
 Entry points run on the card unless the caller passes device="cpu" (the
-CLI: --device cpu). Every preset and feature config renders on one device;
-ROADMAP.md lists what is still to come (packet mode, stage modes, commit
-splits, multi-device meshes).
+CLI: --device cpu). Every config of the JAX package renders on one device,
+packet mode and the pool's knobs included; ROADMAP.md lists what is still
+to come (multi-device meshes).
 """
 
 from .config import (
@@ -43,6 +44,7 @@ from .scene.builder import (
 )
 from .scene.device import DeviceScene, build_device_scene, device_scene_from_arrays
 from .scene.lighting import AmbientLight, PointLight, SceneLightSource
+from .tune import TuneResult, autotune
 
 __all__ = [
     "AmbientLight",
@@ -66,6 +68,8 @@ __all__ = [
     "SphereData",
     "TransmissionProperties",
     "TriangleData",
+    "TuneResult",
+    "autotune",
     "build_device_scene",
     "device_scene_from_arrays",
     "rotor3_from_euler_angles",

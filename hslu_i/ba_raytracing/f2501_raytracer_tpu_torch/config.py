@@ -189,7 +189,8 @@ class RenderConfig:
     # are output-identical; they differ only in which XLA op pays the
     # per-row cost (row scatter vs searchsorted+row gather vs a
     # unique-declared scatter into a 2x buffer). See ops/trace.py
-    # _pool_append and the A/B in scripts/tpu_stage_ab.py.
+    # _pool_append and the A/B in scripts/tpu_stage_ab.py. The PyTorch
+    # port accepts every mode and always takes its one row scatter.
     stage_mode: str = "scatter"
     # packed pool-row kernel epilogue (round 5): on the fused-eligible
     # pool path the shade+eval kernel writes each child's (T, 16)
@@ -205,7 +206,8 @@ class RenderConfig:
     # suffix exactly (ops/trace.py). 1 = single commit (legacy).
     # NOTE: the split count must divide loop_chunk; a value that doesn't is
     # coerced DOWN to the largest divisor (e.g. 5 -> 4, 7 -> 1 at
-    # chunk=128) — see ops/trace.py::_run_pool.
+    # chunk=128) — see ops/trace.py::_run_pool. The PyTorch port accepts
+    # any count and always commits each chunk once (the same sums).
     commit_splits: int = 1
     # shadow-pack Morton-block scan order ("camera" | "light"): "light"
     # scans blocks nearest the lights first within each trans/opaque

@@ -40,9 +40,14 @@ Depth-budget semantics copied exactly (they shape the image):
 * reflection contributions are attenuated by the *child's* first-hit distance
   (raytracer_renderer.rs:711-728) -- tracked via the `from_refl` flag
 
-Not ported yet (they raise NotImplementedError; ROADMAP.md Queue 1):
-packet_mode, resort_secondary, the gather/unique stage modes and
-commit_splits > 1.
+The JAX package's single-device knobs of the pool: `packet_mode` (the
+reference's SIMD build: eight consecutive lanes share spawn decisions, depth
+budgets and the adaptive refraction step; `_node_children(packet=True)`, the
+plain node on every scene) and `resort_secondary` (a Morton sort of each
+serviced batch). `stage_mode` and `commit_splits` are accepted and change
+nothing here: in the JAX package they pick how a TPU pays for the pool's
+scatter and the chunk commit (the same rows, the same sums), and the port
+always takes its one row scatter and one commit per chunk.
 """
 
 from __future__ import annotations
@@ -59,9 +64,14 @@ from .shading import (
     calculate_lighting,
     compute_fresnel,
 )
-from .vecmath import normalized, reflected, refracted
+from .vecmath import F32_EPSILON, dot, normalized, reflected, refracted
 
 AIR = float(DEFAULT_REFRACTION_INDEX)
+# |v|^2 threshold for `abs_diff_eq_default(zero)` on a direction vector
+# (ref vector.rs componentwise F32_EPSILON check, used at rs:589-594)
+F32_EPS_SQ = F32_EPSILON**2
+# lanes of one packet in packet_mode: the 8 consecutive AA lanes of a pixel
+PACKET = 8
 
 # packed pool-entry layout: one (16,) f32 row per pending ray:
 #   [0:3] o | [3:6] d | [6:9] w | [9] ior | [10] budget | [11] from_refl |
@@ -72,17 +82,24 @@ PK_O, PK_D, PK_W = slice(0, 3), slice(3, 6), slice(6, 9)
 PK_IOR, PK_BUD, PK_REFL, PK_PIX = 9, 10, 11, 12
 POOL_COLS = 16
 
-_NOT_IN_SLICE = "is not ported yet (ROADMAP.md, Queue 1)"
-
 
 def _node_children(point, normal, color, metallic, has_trans, hior, opacity,
                    boost, t, hval, direct, spec, d, ior, weight, budget,
                    from_refl, eps_dist, *, reflections, refractions, refl_max,
-                   refr_max, weight_cutoff, air=AIR):
-    """Everything `_eval_node` computes after lighting (JAX trace.py:95-219,
-    non-packet): the node contribution and the reflection / refraction
-    child entries. Returns (contrib (R,3), refl_push, refr_push); a push is
-    a dict of child fields + `mask`, or None for a disabled child type."""
+                   refr_max, weight_cutoff, air=AIR, packet=False):
+    """Everything `_eval_node` computes after lighting (JAX trace.py:95-219):
+    the node contribution and the reflection / refraction child entries.
+    Returns (contrib (R,3), refl_push, refr_push); a push is a dict of child
+    fields + `mask`, or None for a disabled child type.
+
+    `packet` (cfg.packet_mode, the reference's SIMD build; JAX
+    trace.py:107-208): lanes [8p, 8p+8) form packet p. A child is spawned
+    for the whole packet when any lane spawns it (rs:217, 232, 306-308,
+    584-594), a reflection not at all when any lane's direction
+    degenerated; lanes that would not spawn ride along with zero weight
+    (the reference's final per-lane blends, rs:505-522, 712-729); the
+    adaptive refraction step and divisor and the weight cutoff take the
+    packet's largest opacity and weight (rs:458-491)."""
     dist_f = attenuation_factor_based_on_distance(t)
     dist_f = _where0(hval, dist_f)
     direct = direct * dist_f[:, None]
@@ -93,9 +110,14 @@ def _node_children(point, normal, color, metallic, has_trans, hior, opacity,
     node_color = _where0(~has_trans[:, None], direct) + spec  # transmissive: no direct
     contrib = _where0(hval[:, None], w * node_color)
 
-    p = d * normal
-    cos_theta = (p[:, 0] + p[:, 1]) + p[:, 2]
+    cos_theta = dot(d, normal)
     air_t = torch.full_like(ior, air)
+
+    def pk_any(m):  # packet-wide .any(), back on every lane
+        return m.reshape(-1, PACKET).any(1, keepdim=True).expand(-1, PACKET).reshape(-1)
+
+    def pk_max(x):  # simd_horizontal_max, back on every lane
+        return x.reshape(-1, PACKET).amax(1, keepdim=True).expand(-1, PACKET).reshape(-1)
 
     # ---- reflection child (raytracer_renderer.rs:526-729) ----
     refl_push = None
@@ -109,7 +131,8 @@ def _node_children(point, normal, color, metallic, has_trans, hior, opacity,
         tir = sin2_t >= 1.0
         reflective = (metallic > 0.0) | (has_trans & tir)
 
-        refl_dir = normalized(reflected(d, normal))
+        refl_raw = reflected(d, normal)
+        refl_dir = normalized(refl_raw)
         reflectance, _ = compute_fresnel(
             inormal, -d, ior, color, metallic, hior, has_trans
         )
@@ -118,9 +141,16 @@ def _node_children(point, normal, color, metallic, has_trans, hior, opacity,
             torch.clamp(budget - 1, min=0),
         )
         refl_w = w * reflectance
-        mask = hval & reflective & (child_budget > 0)
-        if weight_cutoff > 0.0:
-            mask = mask & (torch.amax(refl_w, dim=1) > weight_cutoff)
+        if packet:
+            degen = dot(refl_raw, refl_raw) <= F32_EPS_SQ
+            mask = pk_any(hval & reflective) & ~pk_any(degen) & (child_budget > 0)
+            refl_w = _where0((hval & reflective & ~degen)[:, None], refl_w)
+            if weight_cutoff > 0.0:
+                mask = mask & (pk_max(torch.amax(refl_w, dim=1)) > weight_cutoff)
+        else:
+            mask = hval & reflective & (child_budget > 0)
+            if weight_cutoff > 0.0:
+                mask = mask & (torch.amax(refl_w, dim=1) > weight_cutoff)
         refl_push = dict(
             o=point + refl_dir * eps_dist,
             d=refl_dir,
@@ -146,6 +176,8 @@ def _node_children(point, normal, color, metallic, has_trans, hior, opacity,
         refr_dir = _where0(k_pos[:, None], normalized(refr_raw))
 
         op = _where0(has_trans, opacity)
+        if packet:
+            op = pk_max(op)
         one = torch.ones_like(budget)
         step = torch.where(op < 0.5, 2 * one, one)
         divisor = torch.where(op <= 0.3, 3 * one, torch.where(op < 0.5, 2 * one, one))
@@ -156,9 +188,16 @@ def _node_children(point, normal, color, metallic, has_trans, hior, opacity,
         )
         boost_f = _where0(has_trans, boost) + 1.0
         refr_w = w * transmittance * boost_f[:, None]
-        mask = hval & has_trans & (child_budget > 0) & k_pos
-        if weight_cutoff > 0.0:
-            mask = mask & (torch.amax(refr_w, dim=1) > weight_cutoff)
+        if packet:
+            # TIR lanes (k_pos false) keep a zero direction and weight
+            mask = pk_any(hval & has_trans) & (child_budget > 0)
+            refr_w = _where0((hval & has_trans & k_pos)[:, None], refr_w)
+            if weight_cutoff > 0.0:
+                mask = mask & (pk_max(torch.amax(refr_w, dim=1)) > weight_cutoff)
+        else:
+            mask = hval & has_trans & (child_budget > 0) & k_pos
+            if weight_cutoff > 0.0:
+                mask = mask & (torch.amax(refr_w, dim=1) > weight_cutoff)
         refr_push = dict(
             o=point + refr_dir * eps_dist,
             d=refr_dir,
@@ -226,19 +265,19 @@ def _node_kw(scene, cfg: RenderConfig, eps_dist):
 def _eval_node(scene, cfg: RenderConfig, eps_dist, o, d, ior, weight, budget,
                from_refl, active):
     """Evaluate one shading-tree node for the whole wavefront (JAX
-    `_eval_node`, non-packet): with reflections or refractions on a resident
-    scene through the fused `shade_eval` kernel (JAX `_eval_node_fused`);
-    else the plain node (JAX trace.py:93-219): lit through
-    `calculate_lighting` (the `light_shade` kernel, or for a streamed scene
-    the light loop over `occlude_rays`), children from `_node_children`.
+    `_eval_node`): with reflections or refractions on a resident scene
+    through the fused `shade_eval` kernel (JAX `_eval_node_fused`); else
+    the plain node (JAX trace.py:93-219): lit through `calculate_lighting`
+    (the `light_shade` kernel, or for a streamed scene the light loop over
+    `occlude_rays`), children from `_node_children`. Packet mode takes the
+    plain node on every scene (JAX trace.py:81-93): its reductions cross
+    lanes, which the fused kernel does not.
 
     Returns (contribution (R,3), primary_hit_valid (R,), refl_push, refr_push);
     a push is a dict of child fields + `mask`, or None for a disabled child
     type."""
-    if cfg.packet_mode:
-        raise NotImplementedError("packet_mode " + _NOT_IN_SLICE)
     hit, hval, point, d = _cast_active(scene, cfg, o, d, active)
-    if (cfg.reflections or cfg.refractions) and not scene.streaming:
+    if (cfg.reflections or cfg.refractions) and not (scene.streaming or cfg.packet_mode):
         return _eval_node_fused(scene, cfg, eps_dist, hit, hval, point, d, ior,
                                 weight, budget, from_refl)
     direct, spec = calculate_lighting(
@@ -250,6 +289,7 @@ def _eval_node(scene, cfg: RenderConfig, eps_dist, o, d, ior, weight, budget,
         budget, from_refl, eps_dist, reflections=cfg.reflections,
         refractions=cfg.refractions, refl_max=int(cfg.reflection_max_depth),
         refr_max=int(cfg.refraction_max_depth), weight_cutoff=float(cfg.weight_cutoff),
+        packet=cfg.packet_mode,
     )
     return contrib, hval, refl_push, refr_push
 
@@ -305,10 +345,10 @@ def _node_rows(scene, cfg: RenderConfig, eps_dist, o, d, ior, weight, budget,
                from_refl, active, pix):
     """A pool node evaluation as (contrib, hval, rows, masks) in the
     pool-append order [refr, refl]: packed by the kernel
-    (`_eval_node_rows`), or with `packed_stage=False` or a streamed scene
-    from the per-field children (`_eval_node`, then `_pack_entry`; JAX
-    trace.py:592-595, 805-811, 866-871, 895-901)."""
-    if cfg.packed_stage and not scene.streaming:
+    (`_eval_node_rows`), or with `packed_stage=False`, a streamed scene or
+    packet mode from the per-field children (`_eval_node`, then
+    `_pack_entry`; JAX trace.py:592-595, 805-811, 866-871, 895-901)."""
+    if cfg.packed_stage and not (scene.streaming or cfg.packet_mode):
         return _eval_node_rows(scene, cfg, eps_dist, o, d, ior, weight, budget,
                                from_refl, active, pix)
     contrib, hval, refl, refr = _eval_node(scene, cfg, eps_dist, o, d, ior, weight,
@@ -350,10 +390,11 @@ def _unpack_entry(rows):
 
 def _pool_append(pool, count, cand, m):
     """Compact the accepted candidate rows into the pool at `count` with ONE
-    row scatter (JAX `_pool_append`, scatter mode): accepted row i goes to
-    count + (rank of i among accepted rows); rejected rows go to the dump
-    row at the end of `pool`. `count` stays on the device: no host sync.
-    Rows above the new count are dead (never read as active)."""
+    row scatter (JAX `_pool_append`, scatter mode; its gather and unique
+    modes give the same rows): accepted row i goes to count + (rank of i
+    among accepted rows); rejected rows go to the dump row at the end of
+    `pool`. `count` stays on the device: no host sync. Rows above the new
+    count are dead (never read as active)."""
     Q = pool.shape[0] - 1  # last row is the dump row
     cum = torch.cumsum(m.to(torch.int64), dim=0)
     dest = torch.where(m, count + cum - 1, torch.full_like(cum, Q))
@@ -361,16 +402,45 @@ def _pool_append(pool, count, cand, m):
     return count + cum[-1]
 
 
+def _morton_order(rows, active):
+    """The serviced batch's order by the 18-bit Morton code of its origins
+    (cfg.resort_secondary, JAX trace.py:842-858), dead lanes last, ties in
+    lane order (`jnp.argsort` is stable)."""
+    oq = torch.clamp(rows[:, PK_O] * 64.0, 0.0, 63.0).to(torch.int32)
+
+    def spread(v):  # interleave 6 bits -> 18-bit morton
+        v = (v | (v << 8)) & 0x0300F
+        v = (v | (v << 4)) & 0x030C3
+        return (v | (v << 2)) & 0x09249
+
+    key = spread(oq[:, 0]) | (spread(oq[:, 1]) << 1) | (spread(oq[:, 2]) << 2)
+    key = torch.where(active, key, torch.full_like(key, 2**30))
+    return torch.argsort(key, stable=True)
+
+
+def _splits_packets(m):
+    """True (a device tensor) where some packet of the append mask `m` has
+    accepted and rejected lanes."""
+    pk = m.reshape(-1, PACKET)
+    return (pk.any(1) != pk.all(1)).any()
+
+
 def _run_pool(scene, cfg, eps_dist, R, contrib, rows0, masks0):
-    """Compacted wavefront with a dense LIFO ray pool (JAX `_run_pool`,
-    commit_splits=1): each iteration services the top W pending rays, so its
-    cost scales with W, not R. Exact: contributions carry path weights, so
-    evaluation order is free. Returns (accum (R,3), dropped int64 tensor).
+    """Compacted wavefront with a dense LIFO ray pool (JAX `_run_pool`):
+    each iteration services the top W pending rays, so its cost scales with
+    W, not R. Exact: contributions carry path weights, so evaluation order
+    is free. Returns (accum (R,3), dropped int64 tensor).
 
     The host reads `count` once per `loop_chunk` iterations, as the JAX
     while_loop condition does; inside a chunk every step is device-side
     index arithmetic (no host sync). Iterations after the pool drains are
-    no-ops: every lane is inactive and stages a dead row."""
+    no-ops: every lane is inactive and stages a dead row. One commit per
+    chunk, whatever `commit_splits` says (the JAX package's split commit
+    gives the same sums).
+
+    In packet mode every append mask is packet-uniform, so the pool holds
+    whole packets and each serviced window starts on a packet; that is
+    checked on the device and read with `count`."""
     ratio = max(int(cfg.compaction_ratio), 1)
     rt = int(cfg.kernel_ray_tile)
     W = max((R // ratio) // rt * rt, rt)
@@ -387,6 +457,10 @@ def _run_pool(scene, cfg, eps_dist, R, contrib, rows0, masks0):
     Q_cap = Q
     if cfg.pool_capacity:
         Q_cap = min(max(int(cfg.pool_capacity), 2 * W), Q)
+    packet = cfg.packet_mode
+    if packet and (W % PACKET or Q_cap % PACKET):
+        raise ValueError(f"packet_mode needs a pool width ({W}) and capacity ({Q_cap}) "
+                         f"in whole packets of {PACKET}")
 
     dev = contrib.device
     pool = torch.zeros((Q + 1, POOL_COLS), dtype=torch.float32, device=dev)
@@ -394,6 +468,7 @@ def _run_pool(scene, cfg, eps_dist, R, contrib, rows0, masks0):
                          rows0, masks0)
     dropped = torch.clamp(count - Q_cap, min=0)
     count = torch.clamp(count, max=Q_cap)
+    split = _splits_packets(masks0) if packet else None
 
     max_iters = cfg.max_nodes * ratio
     chunk = max(int(cfg.loop_chunk), 1)
@@ -409,13 +484,26 @@ def _run_pool(scene, cfg, eps_dist, R, contrib, rows0, masks0):
     lanes = torch.arange(W, dtype=torch.int64, device=dev)
     k = rows0.shape[0] // R  # enabled child types (1 or 2)
 
+    def host_read():  # the chunk's one sync: count (and the checks)
+        if not packet:
+            return int(count)
+        n, bad = torch.stack([count, split.to(torch.int64)]).tolist()
+        if bad or n % PACKET:
+            raise RuntimeError(f"the pool split a packet of {PACKET} lanes (count {n})")
+        return n
+
+    n_pending = host_read()
     it = 0
-    while it < max_iters and int(count) > 0:
+    while it < max_iters and n_pending > 0:
         for slot in range(chunk):
             start = torch.clamp(count - W, min=0)
             idx = start + lanes
             sel_active = idx < count
-            e = _unpack_entry(pool.index_select(0, idx))
+            rows = pool.index_select(0, idx)
+            if cfg.resort_secondary:
+                order = _morton_order(rows, sel_active)
+                rows, sel_active = rows[order], sel_active[order]
+            e = _unpack_entry(rows)
             contrib_w, _, rows_b, masks_b = _node_rows(
                 scene, cfg, eps_dist, e["o"], e["d"], e["ior"], e["w"],
                 e["budget"], e["from_refl"], sel_active, pix=e["pix"],
@@ -427,9 +515,13 @@ def _run_pool(scene, cfg, eps_dist, R, contrib, rows0, masks0):
             # capacity; at the auto capacity this never engages
             capped = torch.clamp(start, max=Q_cap - 2 * W)
             dropped = dropped + (start - capped)
-            count = _pool_append(pool, capped, rows_b, masks_b & sel_active.repeat(k))
+            m = masks_b & sel_active.repeat(k)
+            if packet:
+                split = split | _splits_packets(m)
+            count = _pool_append(pool, capped, rows_b, m)
             it += 1
         _commit(accum, stage_pix, stage_contrib)
+        n_pending = host_read()
     return accum[:R], dropped
 
 
@@ -525,18 +617,19 @@ def trace_rays(scene: DeviceScene, cfg: RenderConfig, origins, directions,
     the number of pending secondary rays truncated by pool or stack capacity
     (0 in healthy runs; the reference recursion never drops subtrees)."""
     R = origins.shape[0]
+    if cfg.packet_mode:
+        # packets are 8 consecutive lanes; the pool keeps them whole (masks
+        # are packet-uniform; checked in `_run_pool`), a Morton resort
+        # would scatter them (JAX trace.py:567-572)
+        if R % PACKET:
+            raise ValueError(f"packet_mode needs wavefronts of whole {PACKET}-lane packets, "
+                             f"got {R} rays")
+        if cfg.resort_secondary:
+            raise ValueError("packet_mode forbids resort_secondary")
     ratio = max(int(cfg.compaction_ratio), 1)
     children = cfg.reflections or cfg.refractions
     # >=: a tile of exactly kernel_ray_tile * ratio rays takes the pool path
     pool_path = children and ratio > 1 and R >= cfg.kernel_ray_tile * ratio
-    if cfg.packet_mode:
-        raise NotImplementedError("packet_mode " + _NOT_IN_SLICE)
-    if pool_path and cfg.resort_secondary:
-        raise NotImplementedError("resort_secondary " + _NOT_IN_SLICE)
-    if pool_path and cfg.stage_mode != "scatter":
-        raise NotImplementedError(f"stage_mode={cfg.stage_mode!r} " + _NOT_IN_SLICE)
-    if pool_path and int(cfg.commit_splits) != 1:
-        raise NotImplementedError("commit_splits > 1 " + _NOT_IN_SLICE)
 
     eps_dist = float(cfg.camera.epsilon_distance)
     dev = origins.device

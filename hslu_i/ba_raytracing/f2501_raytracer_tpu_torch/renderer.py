@@ -8,17 +8,20 @@ the primary node alone without reflections and refractions). Three ways to a
 frame, as in the JAX package:
 
 * `device_encode` (and no `render_timing_debug`): primary rays generated on
-  the device, the AA reduction and the 0xFFRRGGBB encode on the device, the
-  4-byte pixels fetched once at the end (`render_u32`);
+  the device, the AA reduction and the 0xFFRRGGBB encode on the device; the
+  tiles traced in launch groups (`tiles_per_program`, else the
+  `fetch_groups` schedule), the 4-byte pixels of every group fetched once
+  at the end (`render_u32`);
 * the f32 path: rays built on the host (`build_frame_rays`), each group of
   `tiles_per_program` tiles traced and its colours fetched, the AA samples
   reduced on the host in numpy;
 * with a progress callback: one tile at a time, each committed to the frame
   and handed to the callback as it finishes.
 
-`get_pixel_color` traces one pixel's AA samples. Not in the port yet (raise
-NotImplementedError; ROADMAP.md Queue 1): multi-device meshes and packet
-mode.
+`get_pixel_color` traces one pixel's AA samples. `packet_mode` (the
+reference's SIMD build) takes every path; its packets are the 8 AA lanes of
+a pixel. Not in the port yet (raises NotImplementedError; ROADMAP.md Queue
+1): multi-device meshes.
 """
 
 from __future__ import annotations
@@ -65,6 +68,38 @@ class FramePlan:
     @property
     def aa(self) -> int:  # samples actually traced per pixel
         return self.offsets.shape[0]
+
+
+def fetch_schedule(n_tiles: int, max_groups: int = 8, align: int = 1) -> list:
+    """Balanced front-loaded fetch-group sizes summing to `n_tiles` (JAX
+    renderer.py:59-88, cfg.fetch_taper): q+1-sized groups first, then
+    q-sized, q = n_tiles // groups, at most `max_groups` groups and two
+    distinct sizes; the last group is the small one, whose fetch is the
+    frame's exposed tail. `align` > 1 schedules in units of `align` tiles
+    (n_tiles must divide)."""
+    if align > 1:
+        if n_tiles % align:
+            raise ValueError(f"{n_tiles} tiles are not a multiple of align {align}")
+        return [s * align for s in fetch_schedule(n_tiles // align, max_groups)]
+    g = max(1, min(max_groups, n_tiles))
+    q, r = divmod(n_tiles, g)
+    return [q + 1] * r + [q] * (g - r)
+
+
+def launch_groups(cfg: RenderConfig, n_tiles: int) -> list:
+    """Tile counts of the u32 frame's launch groups, in order: groups of
+    `tiles_per_program` tiles where it cuts the frame; else the overlapped
+    fetch's groups (JAX renderer.py:262-321): `fetch_schedule` under
+    `fetch_taper`, a uniform `fetch_groups`-way split where it divides the
+    tiles; else one group."""
+    tpp, fg = cfg.tiles_per_program, cfg.fetch_groups
+    if 0 < tpp < n_tiles:
+        return [min(tpp, n_tiles - s) for s in range(0, n_tiles, tpp)]
+    if fg > 1 and cfg.fetch_taper and n_tiles >= 2:
+        return fetch_schedule(n_tiles, max_groups=fg)
+    if fg > 1 and n_tiles >= fg and n_tiles % fg == 0:
+        return [n_tiles // fg] * fg
+    return [n_tiles]
 
 
 def plan_frame(cfg: RenderConfig) -> FramePlan:
@@ -178,8 +213,10 @@ class RaytracerRenderer:
 
     def __init__(self, cfg: RenderConfig, device=None):
         self.device = resolve_device(device)
-        if cfg.packet_mode:
-            raise NotImplementedError("packet_mode is not ported yet (ROADMAP.md)")
+        if cfg.packet_mode and not cfg.anti_aliasing:
+            # through the renderer a packet is the 8 AA lanes of one pixel;
+            # without AA, 8 unrelated pixels would share their decisions
+            raise ValueError("packet_mode requires anti_aliasing")
         if cfg.devices != 1:
             raise NotImplementedError("multi-device rendering is not ported yet (ROADMAP.md)")
         self.cfg = cfg
@@ -217,23 +254,32 @@ class RaytracerRenderer:
         """The frame as (H*W,) uint32 0xFFRRGGBB pixels, row-major; 0 marks a
         pixel no sample hit. Primary rays come from the device
         (`cfg.device_ray_gen`) or from the host (`build_frame_rays`), the
-        same bits either way. Sets `last_dropped`."""
+        same bits either way. The tiles are traced in `launch_groups`, whose
+        pixels are fetched together at the end. Sets `last_dropped`."""
         cfg = self.cfg
         plan = plan_frame(cfg)
-        n_tiles = plan.n_tiles
+        n_tiles, P = plan.n_tiles, plan.pix_per_tile
         w_dev = self._to_dev(plan.weights)
         if cfg.device_ray_gen:
             order_dev, offs_dev = frame_order_device(cfg, plan, n_tiles, self.device)
-            u32, dropped = trace_rays_tiled_u32_gen(
-                dscene, cfg, order_dev, offs_dev, w_dev, n_tiles=n_tiles
-            )
         else:
             o_all, d_all = build_frame_rays(cfg, plan)
-            u32, dropped = trace_rays_tiled_u32(
-                dscene, cfg, self._to_dev(o_all), self._to_dev(d_all), w_dev
-            )
+        parts = []
+        gs = 0
+        for size in launch_groups(cfg, n_tiles):
+            if cfg.device_ray_gen:
+                u32, dropped = trace_rays_tiled_u32_gen(
+                    dscene, cfg, order_dev[gs * P:(gs + size) * P], offs_dev, w_dev,
+                    n_tiles=size)
+            else:
+                u32, dropped = trace_rays_tiled_u32(
+                    dscene, cfg, self._to_dev(o_all[gs:gs + size]),
+                    self._to_dev(d_all[gs:gs + size]), w_dev)
+            parts.append((u32, dropped))
+            gs += size
+        u32, dropped = (torch.cat(p).cpu() for p in zip(*parts))  # one fetch
         total_pixels = cfg.width * cfg.height
-        px = u32.reshape(-1).cpu().numpy().astype(np.uint32)  # one fetch
+        px = u32.reshape(-1).numpy().astype(np.uint32)
         self.last_dropped = int(dropped.sum())
         _warn_drops(self.last_dropped)
         fb = np.zeros((total_pixels,), np.uint32)

@@ -4,10 +4,11 @@ that start on a block's box, axis-aligned rays, ragged ray counts from 0 to
 a tile, one and eight rays per warp, coincident triangles, and run to run;
 the occlusion kernels on max_distance <= 0 and empty blocks; shade_eval_rows
 bit for bit against shade_eval in both of its forms, with every ray live and
-with few; light_shade at ray counts from 0 to a tile; all of them on
+with few; light_shade at ray counts from 0 to a tile and at 95 lights
+(the SIMD build's packet path); all of them on
 block partitions the JAX package takes: a superblock of more than 32 blocks
 and blocks of 48 rows), the pool's chunk commit, and small renders against
-the CPU twins.
+the CPU twins (the SIMD build's packet frame among them).
 
 Needs an NVIDIA GPU and nvcc; every test carries the `gpu` marker and skips
 from the `cuda` fixture when there is no card. This file imports neither JAX
@@ -412,6 +413,59 @@ def test_light_shade_kernel_widths_and_bits(cuda, scene):
         for _ in range(2):
             assert all(same_bits(x, y) for x, y in zip(got, kernels.light_shade(*args, **kw)))
     assert (got[0].amax(dim=1) > 0).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_rays", [2048, 131072], ids=["W", "R"])
+def test_light_shade_at_95_lights_matches_twin(cuda, n_rays):
+    """The packet path's lighting (reference_default's SIMD build: every
+    node through light_shade, 95 lights in chunks of 16) at the pool's W =
+    2048 and a tile's R: the twin's values within its bar, and the same
+    bits on three runs."""
+    cfg = RenderConfig.reference_default(packet_mode=True, aa_packet_lanes=8,
+                                         weight_cutoff=1e-3)
+    scene = Scene.backface_culling(build("semesterbild", cfg), np.array([0.0, 0.0, 1.0]))
+    ds = build_device_scene(scene, cfg, device=cuda)
+    assert ds.n_lights == 95
+    light, _, _, kw = _shade_inputs(cfg, ds, cuda, n_rays, 95)
+    kernels.reset_launch_counts()
+    got = kernels.light_shade(*light, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["light_shade"] == 1
+    ref = kernels.light_shade_plain(*light, **kw)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=2e-5, atol=2e-6)
+    for _ in range(2):
+        assert all(same_bits(x, y) for x, y in zip(got, kernels.light_shade(*light, **kw)))
+    assert (got[0].amax(dim=1) > 0).any()
+
+
+@pytest.mark.gpu
+def test_packet_render_matches_cpu_twins(cuda):
+    """The SIMD build's frame (packet_mode, 16 AA lanes a pixel) on the
+    pool path, resident and streamed: the card against the CPU twins at
+    the image bar."""
+    kw = dict(width=40, height=30, scene_backface_culling=True, tile_rays=8192,
+              kernel_ray_tile=64, compaction_ratio=8, loop_chunk=16, max_nodes=48,
+              weight_cutoff=1e-3, device_encode=True, packet_mode=True, aa_packet_lanes=8,
+              anti_aliasing_rotation_scale=True, anti_aliasing_randomness=True, **REALISTIC)
+    for extra, used in ((dict(), {"cast_triangles", "light_shade"}),
+                        (dict(stream_triangles=1),
+                         {"cast_triangles_stream", "occlude_triangles_stream"})):
+        cfg = RenderConfig(**kw, **extra)
+        scene = build("semesterbild", cfg)
+        frames = {}
+        for dev in (cuda, "cpu"):
+            r = RaytracerRenderer(cfg, device=dev)
+            kernels.reset_launch_counts()
+            frames[str(dev)] = r.render_u32(r.device_scene(scene))
+            assert r.last_dropped == 0
+            if dev == cuda:
+                assert {k for k, v in kernels.LAUNCHES.items() if v} == used
+        gpu, cpu = frames[str(cuda)], frames["cpu"]
+        assert ((gpu != 0) == (cpu != 0)).mean() > 0.995
+        rgb = lambda f: np.stack([(f >> s) & 0xFF for s in (16, 8, 0)], -1) / 255.0  # noqa: E731
+        assert (np.abs(rgb(gpu) - rgb(cpu)).max(-1) > 2e-3).mean() < 0.005
 
 
 def _partition_scene(dev, name, width=1920, height=1080, edge_sigma=0.006, **features):

@@ -28,6 +28,7 @@ from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch import (
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.models import build
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops import kernels
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops.trace import trace_rays
+from test_torch_renderer import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -78,23 +79,31 @@ def test_entry_points_default_to_the_card():
 
 
 def test_unported_paths_raise():
+    """Only multi-device rendering is still to port: every single-device
+    knob of the JAX package traces (packet mode, the Morton resort, the
+    gather and unique stage modes, commit splits), and packet mode without
+    AA is refused as the JAX renderer refuses it."""
     cfg = _small_cfg()
     ds = build_device_scene(build("semesterbild", cfg), cfg, device="cpu")
     o = torch.zeros((128, 3))
     d = torch.zeros((128, 3))
     d[:, 2] = 1.0
-    unported = [
+    ported = [
         _small_cfg(packet_mode=True, anti_aliasing=True),
         _small_cfg(stage_mode="gather"),
+        _small_cfg(stage_mode="unique"),
         _small_cfg(commit_splits=2),
         _small_cfg(resort_secondary=True),
     ]
-    for bad in unported:
-        with pytest.raises(NotImplementedError):
-            trace_rays(ds, bad, o, d)
-    for bad in (_small_cfg(packet_mode=True, anti_aliasing=True), _small_cfg(devices=2)):
-        with pytest.raises(NotImplementedError):
-            RaytracerRenderer(bad, device="cpu")
+    for knob in ported:
+        color, valid = trace_rays(ds, knob, o, d)
+        assert color.shape == (128, 3) and valid.shape == (128,)
+    r = RaytracerRenderer(_small_cfg(packet_mode=True, anti_aliasing=True), device="cpu")
+    assert r.render_u32(ds).shape == (16 * 8,) and r.last_dropped == 0
+    with pytest.raises(ValueError, match="anti_aliasing"):
+        RaytracerRenderer(_small_cfg(packet_mode=True), device="cpu")
+    with pytest.raises(NotImplementedError):
+        RaytracerRenderer(_small_cfg(devices=2), device="cpu")
     # the f32 (device_encode=False) frame path renders
     cfg = RenderConfig(width=16, height=8)
     assert not cfg.device_encode
