@@ -50,8 +50,8 @@ seconds):
   3. render the full 1920x1080 `realistic` frame (bench.py's settings, the
      packed-row pool path) through RaytracerRenderer(cfg, device="cuda"):
      warm frame wall time, launch counts (cast_triangles and
-     shade_eval_rows > 0, the others 0), dropped rays (0), the u32
-     checksum, and a second warm frame with the same checksum; then the
+     shade_eval_rows > 0, the others 0), dropped rays (0), and the u32
+     checksum, the warm-up frame's too; then the
      frame with the atomic commit (`index_add_`) against the sorted
      commit, in turns old, new, new, old; then three tiles traced with
      torch.profiler (the `realistic` tile 3, the stack-path tile 1 and the
@@ -64,14 +64,16 @@ seconds):
      wall, launches, dropped, valid share, u32 checksum; then the streamed
      frame: 1920x1080 `realistic` on semesterbild plus a seeded cloud of
      120,000 small triangles (`streaming` set by the threshold), through
-     cast_triangles_stream and occlude_triangles_stream only: two warm
-     frames with one checksum, pool iterations, the share of primary rays
+     cast_triangles_stream and occlude_triangles_stream only: a warm-up
+     and a warm frame with one checksum, pool iterations, the share of primary rays
      that hit the cloud, and one tile traced with torch.profiler.
      Every warm frame's checksum must be the one recorded for its path
      (CHECKSUMS: an H100's, the same in every run);
-  5. small frames of every path on the card and through the CPU twins in
-     this process, and of the cloud scene at the two partitions of phase
-     2c: < 0.5% of pixels may differ by more than 2e-3 in linear colour,
+  5. small frames of every path on the card and through the CPU twins,
+     and of the cloud scene at the two partitions of phase 2c (the twins'
+     frames of phases 5-7 are rendered by a process of their own,
+     utils/harness.py::twin_frames, started after phase 3 and ended in
+     phase 7, while the card runs the phases between): < 0.5% of pixels may differ by more than 2e-3 in linear colour,
      and `valid` may differ only at knife edges (< 0.5%);
   6. the user's entry points: reference_default at 1140x950 through the
      f32 frame path (`device_encode=False`: host-built rays, the AA samples
@@ -106,6 +108,21 @@ seconds):
      triangle_block over (32, 64, 128, 256, 512) on the `realistic` scene,
      each candidate's ms, and the tuned frame at phase 5's bar against
      phase 3's;
+  7b. multi-device rendering (parallel/mesh.py) on a mesh that lists the
+     card several times (each entry a host thread and a stream of its own;
+     no scaling is measured): the 1080p `realistic` frame through
+     RaytracerRenderer(devices=2 and 4, device=["cuda:0"] * k) and the
+     1080p `default` frame at devices=4, each twice (a first and a warm
+     frame, as phase 3 runs a path) with its one-device checksum and
+     launches and dropped 0, its walls beside the one-device walls; on a
+     host with more cards, `realistic` on all of them, on one card
+     RaytracerRenderer(devices=2) raising; cast_nearest_objsharded on four
+     entries over the streamed cloud scene (blocks padded to a multiple of
+     4), tile 3's 131,072 primary rays, against the dense cast (valid and
+     object index identical, t within 1e-6 relative; 4 launches of
+     cast_triangles_stream); render_image_sharded and trace_rays_sharded
+     on tile 3 of `default` bit for bit trace_rays, and on tile 3 of
+     `realistic` within tests/test_multichip.py's bar;
   8. print the {"kernels": [...]} line, then the {"ok": true, ...} line.
 With --report, the measurements also go to PATH as JSON.
 
@@ -115,12 +132,15 @@ Exits non-zero without a CUDA device. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import hashlib
 import json
 import os
+import pickle
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -159,6 +179,7 @@ from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops.intersect import (  # no
     occlude_rays,
 )
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.output import read_png  # noqa: E402
+from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch import parallel  # noqa: E402
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.scene.builder import Scene  # noqa: E402
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops.vecmath import normalized  # noqa: E402
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.renderer import (  # noqa: E402
@@ -1042,10 +1063,6 @@ def frame_phase(label, c, r, scene, expect):
 # ---- phase 3: the 1080p realistic frame (packed-row pool path) -----------
 with phase("realistic"):
     fb1, _ = frame_phase("realistic", cfg, renderer, ds, ("cast_triangles", "shade_eval_rows"))
-    fb2, wall2, _, _ = run_frame(renderer, ds)
-    assert checksum(fb1) == checksum(fb2), "two warm realistic frames differ"
-    log(f"second warm realistic frame: {wall2 * 1e3:.1f} ms, same u32 checksum")
-    frames["realistic"]["wall_ms_second"] = wall2 * 1e3
 
     # the commit A/B in one process: the atomic index_add_ against the
     # sorted commit, in turns old, new, new, old
@@ -1132,6 +1149,97 @@ with phase("profile"):
     report["tile_profile_soft_shadows"] = profile_tile(
         "soft_shadows", scenes["soft_shadows"], "light_shade", c_soft, 3)
 
+# ---- the CPU twins' frames of phases 5-7, in a process of their own ------
+# They take minutes of the host's CPU, the card's phases one core: a process
+# renders them while the card runs phases 4 to 6. It starts after phase 3,
+# whose one-device walls the mesh phase compares with, and ends before it.
+# phase 5: small frames of every path
+SMALL = {
+    "realistic": (240, 135, REALISTIC),
+    "unpacked": (240, 135, dict(REALISTIC, packed_stage=False)),
+    "stack": (120, 68, dict(REALISTIC, compaction_ratio=1)),
+    "default": (240, 135, LIGHTING["default"]),
+    "anti_aliasing": (120, 68, LIGHTING["anti_aliasing"]),
+    "soft_shadows": (120, 68, LIGHTING["soft_shadows"]),
+    # forced past the threshold: the plain node over the streamed kernels
+    "streamed": (240, 135, dict(REALISTIC, stream_triangles=1)),
+    # the cloud scene at the two partitions, the pool path: their CPU twins
+    # walk 52-78 blocks per node, so these frames are the smallest
+    "superblock64": (120, 68, REALISTIC),
+    "block48": (64, 48, REALISTIC),
+}
+# card against the CPU twins at these flags: the pool path at a width the
+# twins can afford (their shadow scans test every light against every row)
+TWIN_SMALL = dict(kernel_ray_tile=64, compaction_ratio=8, loop_chunk=8)
+HQ_SMALL = {"reference_default": (CFG_REF, 40, 30), "extreme": (CFG_EXT, 20, 15)}
+# reference_default as the reference's simd_render build (config.py
+# packet_mode): 16 AA lanes a pixel (two packets of 8, no dedupe), 133 tiles
+# of 131,072 rays, every node through the plain node (cast_triangles, then
+# light_shade with 95 lights, then the packet reductions in PyTorch)
+CFG_PKT = dataclasses.replace(CFG_REF, packet_mode=True, aa_packet_lanes=8)
+TWIN_DIR = os.path.join(ROOT_DIR, "out", "twins")
+
+
+def twin_jobs():
+    """{label: (config, host scene, whether it streams)} of every frame
+    that the card renders beside its CPU twins, in the order of use."""
+    jobs = {}
+    for label, (w, h, feats) in SMALL.items():
+        if label in PARTITIONS:
+            c, host = partition_scene(label, w, h, feats, 0.05)
+        else:
+            c = RenderConfig(width=w, height=h, **dict(MAIN, **feats))
+            host = build("semesterbild", c)
+        jobs[label] = (c, host, label == "streamed")
+    configs = {label: dataclasses.replace(c_hq, width=w, height=h, **TWIN_SMALL)
+               for label, (c_hq, w, h) in HQ_SMALL.items()}
+    # the packet flags: resident, and on a streamed scene (the plain node
+    # over the streamed kernels)
+    configs["packet"] = dataclasses.replace(CFG_PKT, width=24, height=18, **TWIN_SMALL)
+    configs["packet_streamed"] = dataclasses.replace(
+        CFG_PKT, width=12, height=10, stream_triangles=1, **TWIN_SMALL)
+    for label, c in configs.items():
+        jobs[label] = (c, build("semesterbild", c), label == "packet_streamed")
+    return jobs
+
+
+def start_twins(jobs):
+    """The process that renders `jobs` through the CPU twins
+    (utils/harness.py::twin_frames), one file each into TWIN_DIR."""
+    shutil.rmtree(TWIN_DIR, ignore_errors=True)
+    os.makedirs(TWIN_DIR)
+    path = os.path.join(TWIN_DIR, "jobs.pkl")
+    with open(path, "wb") as f:
+        pickle.dump([(label, c, host) for label, (c, host, _) in jobs.items()], f)
+    threads = max(1, torch.get_num_threads() - 2)  # the rest for this process
+    with open(os.path.join(TWIN_DIR, "process.log"), "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.utils.harness",
+             path, str(threads)], cwd=ROOT_DIR, stdout=out, stderr=subprocess.STDOUT)
+    atexit.register(proc.kill)  # a phase that fails ends it too
+    log(f"CPU twins: {len(jobs)} frames in a process of their own ({threads} torch threads)")
+    return proc
+
+
+def twin_frame(label):
+    """(u32 frame, dropped, whether the scene streamed, seconds in the
+    twins' process, seconds waited here) of one twin frame."""
+    path = os.path.join(TWIN_DIR, f"{label}.npz")
+    t0 = time.monotonic()
+    while not os.path.exists(path):
+        if twin_proc.poll() is not None and not os.path.exists(path):
+            with open(os.path.join(TWIN_DIR, "process.log")) as f:
+                raise RuntimeError(f"the CPU twins' process ended ({twin_proc.returncode}) "
+                                   f"before {label}: {f.read()[-3000:]}")
+        time.sleep(0.2)
+    with np.load(path) as z:
+        return (z["frame"], int(z["dropped"]), bool(z["streaming"]), float(z["seconds"]),
+                time.monotonic() - t0)
+
+
+TWINS = twin_jobs()
+twin_proc = start_twins(TWINS)
+
 # ---- phase 4: the other paths at their sizes -----------------------------
 with phase("paths"):
     for name in sorted(LIGHTING):
@@ -1150,10 +1258,7 @@ with phase("paths"):
 # ---- phase 4b: the streamed frame at full width ---------------------------
 with phase("streamed"):
     STREAMED = ("cast_triangles_stream", "occlude_triangles_stream")
-    fb_s1, _ = frame_phase("streamed", cfg, renderer, ds_cloud, STREAMED)
-    fb_s2, wall_s2, _, _ = run_frame(renderer, ds_cloud)
-    assert checksum(fb_s1) == checksum(fb_s2), "two warm streamed frames differ"
-    frames["streamed"]["wall_ms_second"] = wall_s2 * 1e3
+    frame_phase("streamed", cfg, renderer, ds_cloud, STREAMED)
     n_nodes = frames["streamed"]["launches"]["cast_triangles_stream"]
     assert frames["streamed"]["launches"]["occlude_triangles_stream"] == n_nodes
     # which primary rays see the cloud (outside the counted frames)
@@ -1166,8 +1271,7 @@ with phase("streamed"):
     cloud_share = cloud_hits / (plan.n_tiles * R)
     assert 0.02 < cloud_share < 0.9, cloud_share
     frames["streamed"].update(pool_iterations=n_nodes - plan.n_tiles, cloud_share=cloud_share)
-    log(f"second warm streamed frame: {wall_s2 * 1e3:.1f} ms, same u32 checksum; "
-        f"{n_nodes - plan.n_tiles} pool iterations in {plan.n_tiles} tiles; "
+    log(f"streamed: {n_nodes - plan.n_tiles} pool iterations in {plan.n_tiles} tiles; "
         f"{cloud_share:.4f} of the primary rays hit the cloud")
     report["tile_profile_streamed"] = profile_tile("streamed", ds_cloud, "cast_triangles_stream")
 
@@ -1187,45 +1291,27 @@ def phase5_bar(label, a, b):
 
 
 # ---- phase 5: small frames, card against the CPU twins --------------------
-SMALL = {
-    "realistic": (240, 135, REALISTIC),
-    "unpacked": (240, 135, dict(REALISTIC, packed_stage=False)),
-    "stack": (120, 68, dict(REALISTIC, compaction_ratio=1)),
-    "default": (240, 135, LIGHTING["default"]),
-    "anti_aliasing": (120, 68, LIGHTING["anti_aliasing"]),
-    "soft_shadows": (120, 68, LIGHTING["soft_shadows"]),
-    # forced past the threshold: the plain node over the streamed kernels
-    "streamed": (240, 135, dict(REALISTIC, stream_triangles=1)),
-    # the cloud scene at the two partitions, the pool path: their CPU twins
-    # walk 52-78 blocks per node, so these frames are the smallest
-    "superblock64": (120, 68, REALISTIC),
-    "block48": (64, 48, REALISTIC),
-}
 with phase("card_vs_cpu"):
     report["image_check"] = {}
-    for label, (w, h, feats) in SMALL.items():
-        if label in PARTITIONS:
-            c, host = partition_scene(label, w, h, feats, 0.05)
-        else:
-            c, host = RenderConfig(width=w, height=h, **dict(MAIN, **feats)), None
-        out = {}
-        for dev in ("cuda", "cpu"):
-            r = RaytracerRenderer(c, device=dev)
-            t0 = time.monotonic()
-            scene_small = r.device_scene(build("semesterbild", c) if host is None else host)
-            assert scene_small.streaming == (label == "streamed")
-            out[dev] = r.render_u32(scene_small)
-            assert r.last_dropped == 0
-            out[dev + "_s"] = time.monotonic() - t0
-        gpu, cpu = out["cuda"], out["cpu"]
+    for label, (w, h, _) in SMALL.items():
+        c, host, streamed = TWINS[label]
+        r = RaytracerRenderer(c, device="cuda")
+        t0 = time.monotonic()
+        scene_small = r.device_scene(host)
+        assert scene_small.streaming == streamed
+        gpu = r.render_u32(scene_small)
+        assert r.last_dropped == 0
+        gpu_s = time.monotonic() - t0
+        cpu, cpu_dropped, cpu_streamed, cpu_s, waited = twin_frame(label)
+        assert cpu_dropped == 0 and cpu_streamed == streamed
         off, valid_diff = phase5_bar(label, gpu, cpu)
         n_px = gpu.size
         log(f"{label} {w}x{h} card vs CPU twins: {off} of {n_px} pixels off by > 2e-3 "
             f"({off / n_px:.4%}), valid differs at {valid_diff} (knife edges); card "
-            f"{out['cuda_s']:.1f} s, CPU {out['cpu_s']:.1f} s")
+            f"{gpu_s:.1f} s, CPU {cpu_s:.1f} s in the twins' process (waited {waited:.1f} s)")
         assert (gpu != 0).mean() > 0.5, label
         report["image_check"][label] = dict(size=f"{w}x{h}", pixels=n_px, off=off,
-                                            valid_diff=valid_diff)
+                                            valid_diff=valid_diff, cpu_s=cpu_s, waited_s=waited)
 
 # ---- phase 6: the user's entry points at the reference's configurations --
 def used(launches):
@@ -1243,35 +1329,31 @@ PRESETS = {"default": RenderConfig.default_scene, "realistic": RenderConfig.real
 # the CLI's runs: (scene, preset, width, height; None: the preset's own size)
 CLI_RUNS = (("semesterbild", "realistic", None, None), ("test_scene", "default", 384, 320),
             ("test_text", "realistic", 384, 320))
-# card against the CPU twins at these flags: the pool path at a width the
-# twins can afford (their shadow scans test every light against every row)
-TWIN_SMALL = dict(kernel_ray_tile=64, compaction_ratio=8, loop_chunk=8)
-HQ_SMALL = {"reference_default": (CFG_REF, 40, 30), "extreme": (CFG_EXT, 20, 15)}
 NODE_PATH = ("cast_triangles", "shade_eval_rows")
 
-def card_vs_twins(label, c, streamed=False):
-    """A small frame of config c on the card and through the CPU twins, on
-    the pool path: phase 5's bar, the same drops."""
-    out = {}
-    for dev in ("cuda", "cpu"):
-        r = RaytracerRenderer(c, device=dev)
-        t0 = time.monotonic()
-        scene = r.device_scene(build("semesterbild", c))
-        assert scene.streaming == streamed
-        out[dev] = r.render_u32(scene)
-        out[dev + "_s"], out[dev + "_dropped"] = time.monotonic() - t0, r.last_dropped
-    gpu, cpu = out["cuda"], out["cpu"]
+def card_vs_twins(label):
+    """A small frame of TWINS[label] on the card and through the CPU twins,
+    on the pool path: phase 5's bar, the same drops."""
+    c, host, streamed = TWINS[label]
+    r = RaytracerRenderer(c, device="cuda")
+    t0 = time.monotonic()
+    scene = r.device_scene(host)
+    assert scene.streaming == streamed
+    gpu = r.render_u32(scene)
+    gpu_s, gpu_dropped = time.monotonic() - t0, r.last_dropped
+    cpu, cpu_dropped, cpu_streamed, cpu_s, waited = twin_frame(label)
+    assert cpu_streamed == streamed
     p_small = plan_frame(c)
     assert p_small.pix_per_tile * p_small.aa >= c.kernel_ray_tile * c.compaction_ratio
     off, valid_diff = phase5_bar(label, gpu, cpu)
     log(f"{label} {c.width}x{c.height} card vs CPU twins (pool path, W = "
         f"{(p_small.pix_per_tile * p_small.aa // c.compaction_ratio) // c.kernel_ray_tile * c.kernel_ray_tile}): "
         f"{off} of {gpu.size} pixels off by > 2e-3, valid differs at {valid_diff}; dropped "
-        f"{out['cuda_dropped']} / {out['cpu_dropped']}; card {out['cuda_s']:.1f} s, CPU "
-        f"{out['cpu_s']:.1f} s")
-    assert out["cuda_dropped"] == out["cpu_dropped"] and (gpu != 0).mean() > 0.5, label
+        f"{gpu_dropped} / {cpu_dropped}; card {gpu_s:.1f} s, CPU {cpu_s:.1f} s in the twins' "
+        f"process (waited {waited:.1f} s)")
+    assert gpu_dropped == cpu_dropped and (gpu != 0).mean() > 0.5, label
     report["image_check"][label] = dict(size=f"{c.width}x{c.height}", pixels=gpu.size, off=off,
-                                        valid_diff=valid_diff, cpu_s=out["cpu_s"])
+                                        valid_diff=valid_diff, cpu_s=cpu_s, waited_s=waited)
 
 
 with phase("entry_points"):
@@ -1379,15 +1461,10 @@ with phase("entry_points"):
                                  wall_ms_fused=wall_fused * 1e3, pixel_err=pixel_err)
 
     # card against the CPU twins at reference_default's and extreme's flags
-    for label, (c_hq, w, h) in HQ_SMALL.items():
-        card_vs_twins(label, dataclasses.replace(c_hq, width=w, height=h, **TWIN_SMALL))
+    for label in HQ_SMALL:
+        card_vs_twins(label)
 
 # ---- phase 7: the reference's SIMD build and the pool's knobs -------------
-# reference_default as the reference's simd_render build (config.py
-# packet_mode): 16 AA lanes a pixel (two packets of 8, no dedupe), 133 tiles
-# of 131,072 rays, every node through the plain node (cast_triangles, then
-# light_shade with 95 lights, then the packet reductions in PyTorch)
-CFG_PKT = dataclasses.replace(CFG_REF, packet_mode=True, aa_packet_lanes=8)
 PACKET_PATH = ("cast_triangles", "light_shade")
 PKT_SMALL = (228, 190)
 
@@ -1440,9 +1517,9 @@ with phase("simd_build"):
 
     # the packet flags on the card and through the CPU twins: resident, and
     # on a streamed scene (the plain node over the streamed kernels)
-    card_vs_twins("packet", dataclasses.replace(CFG_PKT, width=24, height=18, **TWIN_SMALL))
-    card_vs_twins("packet_streamed", dataclasses.replace(
-        CFG_PKT, width=12, height=10, stream_triangles=1, **TWIN_SMALL), streamed=True)
+    card_vs_twins("packet")
+    card_vs_twins("packet_streamed")
+    assert twin_proc.wait(timeout=60) == 0, twin_proc.returncode  # the twins' last frame
 
     # the pool's knobs at 1080p realistic: the same frame (the port takes
     # one row scatter and one commit per chunk whatever they say)
@@ -1497,6 +1574,122 @@ with phase("simd_build"):
                              seconds=tune_s, wall_ms=wall_t * 1e3, off=off)
     report["knobs"] = knobs
 
+# ---- phase 7b: multi-device rendering on one card -------------------------
+# A mesh lists the card k times: k shards with a host thread and a stream
+# each, the scene replicated per device (once here), the results joined on
+# the lead entry. It measures no scaling: the entries share one card.
+def mesh_frame(label, c, devs, scene):
+    """Frame `label` (config c) through RaytracerRenderer(devices=len(devs))
+    on the mesh `devs`, twice, as `frame_phase` runs a path: the first frame
+    on the new renderer's streams (their allocator pools empty), then the
+    warm frame, whose wall stands beside the one-device warm wall. Each
+    with the one-device frame's checksum and launches, dropped 0."""
+    r_m = RaytracerRenderer(dataclasses.replace(c, devices=len(devs)), device=devs)
+    one = frames[label]
+    walls = []
+    for _ in range(2):
+        fb, wall, launches = timed_run(lambda: r_m.render_u32(scene))
+        assert checksum(fb) == CHECKSUMS[label], (label, checksum(fb))
+        assert launches == one["launches"], (label, launches, one["launches"])
+        assert r_m.last_dropped == 0
+        walls.append(wall * 1e3)
+    log(f"{label} 1080p on {len(devs)} mesh entries ({', '.join(map(str, devs))}): warm frame "
+        f"{walls[1]:.1f} ms (first {walls[0]:.1f} ms) against {one['wall_ms']:.1f} ms warm on one "
+        f"device (first {one['wall_ms_first']:.1f} ms; {report['card']}; the entries share one "
+        f"card: no scaling is measured); launches {used(launches)}, dropped {r_m.last_dropped}, "
+        f"u32 sha256 {checksum(fb)} both times")
+    return dict(entries=[str(x) for x in devs], wall_ms=walls[1], wall_ms_first=walls[0],
+                wall_ms_one_device=one["wall_ms"], wall_ms_first_one_device=one["wall_ms_first"],
+                launches=launches, checksum=checksum(fb))
+
+
+with phase("mesh"):
+    mesh_report = {}
+    one_card = ["cuda:0"]
+    # (a) the realistic frame on 2 and 4 entries, the default frame on 4
+    for k in (2, 4):
+        mesh_report[f"realistic_x{k}"] = mesh_frame("realistic", cfg, one_card * k, ds)
+    mesh_report["default_x4"] = mesh_frame("default", c_def, one_card * 4, scenes["default"])
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        mesh_report[f"realistic_cards{n_cards}"] = mesh_frame(
+            "realistic", cfg, [f"cuda:{i}" for i in range(n_cards)], ds)
+    else:
+        # (d) no fallback: a mesh of more cards than the host has is refused
+        try:
+            RaytracerRenderer(dataclasses.replace(cfg, devices=2))
+        except RuntimeError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("RaytracerRenderer(devices=2) on a host with one card")
+        log(f"RaytracerRenderer(devices=2) on this one-card host raises: {refused}")
+        mesh_report["refused"] = refused
+
+    # (b) the objs axis: cast_nearest_objsharded over 4 entries on the
+    # streamed cloud scene, its blocks padded to a multiple of 4, tile 3's
+    # primary rays, against the dense cast on one device
+    t0 = time.monotonic()
+    ds_cloud4 = build_device_scene(
+        Scene.backface_culling(build("semesterbild_cloud", cfg), np.array([0.0, 0.0, 1.0])),
+        cfg, min_tri_blocks=4, device=DEV)
+    assert ds_cloud4.streaming and ds_cloud4.triangle_blocks % 4 == 0
+    build_s = time.monotonic() - t0
+    mesh4 = parallel.make_mesh(devices=one_card * 4, axis="objs")
+    bf = cfg.backface_culling
+    (t_s, idx_s, valid_s), wall_s, launches_s = timed_run(
+        lambda: parallel.cast_nearest_objsharded(ds_cloud4, o_prim, d_prim, mesh4, bf))
+    hit = cast_rays(ds_cloud4, o_prim, d_prim, bf)
+    torch.cuda.synchronize()
+    assert used(launches_s) == {"cast_triangles_stream": 4}, launches_s
+    assert torch.equal(valid_s, hit.valid) and torch.equal(idx_s[valid_s], hit.obj_idx[valid_s])
+    t_err = float(((t_s - hit.t).abs() / hit.t.abs())[valid_s].max())
+    assert t_err <= 1e-6, t_err
+    first = ds_cloud4.sphere_slots + ds_cloud4.n_bigtris
+    runs = ((idx_s[valid_s & (idx_s >= first)] - first) // ds_cloud4.tri_block
+            // (ds_cloud4.triangle_blocks // 4)).unique().tolist()
+    log(f"objs axis: cast_nearest_objsharded on 4 entries, {ds_cloud4.triangle_blocks} blocks "
+        f"(scene built in {build_s:.1f} s), {o_prim.shape[0]} rays: {wall_s * 1e3:.1f} ms, "
+        f"launches {used(launches_s)}; valid and object index those of the dense cast, t within "
+        f"{t_err:.3g} relative; hits in the block runs of entries {runs}")
+    mesh_report["objs_cast"] = dict(blocks=ds_cloud4.triangle_blocks, rays=o_prim.shape[0],
+                                    wall_ms=wall_s * 1e3, launches=launches_s, t_rel_err=t_err,
+                                    entries_hit=runs)
+    del ds_cloud4
+
+    # (c) the rays axis on one 1080p tile (tile 3) over 4 entries: the
+    # lighting-only tile traces each ray alone, so render_image_sharded and
+    # the joined trace_rays_sharded have trace_rays' bits; a realistic tile's
+    # shares take the pool at their own width, whose service order moves the
+    # f32 sums by rounding (parallel/mesh.py): tests/test_multichip.py's bar
+    mesh_rays = parallel.make_mesh(devices=one_card * 4)
+    o_d, d_d = tile_rays(c_def, 3)
+    c1, v1 = trace.trace_rays(scenes["default"], c_def, o_d, d_d)
+    cm, vm = parallel.render_image_sharded(scenes["default"], c_def, o_d, d_d, mesh_rays)
+    shards = parallel.trace_rays_sharded(scenes["default"], c_def, o_d, d_d, mesh_rays)
+    torch.cuda.synchronize()
+    assert same_bits(cm, c1) and torch.equal(vm, v1), "default tile: not trace_rays' bits"
+    assert len(shards) == 4 and all(c.device == torch.device("cuda", 0) for c, _ in shards)
+    assert same_bits(torch.cat([c for c, _ in shards]), c1)
+    assert torch.equal(torch.cat([v for _, v in shards]), v1)
+    c1, v1 = trace.trace_rays(ds, cfg, o_prim, d_prim)
+    cm, vm = parallel.render_image_sharded(ds, cfg, o_prim, d_prim, mesh_rays)
+    torch.cuda.synchronize()
+    n_moved = int((cm != c1).any(-1).sum())
+    tile_err = float((cm - c1).abs().max())
+    assert torch.equal(vm, v1) and torch.allclose(cm, c1, rtol=1e-5, atol=1e-6), tile_err
+    log(f"rays axis, tile 3 on 4 entries: default tile ({o_d.shape[0]} rays) trace_rays' bits "
+        f"(joined and in shards); realistic tile valid identical, {n_moved} rays' colours "
+        f"moved by rounding, at most {tile_err:.3g}")
+    mesh_report["rays_axis"] = dict(default_bits=True, realistic_rays_moved=n_moved,
+                                    realistic_max_err=tile_err)
+    report["mesh"] = mesh_report
+    # the main path's launches on a mesh: the 4-entry frames and the cast
+    launches_mesh = dict(mesh_report["realistic_x4"]["launches"])
+    launches_mesh["light_shade"] = mesh_report["default_x4"]["launches"]["light_shade"]
+    launches_mesh["cast_triangles_stream"] = launches_s["cast_triangles_stream"]
+    for name in ("cast_triangles", "shade_eval_rows", "light_shade", "cast_triangles_stream"):
+        assert launches_mesh[name] > 0, name
+
 # ---- phase 8: results ----------------------------------------------------
 # each kernel's launches: from the path it serves (the frame of phase 3/4)
 frames["occlude_rays"] = dict(launches=entry_launches)
@@ -1531,6 +1724,8 @@ for name, (src, tpu_line, path, main, others) in ENTRIES.items():
         library_ms=None, launches_path=path, rays=m["R"],
         launches_packet=frames["packet"]["launches"][name],
     )
+    if name in ("cast_triangles", "cast_triangles_stream", "shade_eval_rows", "light_shade"):
+        entry["launches_mesh"] = launches_mesh[name]
     for label in others:
         o_res = results[name][label]
         sfx = EXTRA[label]

@@ -16,8 +16,9 @@ import argparse
 import dataclasses
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(prog="f2501_raytracer_tpu_torch")
+def build_parser(**kw) -> argparse.ArgumentParser:
+    """The flags the CLI and the examples share."""
+    ap = argparse.ArgumentParser(**kw)
     ap.add_argument("--scene", default="semesterbild",
                     choices=["semesterbild", "test_scene", "test_text"])
     ap.add_argument("--preset", default="realistic",
@@ -26,15 +27,17 @@ def main(argv=None):
     ap.add_argument("--height", type=int, default=None)
     ap.add_argument("--out", default="./output.png")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--progress", action="store_true",
-                    help="per-tile progressive rendering with status output")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="render on the card (default) or on the CPU")
-    args = ap.parse_args(argv)
+    return ap
 
+
+def setup(ap, args, width=None, height=None):
+    """(cfg, scene, renderer) for the parsed shared flags; `width` and
+    `height` stand in for --width and --height where those are not given.
+    Without the device asked for, the parser exits with the device message."""
     from . import RaytracerRenderer, RenderConfig
     from .models import build
-    from .output import FileOutput
     from .utils.devices import resolve_device
 
     try:
@@ -49,18 +52,32 @@ def main(argv=None):
     }[args.preset]
     # reference_default sets scene_backface_culling itself (passing it again,
     # as the JAX package's CLI does, is a duplicate keyword)
-    cfg = dataclasses.replace(preset(width=args.width, height=args.height, seed=args.seed),
-                              scene_backface_culling=True)
+    cfg = dataclasses.replace(
+        preset(width=args.width or width, height=args.height or height, seed=args.seed),
+        scene_backface_culling=True)
+    return cfg, build(args.scene, cfg), RaytracerRenderer(cfg, device=device)
 
-    scene = build(args.scene, cfg)
+
+def save(buf, out: str) -> None:
+    """Print the frame's timing and write it to `out` as a PNG."""
+    from .output import FileOutput
+
+    print(f"Render timing done! {buf.timing!r}")
+    FileOutput(out).render_buffer(buf)
+    print(f"saved {out}")
+
+
+def main(argv=None):
+    ap = build_parser(prog="f2501_raytracer_tpu_torch")
+    ap.add_argument("--progress", action="store_true",
+                    help="per-tile progressive rendering with status output")
+    args = ap.parse_args(argv)
+    cfg, scene, renderer = setup(ap, args)
     print(f"Num of obj in scene: {len(scene.scene_objects)}")
     print(cfg.feature_string())
 
     cb = (lambda b, f: print(f"  {f:6.1%}", end="\r")) if args.progress else None
-    buf = RaytracerRenderer(cfg, device=device).render(scene, progress=cb)
-    print(f"Render timing done! {buf.timing!r}")
-    FileOutput(args.out).render_buffer(buf)
-    print(f"saved {args.out}")
+    save(renderer.render(scene, progress=cb), args.out)
 
 
 if __name__ == "__main__":

@@ -25,8 +25,10 @@ three shading kernels share the device code of `rt_light.cuh` and
 They are built with nvcc on first use into `build/torch_kernels/` at the
 repository root (keyed by a hash of the sources and flags; one nvcc per
 source, all started together) and loaded with ctypes. Each kernel launches
-on `torch.cuda.current_stream()` and its C entry point returns
-`cudaGetLastError()`; the wrapper raises if that is not 0.
+on the current stream of its tensors' device, which must be the current
+device, and its C entry point returns `cudaGetLastError()`; the wrapper
+raises if that is not 0. Wrappers may be called from several host threads
+at once (a mesh runs one per entry, parallel/mesh.py).
 
 The device of the input tensors picks the implementation: a CUDA tensor
 goes to the kernel (or the call raises); a CPU tensor goes to the plain
@@ -72,13 +74,15 @@ NVCC_FLAGS = (
 
 LAUNCHES = {name: 0 for name in KERNEL_SOURCES}
 
+# the builds, the loaded libraries, LAUNCHES and the tables' caches
 _lock = threading.Lock()
 _libs: dict = {}
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def _nvcc() -> str:
@@ -200,12 +204,20 @@ def _check(t, name, dtype, shape, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _launch(name, *args):
-    stream = torch.cuda.current_stream().cuda_stream
+def _launch(dev, name, *args):
+    """Launch kernel `name` on the current stream of `dev`, the device of
+    the call's tensors, which must be the current device: a launch runs on
+    the current device whatever its pointers say. Callable from several
+    host threads at once (one per device or stream of a mesh)."""
+    if torch.cuda.current_device() != dev.index:
+        raise RuntimeError(f"{name}: tensors on {dev}, but the current device is "
+                           f"cuda:{torch.cuda.current_device()}")
+    stream = torch.cuda.current_stream(dev).cuda_stream
     err = _fn(name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
-    LAUNCHES[name] += 1
+    with _lock:
+        LAUNCHES[name] += 1
 
 
 def _ptr(t):
@@ -223,15 +235,16 @@ def _sb_start(sb_sizes, nb, device):
     """Superblock start offsets (n_groups + 1,) int32 on the device, cached:
     building them per call would cost a host-to-device copy each time."""
     key = (tuple(sb_sizes), nb, str(device))
-    if key not in _sb_cache:
-        sizes = list(sb_sizes) or [1] * nb
-        if sum(sizes) != nb:
-            raise ValueError(f"superblock sizes {sizes} do not cover {nb} blocks")
-        starts = [0]
-        for n in sizes:
-            starts.append(starts[-1] + n)
-        _sb_cache[key] = torch.tensor(starts, dtype=torch.int32, device=device)
-    return _sb_cache[key]
+    with _lock:
+        if key not in _sb_cache:
+            sizes = list(sb_sizes) or [1] * nb
+            if sum(sizes) != nb:
+                raise ValueError(f"superblock sizes {sizes} do not cover {nb} blocks")
+            starts = [0]
+            for n in sizes:
+                starts.append(starts[-1] + n)
+            _sb_cache[key] = torch.tensor(starts, dtype=torch.int32, device=device)
+        return _sb_cache[key]
 
 
 def _nearest_over_blocks(best_t, best_idx, tri_cast_pack, base, o4, d, backface_culling):
@@ -277,7 +290,7 @@ def cast_triangles(trb_pack, tri_cast_pack, tri_aabb, tri_saabb, o, d, *, sb_siz
                                      trb_pack=trb_pack)
     t_out = torch.empty((R,), dtype=torch.float32, device=dev)
     idx_out = torch.empty((R,), dtype=torch.int32, device=dev)
-    _launch(
+    _launch(dev,
         "cast_triangles", _ptr(o), _ptr(d), R, _ptr(trb_pack), P, _ptr(tri_cast_pack), nb, B,
         _ptr(tri_aabb), _ptr(tri_saabb), _ptr(sb), nsb, sb_shift, rays_per_warp(R, many=32),
         int(bool(backface_culling)), _ptr(t_out), _ptr(idx_out),
@@ -387,7 +400,7 @@ def cast_triangles_stream(tri_cast_pack, tri_aabb, tri_saabb, o, d, *, sb_sizes,
     sb, nsb, sb_shift = _warp_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes)
     t_out = torch.empty((R,), dtype=torch.float32, device=dev)
     idx_out = torch.empty((R,), dtype=torch.int32, device=dev)
-    _launch(
+    _launch(dev,
         "cast_triangles_stream", _ptr(o), _ptr(d), R, _ptr(tri_cast_pack), nb, B,
         _ptr(tri_aabb), _ptr(tri_saabb), _ptr(sb), nsb, sb_shift, rays_per_warp(R),
         int(bool(backface_culling)), _ptr(t_out), _ptr(idx_out),
@@ -409,12 +422,13 @@ def _block_httr(block_has_trans, nb, device):
     scene past `stream_triangles` has thousands of blocks, and building the
     table per call would cost a host-to-device copy each time."""
     key = (tuple(block_has_trans), nb, str(device))
-    if key not in _httr_cache:
-        flags = [float(bool(f)) for f in block_has_trans] or [1.0] * nb
-        if len(flags) != nb:
-            raise ValueError(f"block_has_trans has {len(flags)} entries for {nb} blocks")
-        _httr_cache[key] = torch.tensor(flags, dtype=torch.float32, device=device)
-    return _httr_cache[key]
+    with _lock:
+        if key not in _httr_cache:
+            flags = [float(bool(f)) for f in block_has_trans] or [1.0] * nb
+            if len(flags) != nb:
+                raise ValueError(f"block_has_trans has {len(flags)} entries for {nb} blocks")
+            _httr_cache[key] = torch.tensor(flags, dtype=torch.float32, device=device)
+        return _httr_cache[key]
 
 
 def _occlude_packs_plain(packs, o, d, max_distance, backface_culling):
@@ -472,7 +486,7 @@ def occlude_triangles_stream(tri_cast_pack, tri_aabb, tri_saabb, o, d, max_dista
     sb, nsb, sb_shift = _warp_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes)
     httr = _block_httr(block_has_trans, nb, dev)
     dec, opq, fsub = _occlusion_outputs(R, dev)
-    _launch(
+    _launch(dev,
         "occlude_triangles_stream", _ptr(o), _ptr(d), _ptr(max_distance), R,
         _ptr(tri_cast_pack), nb, B, _ptr(tri_aabb), _ptr(tri_saabb), _ptr(sb), nsb,
         sb_shift, rays_per_warp(R), _ptr(httr), int(bool(backface_culling)), _ptr(dec),
@@ -504,7 +518,7 @@ def occlude_triangles(trb_pack, tri_cast_pack, tri_aabb, tri_saabb, o, d, max_di
                                      trb_pack=trb_pack)
     httr = _block_httr(block_has_trans, nb, dev)
     dec, opq, fsub = _occlusion_outputs(R, dev)
-    _launch(
+    _launch(dev,
         "occlude_triangles", _ptr(o), _ptr(d), _ptr(max_distance), R,
         _ptr(trb_pack), P, int(bool(bigtri_trans)), _ptr(tri_cast_pack), nb, B,
         _ptr(tri_aabb), _ptr(tri_saabb), _ptr(sb), nsb, sb_shift, rays_per_warp(R, many=32),
@@ -645,7 +659,7 @@ def light_shade(light_pack, sph_pack, trb_pack, tri_blk_pack, tri_blk_aabb,
     R = point.shape[0]
     direct = torch.empty((R, 3), dtype=torch.float32, device=point.device)
     spec = torch.empty_like(direct)
-    _launch(
+    _launch(point.device,
         "light_shade", *scene, _ptr(point), _ptr(normal), _ptr(view), _ptr(color),
         _ptr(shininess), _ptr(valid), R, float(eps_dist), int(bool(backface_culling)),
         _ptr(direct), _ptr(spec),
@@ -749,7 +763,7 @@ def shade_eval(
     # the live list, its segments' counts (then their offsets) and the live
     # count (csrc/shade_eval.cu)
     scratch = torch.empty((R + -(-R // 128) + 1,), dtype=torch.int32, device=dev)
-    _launch(
+    _launch(dev,
         "shade_eval", *scene, *gate, int(NODE_WARP_MAX_LIVE),
         _ptr(point), _ptr(normal), _ptr(view), _ptr(color), _ptr(shininess),
         _ptr(valid), _ptr(t), _ptr(w), _ptr(rior), _ptr(budget), _ptr(from_refl),
@@ -840,7 +854,7 @@ def shade_eval_rows(
     rfr_rows = torch.empty((R, POOL_COLS), dtype=f32, device=dev)
     rfl_m = torch.empty((R,), dtype=torch.bool, device=dev)
     rfr_m = torch.empty((R,), dtype=torch.bool, device=dev)
-    _launch(
+    _launch(dev,
         "shade_eval_rows", *scene, *gate, rays_per_warp(R, many=32),
         _ptr(point), _ptr(normal), _ptr(view), _ptr(color), _ptr(shininess),
         _ptr(valid), _ptr(t), _ptr(w), _ptr(rior), _ptr(budget), _ptr(from_refl),

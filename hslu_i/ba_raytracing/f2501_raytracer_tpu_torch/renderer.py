@@ -20,8 +20,14 @@ frame, as in the JAX package:
 
 `get_pixel_color` traces one pixel's AA samples. `packet_mode` (the
 reference's SIMD build) takes every path; its packets are the 8 AA lanes of
-a pixel. Not in the port yet (raises NotImplementedError; ROADMAP.md Queue
-1): multi-device meshes.
+a pixel.
+
+With `cfg.devices > 1` the u32 and f32 frame paths split each launch
+group's tiles over a mesh of devices (parallel/mesh.py; JAX renderer.py
+235-431): the scene replicated once per frame, the tiles traced on every
+entry, the results joined on the lead device, the one-device frame's bits.
+The progressive path, `get_pixel_color` and `render_timing_debug` run on
+the lead device alone, as the JAX package runs them unsharded.
 """
 
 from __future__ import annotations
@@ -46,6 +52,13 @@ from .ops.trace import (
     trace_rays_tiled,
     trace_rays_tiled_u32,
     trace_rays_tiled_u32_gen,
+)
+from .parallel.mesh import (
+    mesh_of,
+    shard_scene,
+    trace_tiles_sharded,
+    trace_tiles_sharded_u32,
+    trace_tiles_sharded_u32_gen,
 )
 from .scene.builder import Scene
 from .scene.device import DeviceScene, build_device_scene
@@ -86,20 +99,29 @@ def fetch_schedule(n_tiles: int, max_groups: int = 8, align: int = 1) -> list:
     return [q + 1] * r + [q] * (g - r)
 
 
-def launch_groups(cfg: RenderConfig, n_tiles: int) -> list:
+def launch_groups(cfg: RenderConfig, n_tiles: int, align: int = 1) -> list:
     """Tile counts of the u32 frame's launch groups, in order: groups of
     `tiles_per_program` tiles where it cuts the frame; else the overlapped
     fetch's groups (JAX renderer.py:262-321): `fetch_schedule` under
     `fetch_taper`, a uniform `fetch_groups`-way split where it divides the
-    tiles; else one group."""
-    tpp, fg = cfg.tiles_per_program, cfg.fetch_groups
-    if 0 < tpp < n_tiles:
-        return [min(tpp, n_tiles - s) for s in range(0, n_tiles, tpp)]
-    if fg > 1 and cfg.fetch_taper and n_tiles >= 2:
-        return fetch_schedule(n_tiles, max_groups=fg)
-    if fg > 1 and n_tiles >= fg and n_tiles % fg == 0:
-        return [n_tiles // fg] * fg
-    return [n_tiles]
+    tiles; else one group. `align` (a mesh's size) counts in units of that
+    many tiles, so that every entry of the mesh has a tile in every group
+    but the last, which takes what is left (JAX renderer.py:249-321 pads the
+    frame instead)."""
+    tpp, fg = cfg.tiles_per_program // align, cfg.fetch_groups
+    n = -(-n_tiles // align)
+    if cfg.tiles_per_program and tpp < n:
+        tpp = max(tpp, 1)
+        units = [min(tpp, n - s) for s in range(0, n, tpp)]
+    elif fg > 1 and cfg.fetch_taper and n >= 2:
+        units = fetch_schedule(n, max_groups=fg)
+    elif fg > 1 and n >= fg and n % fg == 0:
+        units = [n // fg] * fg
+    else:
+        units = [n]
+    sizes = [u * align for u in units]
+    sizes[-1] -= n * align - n_tiles
+    return sizes
 
 
 def plan_frame(cfg: RenderConfig) -> FramePlan:
@@ -209,16 +231,20 @@ def _warn_drops(n_dropped: int) -> None:
 
 class RaytracerRenderer:
     """Renders on `device` (default: the card; `device="cpu"` runs the plain
-    PyTorch twins, as the tests do)."""
+    PyTorch twins, as the tests do).
+
+    With `cfg.devices` = N > 1 it renders on a mesh of N devices: the
+    host's cards cuda:0 ... cuda:N-1 by default (RuntimeError when it has
+    fewer), N CPU entries with `device="cpu"`, or the N devices of a list
+    (`device=["cuda:0"] * N` splits one card N ways)."""
 
     def __init__(self, cfg: RenderConfig, device=None):
-        self.device = resolve_device(device)
         if cfg.packet_mode and not cfg.anti_aliasing:
             # through the renderer a packet is the 8 AA lanes of one pixel;
             # without AA, 8 unrelated pixels would share their decisions
             raise ValueError("packet_mode requires anti_aliasing")
-        if cfg.devices != 1:
-            raise NotImplementedError("multi-device rendering is not ported yet (ROADMAP.md)")
+        self.mesh = mesh_of(cfg.devices, device) if cfg.devices > 1 else None
+        self.device = self.mesh.lead if self.mesh else resolve_device(device)
         self.cfg = cfg
         self.last_dropped = 0
 
@@ -255,7 +281,8 @@ class RaytracerRenderer:
         pixel no sample hit. Primary rays come from the device
         (`cfg.device_ray_gen`) or from the host (`build_frame_rays`), the
         same bits either way. The tiles are traced in `launch_groups`, whose
-        pixels are fetched together at the end. Sets `last_dropped`."""
+        pixels are fetched together at the end; on a mesh each group's tiles
+        are split over its entries. Sets `last_dropped`."""
         cfg = self.cfg
         plan = plan_frame(cfg)
         n_tiles, P = plan.n_tiles, plan.pix_per_tile
@@ -264,17 +291,20 @@ class RaytracerRenderer:
             order_dev, offs_dev = frame_order_device(cfg, plan, n_tiles, self.device)
         else:
             o_all, d_all = build_frame_rays(cfg, plan)
+        reps = shard_scene(dscene, self.mesh) if self.mesh else None  # once a frame
         parts = []
         gs = 0
-        for size in launch_groups(cfg, n_tiles):
+        for size in launch_groups(cfg, n_tiles, len(self.mesh) if self.mesh else 1):
             if cfg.device_ray_gen:
-                u32, dropped = trace_rays_tiled_u32_gen(
-                    dscene, cfg, order_dev[gs * P:(gs + size) * P], offs_dev, w_dev,
-                    n_tiles=size)
+                args = (cfg, order_dev[gs * P:(gs + size) * P], offs_dev, w_dev)
+                u32, dropped = (
+                    trace_tiles_sharded_u32_gen(reps, *args, self.mesh, n_tiles=size) if reps
+                    else trace_rays_tiled_u32_gen(dscene, *args, n_tiles=size))
             else:
-                u32, dropped = trace_rays_tiled_u32(
-                    dscene, cfg, self._to_dev(o_all[gs:gs + size]),
-                    self._to_dev(d_all[gs:gs + size]), w_dev)
+                args = (cfg, self._to_dev(o_all[gs:gs + size]),
+                        self._to_dev(d_all[gs:gs + size]), w_dev)
+                u32, dropped = (trace_tiles_sharded_u32(reps, *args, self.mesh) if reps
+                                else trace_rays_tiled_u32(dscene, *args))
             parts.append((u32, dropped))
             gs += size
         u32, dropped = (torch.cat(p).cpu() for p in zip(*parts))  # one fetch
@@ -309,22 +339,27 @@ class RaytracerRenderer:
 
     def _render_f32(self, dscene: DeviceScene, stats: TileStats) -> ImageBuffer:
         """Host-built rays, traced `tiles_per_program` tiles at a time (all of
-        them by default), their f32 colours fetched per group and reduced on
-        the host. `render_timing_debug` adds the drop warning. Sets
-        `last_dropped`; each group's seconds go to `stats`."""
+        them by default; on a mesh each group's tiles split over its entries,
+        except under `render_timing_debug`), their f32 colours fetched per
+        group and reduced on the host. `render_timing_debug` adds the drop
+        warning. Sets `last_dropped`; each group's seconds go to `stats`."""
         cfg = self.cfg
         plan = plan_frame(cfg)
         n_tiles, U = plan.n_tiles, plan.aa
         total_pixels = cfg.width * cfg.height
         o_all, d_all = build_frame_rays(cfg, plan)
         group = cfg.tiles_per_program or n_tiles
+        # render_timing_debug times each group on the lead device alone
+        # (the JAX package's mesh drops those stats instead)
+        reps = (shard_scene(dscene, self.mesh)
+                if self.mesh and not cfg.render_timing_debug else None)
         colors, valids, dropped = [], [], 0
         for gs in range(0, n_tiles, group):
             t_group = time.monotonic()
-            c, v, st = trace_rays_tiled(
-                dscene, cfg, self._to_dev(o_all[gs : gs + group]),
-                self._to_dev(d_all[gs : gs + group]), with_stats=True,
-            )
+            args = (cfg, self._to_dev(o_all[gs : gs + group]),
+                    self._to_dev(d_all[gs : gs + group]))
+            c, v, st = (trace_tiles_sharded(reps, *args, self.mesh, with_stats=True) if reps
+                        else trace_rays_tiled(dscene, *args, with_stats=True))
             colors.append(c.cpu().numpy())
             valids.append(v.cpu().numpy())
             dropped += int(st["dropped"])

@@ -2,7 +2,9 @@
 block partitions that the warp kernels must take, a tile of a frame as one
 call, the calls of a kernel wrapper caught from a render, the shadow rays
 of the light loop, bitwise checks of the node kernels, the card's peaks and
-the occlusion's bound, and timing by CUDA events and by torch.profiler.
+the occlusion's bound, timing by CUDA events and by torch.profiler, and
+small frames through the CPU twins in a process of their own
+(`python -m ...utils.harness JOBS THREADS`, `twin_frames`).
 
 utils/ab.py imports this file from its own directory (as `harness`), so
 that it can measure through it the package of another checkout, one that
@@ -10,6 +12,11 @@ may lack this file.
 """
 
 from __future__ import annotations
+
+import os
+import pickle
+import sys
+import time
 
 import numpy as np
 import torch
@@ -22,7 +29,10 @@ from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops.intersect import (
     _tri_block_ts,
     occlude_rays,
 )
-from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.renderer import plan_frame
+from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.renderer import (
+    RaytracerRenderer,
+    plan_frame,
+)
 
 # Block partitions that the JAX package takes (pallas_kernels.py:149-160)
 # and that the kernels with a warp per ray take too
@@ -266,3 +276,29 @@ def device_ms(fn, iters, per_call=1):
         if n == iters * per_call or (n and per_call == 1):
             return total / n * per_call
     return None
+
+
+def twin_frames(jobs_path: str) -> None:
+    """Render each (label, config, host scene) of the pickled list at
+    `jobs_path`, in order, through the CPU twins, and write `<label>.npz`
+    beside it as each is done: the u32 frame, `last_dropped`, whether the
+    scene streams, and the seconds it took with the scene's set-up.
+    chip_smoke.py runs this in a process of its own while the card renders,
+    and reads each file when it needs it."""
+    with open(jobs_path, "rb") as f:
+        jobs = pickle.load(f)
+    out_dir = os.path.dirname(jobs_path)
+    for label, c, host in jobs:
+        t0 = time.monotonic()
+        r = RaytracerRenderer(c, device="cpu")
+        scene = r.device_scene(host)
+        frame = r.render_u32(scene)
+        tmp = os.path.join(out_dir, f"{label}.part.npz")
+        np.savez(tmp, frame=frame, dropped=r.last_dropped, streaming=scene.streaming,
+                 seconds=time.monotonic() - t0)
+        os.replace(tmp, os.path.join(out_dir, f"{label}.npz"))  # whole or absent
+
+
+if __name__ == "__main__":
+    torch.set_num_threads(int(sys.argv[2]))
+    twin_frames(sys.argv[1])

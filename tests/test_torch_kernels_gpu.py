@@ -8,7 +8,9 @@ with few; light_shade at ray counts from 0 to a tile and at 95 lights
 (the SIMD build's packet path); all of them on
 block partitions the JAX package takes: a superblock of more than 32 blocks
 and blocks of 48 rows), the pool's chunk commit, and small renders against
-the CPU twins (the SIMD build's packet frame among them).
+the CPU twins (the SIMD build's packet frame among them); each kernel
+launched from two host threads at once, each on a stream of its own, and a
+mesh of two entries on one card (parallel/mesh.py).
 
 Needs an NVIDIA GPU and nvcc; every test carries the `gpu` marker and skips
 from the `cuda` fixture when there is no card. This file imports neither JAX
@@ -40,6 +42,7 @@ from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.scene.builder import Scene
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.utils.harness import (
     PARTITIONS,
     assert_node_bits,
+    caught_calls,
     flat,
     same_bits,
     same_occlusion,
@@ -905,3 +908,85 @@ def test_small_render_matches_cpu_twins(cuda, path):
     rgb = lambda f: np.stack([(f >> s) & 0xFF for s in (16, 8, 0)], -1) / 255.0  # noqa: E731
     off = np.abs(rgb(gpu) - rgb(cpu)).max(-1) > 2e-3
     assert off.mean() < 0.005
+
+
+def _kernel_calls(dev):
+    """The first call of every kernel wrapper, (args, kw), caught from small
+    renders of the paths that launch them and from `occlude_rays`."""
+    base = dict(width=64, height=32, kernel_ray_tile=64, compaction_ratio=8, loop_chunk=8,
+                max_nodes=16, device_encode=True)
+    runs = {
+        ("cast_triangles", "shade_eval_rows"): dict(base, **REALISTIC),
+        ("shade_eval",): dict(base, **dict(REALISTIC, compaction_ratio=1)),
+        ("light_shade",): base,
+        ("cast_triangles_stream", "occlude_triangles_stream"): dict(
+            base, stream_triangles=1, **REALISTIC),
+    }
+    calls = {}
+    for names, kw in runs.items():
+        cfg = RenderConfig(**kw)
+        r = RaytracerRenderer(cfg, device=dev)
+        ds = r.device_scene(build("semesterbild", cfg))
+        for name, caught in caught_calls(names, lambda: r.render_u32(ds), 1).items():
+            calls[name] = caught[0]
+    cfg, ds = _scene(dev)
+    o, d = (torch.from_numpy(a).to(dev) for a in _rays(cfg, 4096, 5))
+    md = torch.full((4096,), 4.0, device=dev)
+    calls["occlude_triangles"] = caught_calls(
+        ["occlude_triangles"], lambda: occlude_rays(ds, o, d, md), 1)["occlude_triangles"][0]
+    return calls
+
+
+@pytest.mark.gpu
+def test_kernels_from_two_threads_give_one_thread_bits(cuda):
+    """Each kernel launched from two host threads at once, each under a
+    stream of its own (as two mesh entries on one card launch them): the
+    bits of a launch from this thread, and every launch counted."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    calls = _kernel_calls(cuda)
+    assert set(calls) == set(kernels.KERNEL_SOURCES)
+    for name, (args, kw) in calls.items():
+        wrapper = getattr(kernels, name)
+        ref = flat(wrapper(*args, **kw))
+        torch.cuda.synchronize()
+
+        def launch(_):
+            stream = torch.cuda.Stream()
+            with torch.cuda.stream(stream):
+                out = flat(wrapper(*args, **kw))
+            stream.synchronize()
+            return out
+
+        kernels.reset_launch_counts()
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            outs = [f.result(timeout=300) for f in [pool.submit(launch, i) for i in range(2)]]
+        assert kernels.LAUNCHES == {k: 2 * (k == name) for k in kernels.KERNEL_SOURCES}, name
+        for out in outs:
+            assert len(out) == len(ref) and all(same_bits(a, b) for a, b in zip(out, ref)), name
+
+
+@pytest.mark.gpu
+def test_mesh_on_one_card_has_one_device_bits(cuda):
+    """RaytracerRenderer(devices=2) on the card listed twice, and the objs
+    axis cast on four entries: the one-device frame and the dense cast."""
+    from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch import parallel
+
+    cfg = RenderConfig(width=128, height=64, tile_rays=2048, kernel_ray_tile=64,
+                       compaction_ratio=8, loop_chunk=8, max_nodes=16, device_encode=True,
+                       **REALISTIC)
+    r1 = RaytracerRenderer(cfg, device=cuda)
+    ds = r1.device_scene(build("semesterbild", cfg))
+    r2 = RaytracerRenderer(dataclasses.replace(cfg, devices=2), device=["cuda:0"] * 2)
+    assert np.array_equal(r2.render_u32(ds), r1.render_u32(ds))
+    assert r2.last_dropped == r1.last_dropped == 0
+
+    scene = build_device_scene(build("semesterbild", cfg), cfg, min_tri_blocks=4, device=cuda)
+    o, d = (torch.from_numpy(a).to(cuda) for a in _rays(cfg, 4096, 6))
+    kernels.reset_launch_counts()
+    t, idx, valid = parallel.cast_nearest_objsharded(
+        scene, o, d, parallel.make_mesh(devices=["cuda:0"] * 4, axis="objs"))
+    assert kernels.LAUNCHES["cast_triangles_stream"] == 4
+    hit = cast_rays(scene, o, d)
+    assert torch.equal(valid, hit.valid) and torch.equal(idx[valid], hit.obj_idx[valid])
+    np.testing.assert_allclose(t[valid].cpu().numpy(), hit.t[valid].cpu().numpy(), rtol=1e-6)

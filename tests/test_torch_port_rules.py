@@ -43,6 +43,10 @@ def test_port_imports_no_jax():
         "from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch import __main__, output\n"
         "from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.output import http_preview\n"
         "from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.models import test_scene\n"
+        "from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch import graft_entry, parallel\n"
+        "from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.parallel import mesh\n"
+        "from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.examples import (\n"
+        "    semesterbild, test_scene, test_text)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "       or m == 'hslu_i.ba_raytracing.f2501_raytracer_tpu'\n"
         "       or m.startswith('hslu_i.ba_raytracing.f2501_raytracer_tpu.')]\n"
@@ -79,10 +83,11 @@ def test_entry_points_default_to_the_card():
 
 
 def test_unported_paths_raise():
-    """Only multi-device rendering is still to port: every single-device
-    knob of the JAX package traces (packet mode, the Morton resort, the
-    gather and unique stage modes, commit splits), and packet mode without
-    AA is refused as the JAX renderer refuses it."""
+    """Nothing of the JAX package's configs is refused any more: every
+    single-device knob traces (packet mode, the Morton resort, the gather
+    and unique stage modes, commit splits), a mesh of devices renders
+    (`devices=2` on two CPU entries), and packet mode without AA is refused
+    as the JAX renderer refuses it."""
     cfg = _small_cfg()
     ds = build_device_scene(build("semesterbild", cfg), cfg, device="cpu")
     o = torch.zeros((128, 3))
@@ -102,8 +107,8 @@ def test_unported_paths_raise():
     assert r.render_u32(ds).shape == (16 * 8,) and r.last_dropped == 0
     with pytest.raises(ValueError, match="anti_aliasing"):
         RaytracerRenderer(_small_cfg(packet_mode=True), device="cpu")
-    with pytest.raises(NotImplementedError):
-        RaytracerRenderer(_small_cfg(devices=2), device="cpu")
+    r = RaytracerRenderer(_small_cfg(devices=2), device="cpu")
+    assert len(r.mesh) == 2 and r.render_u32(ds).shape == (16 * 8,) and r.last_dropped == 0
     # the f32 (device_encode=False) frame path renders
     cfg = RenderConfig(width=16, height=8)
     assert not cfg.device_encode
