@@ -50,7 +50,8 @@ seconds):
   3. render the full 1920x1080 `realistic` frame (bench.py's settings, the
      packed-row pool path) through RaytracerRenderer(cfg, device="cuda"):
      warm frame wall time, launch counts (cast_triangles and
-     shade_eval_rows > 0, the others 0), dropped rays (0), and the u32
+     shade_eval_rows > 0, the others 0), dropped rays (0), the rays left
+     at the iteration cap (`unfinished`; every frame of the run), and the u32
      checksum, the warm-up frame's too; then the
      frame with the atomic commit (`index_add_`) against the sorted
      commit, in turns old, new, new, old; then three tiles traced with
@@ -123,7 +124,20 @@ seconds):
      cast_triangles_stream); render_image_sharded and trace_rays_sharded
      on tile 3 of `default` bit for bit trace_rays, and on tile 3 of
      `realistic` within tests/test_multichip.py's bar;
-  8. print the {"kernels": [...]} line, then the {"ok": true, ...} line.
+  7c. the shadow scan's switches (PRIME_GATE, SORT_GATE): shade_eval,
+     shade_eval_rows and light_shade on the 235-block cloud at 5, 50 and 95
+     lights (and shade_eval_rows at 140), at tile 3's R = 131072 primary
+     rays and W = 2048 of them, and on the JAX package's PRIME_GATE scene
+     (17 lights, 256 rays) in both forms of the node kernels: with each
+     switch and both on, the bits of both off on three runs; with both on
+     against the twin on 512 of the rays; both off and both on timed in
+     turns; whether each switch acts there; then the 1080p `soft_shadows`
+     and the 480x270 `extreme` frames with both on, each with its
+     checksum;
+  8. every frame's `unfinished` count (the rays left untraced at the
+     iteration cap): 0, but for the open faults of UNFINISHED_OPEN; print
+     the {"kernels": [...]} line (rows #5-#7 with the switches' results
+     under "switches"), then the {"ok": true, ...} line.
 With --report, the measurements also go to PATH as JSON.
 
 Exits non-zero without a CUDA device. Imports nothing of JAX.
@@ -187,6 +201,7 @@ from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.renderer import (  # noqa: E
     plan_frame,
 )
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.utils.harness import (  # noqa: E402
+    GATE_SETTINGS,
     OPS_OCCL,
     PARTITIONS,
     PEAK_F32,
@@ -195,13 +210,18 @@ from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.utils.harness import (  # no
     caught_calls,
     cuda_ms,
     device_ms,
+    flat,
+    gate_cloud,
     gate_hits,
     nbytes,
+    node_state,
     occlusion_tests,
     same_bits,
     same_occlusion,
     shadow_rays,
+    stack_inputs,
     tile_call,
+    with_gates,
 )
 
 PKG = "hslu_i/ba_raytracing/f2501_raytracer_tpu_torch"
@@ -267,6 +287,19 @@ def run_frame(r, scene):
     """One frame: (u32 pixels, wall s, launches, dropped)."""
     fb, wall, launches = timed_run(lambda: r.render_u32(scene))
     return fb, wall, launches, r.last_dropped
+
+
+# the rays left untraced at the iteration cap (`last_unfinished`) of every
+# frame this run renders, by label; 0 unless the frame is named in
+# UNFINISHED_OPEN (an open fault, ROADMAP.md Queue 3), checked in phase 8
+unfinished = {}
+UNFINISHED_OPEN = {}
+
+
+def note_unfinished(label, r):
+    """Record renderer r's last frame as frame `label`; returns its count."""
+    unfinished[label] = r.last_unfinished
+    return r.last_unfinished
 
 
 def max_err(a, b):
@@ -1046,8 +1079,9 @@ def frame_phase(label, c, r, scene, expect):
     fb, wall, launches, dropped = run_frame(r, scene)
     assert checksum(fb0) == checksum(fb), f"{label}: the warm-up frame differs"
     valid = float((fb != 0).mean())
+    left = note_unfinished(label, r)
     log(f"{label} ({c.width}x{c.height}): warm frame {wall * 1e3:.1f} ms, launches {launches}, "
-        f"dropped {dropped}, valid {valid:.4f}, u32 sha256 {checksum(fb)}")
+        f"dropped {dropped}, unfinished {left}, valid {valid:.4f}, u32 sha256 {checksum(fb)}")
     assert fb.shape == (c.width * c.height,)
     for k, v in launches.items():
         assert (v > 0) == (k in expect), (label, launches)
@@ -1055,8 +1089,8 @@ def frame_phase(label, c, r, scene, expect):
     assert valid > 0.5, valid
     assert checksum(fb) == CHECKSUMS[label], (label, checksum(fb), CHECKSUMS[label])
     frames[label] = dict(size=f"{c.width}x{c.height}", wall_ms=wall * 1e3, launches=launches,
-                         dropped=dropped, checksum=checksum(fb), valid_share=valid,
-                         wall_ms_first=wall0 * 1e3)
+                         dropped=dropped, unfinished=left, checksum=checksum(fb),
+                         valid_share=valid, wall_ms_first=wall0 * 1e3)
     return fb, wall
 
 
@@ -1301,6 +1335,7 @@ with phase("card_vs_cpu"):
         assert scene_small.streaming == streamed
         gpu = r.render_u32(scene_small)
         assert r.last_dropped == 0
+        note_unfinished(f"small {label}", r)
         gpu_s = time.monotonic() - t0
         cpu, cpu_dropped, cpu_streamed, cpu_s, waited = twin_frame(label)
         assert cpu_dropped == 0 and cpu_streamed == streamed
@@ -1341,6 +1376,7 @@ def card_vs_twins(label):
     assert scene.streaming == streamed
     gpu = r.render_u32(scene)
     gpu_s, gpu_dropped = time.monotonic() - t0, r.last_dropped
+    note_unfinished(f"small {label}", r)
     cpu, cpu_dropped, cpu_streamed, cpu_s, waited = twin_frame(label)
     assert cpu_streamed == streamed
     p_small = plan_frame(c)
@@ -1370,11 +1406,14 @@ with phase("entry_points"):
     buf_f32, wall_f32, l_f32 = timed_run(lambda: r_f32.render_device(ds_ref))
     fb_ref, wall_u32, l_u32 = timed_run(lambda: r_ref.render_u32(ds_ref))
     buf_u32 = ImageBuffer.from_u32(fb_ref, CFG_REF.width, CFG_REF.height)
+    note_unfinished("reference_default f32", r_f32)
+    note_unfinished("reference_default", r_ref)
     du8 = np.abs(buf_f32.as_u8().astype(np.int16) - buf_u32.as_u8().astype(np.int16))
     px_off = float((du8.max(-1) > 0).mean())
     log(f"reference_default f32 frame {wall_f32:.1f} s, launches {used(l_f32)}, dropped "
-        f"{r_f32.last_dropped}; u32 frame {wall_u32:.1f} s, launches {used(l_u32)}, dropped "
-        f"{r_ref.last_dropped}, u32 sha256 {checksum(fb_ref)}; valid identical "
+        f"{r_f32.last_dropped}, unfinished {r_f32.last_unfinished}; u32 frame {wall_u32:.1f} s, "
+        f"launches {used(l_u32)}, dropped {r_ref.last_dropped}, unfinished "
+        f"{r_ref.last_unfinished}, u32 sha256 {checksum(fb_ref)}; valid identical "
         f"{np.array_equal(buf_f32.valid, buf_u32.valid)}, u8 steps apart at most {du8.max()} "
         f"at {px_off:.4%} of pixels")
     assert np.array_equal(buf_f32.valid, buf_u32.valid)
@@ -1385,7 +1424,8 @@ with phase("entry_points"):
     frames["reference_default"] = dict(
         size=f"{CFG_REF.width}x{CFG_REF.height}", wall_ms_f32=wall_f32 * 1e3,
         wall_ms=wall_u32 * 1e3, launches=l_u32, launches_f32=l_f32, dropped=r_ref.last_dropped,
-        dropped_f32=r_f32.last_dropped, checksum=checksum(fb_ref), u8_steps_share=px_off,
+        dropped_f32=r_f32.last_dropped, unfinished=r_ref.last_unfinished,
+        unfinished_f32=r_f32.last_unfinished, checksum=checksum(fb_ref), u8_steps_share=px_off,
         valid_share=float((fb_ref != 0).mean()))
 
     # extreme 480x270: two u32 frames, one checksum
@@ -1396,12 +1436,14 @@ with phase("entry_points"):
     log(f"extreme {CFG_EXT.width}x{CFG_EXT.height}: {p_ext.n_tiles} tiles x "
         f"{p_ext.pix_per_tile * p_ext.aa} rays ({p_ext.aa} per pixel), {ds_ext.n_lights} lights; "
         f"frames {[round(w, 2) for _, w, _ in runs]} s, launches {used(runs[1][2])}, dropped "
-        f"{r_ext.last_dropped}, u32 sha256 {[checksum(fb) for fb, _, _ in runs]}")
+        f"{r_ext.last_dropped}, unfinished {note_unfinished('extreme', r_ext)}, u32 sha256 "
+        f"{[checksum(fb) for fb, _, _ in runs]}")
     assert checksum(runs[0][0]) == checksum(runs[1][0]) == CHECKSUMS["extreme"]
     assert set(used(runs[1][2])) == set(NODE_PATH), runs[1][2]
     frames["extreme"] = dict(
         size=f"{CFG_EXT.width}x{CFG_EXT.height}", wall_ms=runs[1][1] * 1e3,
         wall_ms_first=runs[0][1] * 1e3, launches=runs[1][2], dropped=r_ext.last_dropped,
+        unfinished=r_ext.last_unfinished,
         checksum=checksum(runs[1][0]), valid_share=float((runs[1][0] != 0).mean()))
     # where a tile's time goes: tile 3 of each, with its AA samples
     report["tile_profile_reference_default"] = profile_tile(
@@ -1425,13 +1467,14 @@ with phase("entry_points"):
         cli_s = time.monotonic() - t0
         assert run.returncode == 0, run.stderr[-3000:]
         c = dataclasses.replace(PRESETS[preset](width=w, height=h), scene_backface_culling=True)
-        buf, wall, launches = timed_run(
-            lambda: RaytracerRenderer(c, device="cuda").render(build(scene_name, c)))
+        r_cli = RaytracerRenderer(c, device="cuda")
+        buf, wall, launches = timed_run(lambda: r_cli.render(build(scene_name, c)))
+        note_unfinished(f"CLI {scene_name}/{preset}", r_cli)
         png = read_png(out)
         assert np.array_equal(png, buf.as_u8()), f"CLI {scene_name}/{preset}: PNG differs"
         log(f"CLI {scene_name}/{preset} {c.width}x{c.height}: {cli_s:.1f} s in its process; the "
             f"PNG equals this process's frame ({wall:.1f} s, launches {used(launches)}, "
-            f"valid {buf.valid.mean():.4f})")
+            f"unfinished {r_cli.last_unfinished}, valid {buf.valid.mean():.4f})")
         report["cli"][f"{scene_name}/{preset}"] = dict(
             size=f"{c.width}x{c.height}", process_s=cli_s, wall_ms=wall * 1e3, launches=launches)
 
@@ -1445,6 +1488,7 @@ with phase("entry_points"):
         lambda: r_prog.render_device(ds_prog, progress=lambda b, f: seen.append(f)))
     assert seen[-1] == 1.0 and len(seen) == plan_frame(c_prog).n_tiles, seen
     assert same_image(fused, prog), "the progressive frame differs from the fused f32 frame"
+    note_unfinished("progressive", r_prog)
     log(f"progressive reference_default {c_prog.width}x{c_prog.height}: {len(seen)} tiles, "
         f"{wall_prog:.2f} s (fused f32 {wall_fused:.2f} s), launches {used(l_prog)}; the fused "
         f"frame bit for bit, last fraction {seen[-1]}")
@@ -1481,12 +1525,14 @@ with phase("simd_build"):
     r_pks = RaytracerRenderer(c_pks, device="cuda")
     ds_pks = r_pks.device_scene(build("semesterbild", c_pks))
     small = [timed_run(lambda: r_pks.render_u32(ds_pks))]
+    note_unfinished("packet_small", r_pks)
     assert checksum(small[0][0]) == CHECKSUMS["packet_small"], checksum(small[0][0])
     # the full frame, once
     fb_pkt, wall_pkt, l_pkt = timed_run(lambda: r_pkt.render_u32(ds_pkt))
     log(f"SIMD build (reference_default, packet_mode, 16 lanes a pixel) {CFG_PKT.width}x"
         f"{CFG_PKT.height}: {p_pkt.n_tiles} tiles x 131072 rays, {ds_pkt.n_lights} lights; frame "
-        f"{wall_pkt:.1f} s, launches {used(l_pkt)}, dropped {r_pkt.last_dropped}, valid "
+        f"{wall_pkt:.1f} s, launches {used(l_pkt)}, dropped {r_pkt.last_dropped}, unfinished "
+        f"{note_unfinished('packet', r_pkt)}, valid "
         f"{(fb_pkt != 0).mean():.4f}, u32 sha256 {checksum(fb_pkt)}; {PKT_SMALL[0]}x{PKT_SMALL[1]} "
         f"frame {small[0][1]:.2f} s, sha256 {checksum(small[0][0])}")
     assert set(used(l_pkt)) == set(PACKET_PATH), l_pkt
@@ -1499,7 +1545,7 @@ with phase("simd_build"):
         f"> 2e-3, valid differs at {int(((fb_pkt != 0) != (fb_ref != 0)).sum())}")
     frames["packet"] = dict(
         size=f"{CFG_PKT.width}x{CFG_PKT.height}", wall_ms=wall_pkt * 1e3, launches=l_pkt,
-        dropped=r_pkt.last_dropped, checksum=checksum(fb_pkt),
+        dropped=r_pkt.last_dropped, unfinished=r_pkt.last_unfinished, checksum=checksum(fb_pkt),
         valid_share=float((fb_pkt != 0).mean()), small_wall_ms=[w * 1e3 for _, w, _ in small],
         small_checksum=checksum(small[0][0]), scalar_off=scalar_off)
     # where a packet tile's time goes, and light_shade at R and W, 95 lights:
@@ -1531,12 +1577,14 @@ with phase("simd_build"):
         name = ",".join(f"{k}={v}" for k, v in knob.items())
         knobs[name] = dict(wall_ms=wall * 1e3, checksum=checksum(fb))
         log(f"realistic 1080p {name}: {wall * 1e3:.1f} ms, launches {used(launches)}, dropped "
-            f"{r_k.last_dropped}, u32 sha256 {checksum(fb)}")
+            f"{r_k.last_dropped}, unfinished {note_unfinished(f'realistic {name}', r_k)}, "
+            f"u32 sha256 {checksum(fb)}")
         assert checksum(fb) == CHECKSUMS["realistic"] and set(used(launches)) == set(NODE_PATH)
     # the Morton resort: one checksum on two frames, phase 5's bar against
     # the unsorted frame (phase 3)
     r_rs = RaytracerRenderer(dataclasses.replace(cfg, resort_secondary=True), device="cuda")
     resort = [timed_run(lambda: r_rs.render_u32(ds)) for _ in range(2)]
+    note_unfinished("resort", r_rs)
     off, valid_diff = phase5_bar("resort", resort[1][0], fb1)
     log(f"realistic 1080p resort_secondary: {[round(w * 1e3, 1) for _, w, _ in resort]} ms, u32 "
         f"sha256 {[checksum(fb) for fb, _, _ in resort]}; against the unsorted frame {off} pixels "
@@ -1553,6 +1601,7 @@ with phase("simd_build"):
         r_f = RaytracerRenderer(dataclasses.replace(c_def, fetch_groups=fg), device="cuda")
         fb, wall, _ = timed_run(lambda: r_f.render_u32(scenes["default"]))
         assert checksum(fb) == CHECKSUMS["default"], (fg, checksum(fb))
+        note_unfinished(f"default fetch_groups={fg}", r_f)
         fetch[fg].append(wall * 1e3)
     log(f"default 1080p, fetch_groups 1 / 8 (taper, groups {launch_groups(c_def, 16)}) in turns: "
         f"{fetch[1]} / {fetch[8]} ms, one checksum")
@@ -1565,6 +1614,7 @@ with phase("simd_build"):
     tune_s = time.monotonic() - t0
     r_t = RaytracerRenderer(tuned.cfg, device="cuda")
     fb_t, wall_t, _ = timed_run(lambda: r_t.render_u32(tuned.device_scene))
+    note_unfinished("autotune", r_t)
     off, valid_diff = phase5_bar("autotune", fb_t, fb1)
     log(f"autotune ({tune_s:.1f} s): ms by triangle_block {tuned.timings_ms}, tuned "
         f"{tuned.tuned_block} (the realistic frame's: {ds.tri_block}); tuned frame "
@@ -1592,11 +1642,13 @@ def mesh_frame(label, c, devs, scene):
         assert checksum(fb) == CHECKSUMS[label], (label, checksum(fb))
         assert launches == one["launches"], (label, launches, one["launches"])
         assert r_m.last_dropped == 0
+        note_unfinished(f"{label} on {len(devs)} mesh entries", r_m)
         walls.append(wall * 1e3)
     log(f"{label} 1080p on {len(devs)} mesh entries ({', '.join(map(str, devs))}): warm frame "
         f"{walls[1]:.1f} ms (first {walls[0]:.1f} ms) against {one['wall_ms']:.1f} ms warm on one "
         f"device (first {one['wall_ms_first']:.1f} ms; {report['card']}; the entries share one "
         f"card: no scaling is measured); launches {used(launches)}, dropped {r_m.last_dropped}, "
+        f"unfinished {r_m.last_unfinished}, "
         f"u32 sha256 {checksum(fb)} both times")
     return dict(entries=[str(x) for x in devs], wall_ms=walls[1], wall_ms_first=walls[0],
                 wall_ms_one_device=one["wall_ms"], wall_ms_first_one_device=one["wall_ms_first"],
@@ -1690,9 +1742,152 @@ with phase("mesh"):
     for name in ("cast_triangles", "shade_eval_rows", "light_shade", "cast_triangles_stream"):
         assert launches_mesh[name] > 0, name
 
+# ---- phase 7c: the shadow scan's switches (PRIME_GATE, SORT_GATE) ---------
+# Where they can act: the 235-block cloud (harness.gate_cloud: 65 blocks with
+# glass, 170 opaque) at the light counts of the feature configs, tile 3's
+# primary rays at R = 131072 (#5: a ray per lane over its live rays; #6: a
+# ray per lane) and at W = 2048 of them (a warp per ray); and the JAX
+# package's PRIME_GATE scene (harness.stack_inputs: 17 lights, four opaque
+# blocks) at 256 rays, #5 and #6 in both forms. Each kernel, with each
+# switch and both on, gives the bits it gives with both off, on three runs;
+# with both on it is held against its twin on 512 of the rays at today's
+# bars; both off and both on are timed in turns (off, on, on, off; CUDA
+# events). Then the 1080p `soft_shadows` and the 480x270 `extreme` frames
+# with both on keep their checksums.
+GATE_SHAPES = {"R": (0, R), "W": (R // 2, R // 2 + W)}
+NODE_KERNELS = ("shade_eval_rows", "shade_eval")  # the kernels with two forms
+gate_results = {name: {} for name in ("light_shade", "shade_eval_rows", "shade_eval")}
+
+
+def gate_call(name, args, kw):
+    """A call of shading kernel `name` on the node kernels' 21 inputs `args`
+    (and `kw`, shade_kw's): light_shade takes the first 11."""
+    if name == "light_shade":
+        lkw = {k: kw[k] for k in ("n_lights", "eps_dist", "n_trans_blocks", "backface_culling",
+                                  "bigtri_trans_rows")}
+        return lambda: kernels.light_shade(*args[:11], **lkw)
+    if name == "shade_eval_rows":
+        pix = torch.arange(args[5].shape[0], dtype=torch.int32, device=DEV)
+        return lambda: kernels.shade_eval_rows(*args, pix, **kw)
+    return lambda: kernels.shade_eval(*args, **kw)
+
+
+def gate_twin(name, args, kw, got):
+    """Kernel output `got` against the twin of `name` on the same inputs:
+    masks and budgets identical, values within the traced-colour bar.
+    Returns the max |kernel - twin|."""
+    if name == "light_shade":
+        lkw = {k: kw[k] for k in ("n_lights", "eps_dist", "backface_culling")}
+        return close(f"{name} twin", list(zip(got, kernels.light_shade_plain(*args[:11], **lkw))))
+    if name == "shade_eval_rows":
+        pix = torch.arange(args[5].shape[0], dtype=torch.int32, device=DEV)
+        ref = kernels.shade_eval_rows_plain(*args, pix, **kw)
+        assert torch.equal(got[2], ref[2]) and torch.equal(got[4], ref[4]), f"{name} masks"
+        return close(f"{name} twin", [(got[0], ref[0]), (got[1][ref[2]], ref[1][ref[2]]),
+                                      (got[3][ref[4]], ref[3][ref[4]])])
+    (contrib, refl, refr), (c_ref, refl_ref, refr_ref) = got, kernels.shade_eval_plain(*args, **kw)
+    pairs = [(contrib, c_ref)]
+    for g, r in ((refl, refl_ref), (refr, refr_ref)):
+        m = r["mask"]
+        assert torch.equal(g["mask"], m) and torch.equal(g["budget"][m], r["budget"][m]), name
+        pairs += [(g[k][m], r[k][m]) for k in r if k not in ("mask", "budget")]
+    return close(f"{name} twin", pairs)
+
+
+def check_gate(case, name, shape, args, kw, iters, twin=True):
+    """Kernel `name` under the switches on these inputs (see phase 7c)."""
+    call = gate_call(name, args, kw)
+    base = flat(with_gates(False, False, call))
+    for prime, sort in GATE_SETTINGS:
+        for _ in range(3):
+            got = flat(with_gates(prime, sort, call))
+            assert all(same_bits(a, b) for a, b in zip(base, got)), (case, name, prime, sort)
+    err = None
+    if twin:
+        part = [a[:512].contiguous() if isinstance(a, torch.Tensor) and a.dim() and
+                a.shape[0] == args[5].shape[0] else a for a in args]
+        err = gate_twin(name, part, kw, with_gates(True, True, gate_call(name, part, kw)))
+    ms = {"off": [], "on": []}
+    for which in ("off", "on", "on", "off"):
+        ms[which].append(with_gates(which == "on", which == "on", lambda: cuda_ms(call, iters)))
+    res = dict(rays=args[5].shape[0], live=int((args[10] != 0).sum()), bits="same",
+               max_abs_err=err, ms_off=ms["off"], ms_on=ms["on"])
+    gate_results[name][f"{case} {shape}"] = res
+    vs_twin = (f"against the twin on {min(512, res['rays'])} rays: max |kernel - twin| {err:.3g}"
+               if twin else "not against the twin (the other form's inputs)")
+    log(f"  {name} {shape} ({res['rays']} rays, {res['live']} live): the same bits with each "
+        f"switch and both on, three runs each; {vs_twin}; ms by CUDA events off "
+        f"{[round(x, 4) for x in ms['off']]}, both on {[round(x, 4) for x in ms['on']]}")
+
+
+with phase("switches"):
+    report["switches"] = {}
+    for n_l in (5, 50, 95, 140):
+        c_g, ds_g = gate_cloud(n_l, DEV)
+        nb_g = ds_g.tri_blk_pack.shape[0]
+        acts = with_gates(True, True, lambda: kernels.gate_switches(n_l, nb_g, ds_g.n_trans_blocks))
+        log(f"cloud {n_l} lights: {nb_g} blocks, {ds_g.n_trans_blocks} transmissive; with both "
+            f"switches set PRIME acts {acts[0]}, SORT acts {acts[1]}")
+        report["switches"][f"cloud{n_l}"] = dict(nb=nb_g, n_trans_blocks=ds_g.n_trans_blocks,
+                                                 n_lights=n_l, prime=acts[0], sort=acts[1])
+        args_g = shade_args(ds_g, c_g, o_prim, d_prim, ones, **prim_state(R))
+        kw_g = shade_kw(ds_g, c_g)
+        for shape, (a, b) in GATE_SHAPES.items():
+            part = tuple(x[a:b].contiguous() if isinstance(x, torch.Tensor) and x.dim() and
+                         x.shape[0] == R else x for x in args_g)
+            for name in (("shade_eval_rows",) if n_l == 140 else gate_results):
+                check_gate(f"cloud{n_l}", name, shape, part, kw_g, 3 if shape == "R" else 20)
+        del ds_g
+    c_s, ds_s, light_s = stack_inputs(device=DEV)
+    nb_s = ds_s.tri_blk_pack.shape[0]
+    acts = with_gates(True, True, lambda: kernels.gate_switches(ds_s.n_lights, nb_s,
+                                                                 ds_s.n_trans_blocks))
+    assert acts == (True, True), acts
+    log(f"the PRIME_GATE scene: {ds_s.n_lights} lights, {nb_s} blocks, {ds_s.n_trans_blocks} "
+        f"transmissive; PRIME acts {acts[0]}, SORT acts {acts[1]}")
+    report["switches"]["stack17"] = dict(nb=nb_s, n_trans_blocks=ds_s.n_trans_blocks,
+                                         n_lights=ds_s.n_lights, prime=acts[0], sort=acts[1])
+    args_s = (*light_s, *node_state(light_s[5].shape[0], 43, DEV))
+    kw_s = dict(shade_kw(ds_s, c_s), reflections=True, refractions=True)
+    forms_kept = kernels.PACKET_MIN_RAYS, kernels.NODE_WARP_MAX_LIVE
+    for form, (most_rays, most_live) in (("one ray per warp", (1 << 30, 1 << 30)),
+                                         ("a ray per lane", (0, -1))):
+        kernels.PACKET_MIN_RAYS, kernels.NODE_WARP_MAX_LIVE = most_rays, most_live
+        for name in gate_results if form == "one ray per warp" else NODE_KERNELS:
+            check_gate("stack17", name, form, args_s, kw_s, 20, twin=form == "one ray per warp")
+    kernels.PACKET_MIN_RAYS, kernels.NODE_WARP_MAX_LIVE = forms_kept
+
+    # two frames with both switches on: their checksums
+    for label, c_f, r_f, scene_f in (
+            ("soft_shadows", c_soft, RaytracerRenderer(c_soft, device="cuda"),
+             scenes["soft_shadows"]),
+            ("extreme", CFG_EXT, r_ext, ds_ext)):
+        nb_f = scene_f.tri_blk_pack.shape[0]
+        acts = with_gates(True, True, lambda: kernels.gate_switches(
+            scene_f.n_lights, nb_f, scene_f.n_trans_blocks))
+        fb, wall, launches = with_gates(True, True, lambda: timed_run(
+            lambda: r_f.render_u32(scene_f)))
+        left = note_unfinished(f"{label} switches on", r_f)
+        log(f"{label} {c_f.width}x{c_f.height} with both switches on ({scene_f.n_lights} lights, "
+            f"{nb_f} blocks, {scene_f.n_trans_blocks} transmissive: PRIME acts {acts[0]}, SORT "
+            f"acts {acts[1]}): {wall * 1e3:.1f} ms, launches {used(launches)}, dropped "
+            f"{r_f.last_dropped}, unfinished {left}, u32 sha256 {checksum(fb)} (both off: "
+            f"{CHECKSUMS[label]})")
+        assert checksum(fb) == CHECKSUMS[label], (label, checksum(fb))
+        report["switches"][f"frame_{label}"] = dict(
+            wall_ms=wall * 1e3, checksum=checksum(fb), prime=acts[0], sort=acts[1],
+            unfinished=left, wall_ms_off=frames[label]["wall_ms"])
+    report["switches"]["kernels"] = gate_results
+
 # ---- phase 8: results ----------------------------------------------------
 # each kernel's launches: from the path it serves (the frame of phase 3/4)
 frames["occlude_rays"] = dict(launches=entry_launches)
+# every frame's rays left untraced at the iteration cap: 0, but for the open
+# faults of UNFINISHED_OPEN (ROADMAP.md Queue 3), each at its count
+report["unfinished"] = unfinished
+log(f"unfinished rays by frame: {json.dumps(unfinished)}")
+for label, n_left in unfinished.items():
+    assert n_left == UNFINISHED_OPEN.get(label, 0), (label, n_left)
 # name: (source, line of the TPU kernel body, path whose run gives the
 # launches, label of the main measurement, labels of the others)
 ENTRIES = {
@@ -1726,6 +1921,8 @@ for name, (src, tpu_line, path, main, others) in ENTRIES.items():
     )
     if name in ("cast_triangles", "cast_triangles_stream", "shade_eval_rows", "light_shade"):
         entry["launches_mesh"] = launches_mesh[name]
+    if name in gate_results:  # phase 7c: the switches' bits and times
+        entry["switches"] = gate_results[name]
     for label in others:
         o_res = results[name][label]
         sfx = EXTRA[label]

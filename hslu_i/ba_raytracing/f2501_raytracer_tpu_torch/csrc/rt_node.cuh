@@ -224,8 +224,8 @@ __device__ __forceinline__ Tables rt_node_stage(const ShadeScene& sc, float4* dy
 // lanes together: lighting over all lights, then rt_node_epilogue, whose
 // results go to store(r, contrib, rfl, rfr) on the lane that holds r. K = 1:
 // only lane 0 may hold a ray. All 32 lanes; RAGGED: sc.B is no multiple of
-// 32.
-template <int K, bool RAGGED, class Store>
+// 32; GATED: the shadow scans under the switches (rt_light.cuh).
+template <int K, bool RAGGED, bool GATED, class Store>
 __device__ __forceinline__ void rt_node_rays(const ShadeScene& sc, const Tables& tb,
                                              const WarpGate& g, const float4* big,
                                              const NodeParams& p, int lane, int r,
@@ -249,7 +249,10 @@ __device__ __forceinline__ void rt_node_rays(const ShadeScene& sc, const Tables&
       lit = q.cos_in > 0.0f;  // else intensity and color are exactly 0
     }
     Occl occ = {0.0f, 0.0f, 0.0f, 0.0f, true};  // can_reach is false: the light adds nothing
-    if constexpr (K == 32) {
+    if constexpr (K == 32 && GATED) {
+      occ = rt_shadow_scan_gated(sc, tb, lit, l, q.sox, q.soy, q.soz, q.ldx, q.ldy, q.ldz,
+                                 q.maxd);
+    } else if constexpr (K == 32) {
       if (lit) occ = rt_shadow_scan(sc, tb, q.sox, q.soy, q.soz, q.ldx, q.ldy, q.ldz, q.maxd);
     } else {
       if (lit) {
@@ -262,8 +265,8 @@ __device__ __forceinline__ void rt_node_rays(const ShadeScene& sc, const Tables&
       const unsigned need = __ballot_sync(RT_WARP, lit);  // bit k: ray k
       if (!need) continue;
       __syncwarp();  // the records are written
-      const unsigned opq = rt_warp_shadow_scan<K, RAGGED>(sc, g, big, lane, sh.rays, sh.sums,
-                                                          need, sh.stage);
+      const unsigned opq = rt_warp_shadow_scan<K, RAGGED, GATED>(sc, g, big, lane, sh.rays,
+                                                                 sh.sums, need, sh.stage, l);
       if (lit) {
         const float* tot = sh.sums + lane * OCCL_SUMS;
         occ = Occl{tot[0], tot[1], tot[2], tot[3], (opq >> lane & 1u) != 0};
@@ -306,9 +309,10 @@ static inline void rt_fill_node(ShadeScene* sc, NodeParams* p, const float* ligh
                                 const float* met, const float* hior, const float* opac,
                                 const float* boost, int R, float eps, int backface,
                                 int reflections, int refractions, int refl_max,
-                                int refr_max, float weight_cutoff, float air) {
+                                int refr_max, float weight_cutoff, float air,
+                                const int* order, int prime) {
   *sc = ShadeScene{lights, sph, trb, blk, blk_aabb, n_lights, S, P, trans_rows,
-                   nb, B, n_trans_blocks, backface};
+                   nb, B, n_trans_blocks, backface, order, prime};
   p->point = point; p->normal = normal; p->view = view; p->color = color; p->shin = shin;
   p->valid = valid; p->t = t; p->w = w; p->rior = rior; p->budget = budget;
   p->frefl = frefl; p->httr = httr; p->met = met; p->hior = hior; p->opac = opac;

@@ -1,1 +1,1 @@
-
+from . import camera, colorops, intersect, sampling, shading, trace, vecmath

@@ -429,7 +429,10 @@ def _run_pool(scene, cfg, eps_dist, R, contrib, rows0, masks0):
     """Compacted wavefront with a dense LIFO ray pool (JAX `_run_pool`):
     each iteration services the top W pending rays, so its cost scales with
     W, not R. Exact: contributions carry path weights, so evaluation order
-    is free. Returns (accum (R,3), dropped int64 tensor).
+    is free. Returns (accum (R,3), dropped, unfinished), the two counts int64
+    tensors: `dropped`, the rays a full pool refused (the JAX package's
+    count); `unfinished`, the rays still in the pool when `max_iters` ended
+    the loop, which no one traced (0 when the pool drained).
 
     The host reads `count` once per `loop_chunk` iterations, as the JAX
     while_loop condition does; inside a chunk every step is device-side
@@ -522,7 +525,7 @@ def _run_pool(scene, cfg, eps_dist, R, contrib, rows0, masks0):
             it += 1
         _commit(accum, stage_pix, stage_contrib)
         n_pending = host_read()
-    return accum[:R], dropped
+    return accum[:R], dropped, count
 
 
 def _commit(accum, pix, contrib):
@@ -571,7 +574,9 @@ def _run_stack(scene, cfg, eps_dist, contrib, refl_push, refr_push):
     iteration pops one entry per ray, evaluates the whole wavefront and
     pushes the children, refraction first so that the reflection child pops
     first (the reference evaluates the reflection subtree before the
-    refraction subtree). Returns (accum (R,3), dropped int64 tensor).
+    refraction subtree). Returns (accum (R,3), dropped, unfinished), the
+    counts as `_run_pool`'s (unfinished: the entries left on the stacks when
+    `max_nodes` ended the loop).
 
     The stop condition `it < max_nodes` is checked once per `loop_chunk`
     iterations, as the JAX while_loop condition is; inside a chunk an
@@ -604,7 +609,7 @@ def _run_stack(scene, cfg, eps_dist, contrib, refl_push, refr_push):
             live = bool((sp > 0).any())
             if not live:
                 break
-    return accum, dropped
+    return accum, dropped, sp.sum()
 
 
 def trace_rays(scene: DeviceScene, cfg: RenderConfig, origins, directions,
@@ -613,9 +618,12 @@ def trace_rays(scene: DeviceScene, cfg: RenderConfig, origins, directions,
 
     `directions` need not be normalized (Ray::new normalizes, ray.rs:54).
     Returns (color (R,3), valid (R,)) -- `valid` is the primary-hit mask. With
-    `with_stats=True` a third element is returned: {"dropped": int64 tensor},
+    `with_stats=True` a third element is returned: {"dropped": int64 tensor,
     the number of pending secondary rays truncated by pool or stack capacity
-    (0 in healthy runs; the reference recursion never drops subtrees)."""
+    (0 in healthy runs; the reference recursion never drops subtrees);
+    "unfinished": int64 tensor, the secondary rays left untraced when the
+    loop's iteration cap (`max_nodes`) ended it (0 when a frame ran to its
+    depth; the JAX package does not count them)}."""
     R = origins.shape[0]
     if cfg.packet_mode:
         # packets are 8 consecutive lanes; the pool keeps them whole (masks
@@ -648,15 +656,17 @@ def trace_rays(scene: DeviceScene, cfg: RenderConfig, origins, directions,
             scene, cfg, eps_dist, *prim,
             pix=torch.arange(R, dtype=torch.int64, device=dev),
         )
-        accum, dropped = _run_pool(scene, cfg, eps_dist, R, contrib, rows0, masks0)
+        accum, dropped, unfinished = _run_pool(scene, cfg, eps_dist, R, contrib, rows0, masks0)
     else:
         contrib, top_valid, refl_push, refr_push = _eval_node(scene, cfg, eps_dist, *prim)
         if children:
-            accum, dropped = _run_stack(scene, cfg, eps_dist, contrib, refl_push, refr_push)
+            accum, dropped, unfinished = _run_stack(scene, cfg, eps_dist, contrib, refl_push,
+                                                    refr_push)
         else:
-            accum, dropped = contrib, torch.zeros((), dtype=torch.int64, device=dev)
+            accum = contrib
+            dropped = unfinished = torch.zeros((), dtype=torch.int64, device=dev)
     if with_stats:
-        return accum, top_valid, {"dropped": dropped}
+        return accum, top_valid, {"dropped": dropped, "unfinished": unfinished}
     return accum, top_valid
 
 
@@ -680,10 +690,11 @@ def encode_pixels_u32(color, valid, aa_weights):
 
 
 def make_raygen_per_tile(scene: DeviceScene, cfg: RenderConfig, offsets,
-                         aa_weights, pix_t: int):
+                         aa_weights, pix_t: int, with_stats: bool = False):
     """Per-tile body of the device-side ray-generation path: (pix_t,) int
     tile-major pixel indices (-1 = padding) -> (u32 pixels (pix_t,) as
-    int64, dropped). The same f32 ops in the same order as the JAX body."""
+    int64, dropped), with `with_stats` also unfinished (`trace_rays`). The
+    same f32 ops in the same order as the JAX body."""
     U = offsets.shape[0]
     cam = cfg.camera
     dev = offsets.device
@@ -706,44 +717,57 @@ def make_raygen_per_tile(scene: DeviceScene, cfg: RenderConfig, offsets,
             pad[:, None, None], zdir[None, None, :].expand(pix_t, U, 3), d
         ).reshape(pix_t * U, 3)
         color, valid, stats = trace_rays(scene, cfg, o, d, with_stats=True)
-        return encode_pixels_u32(color, valid, aa_weights), stats["dropped"]
+        u32 = encode_pixels_u32(color, valid, aa_weights)
+        if with_stats:
+            return u32, stats["dropped"], stats["unfinished"]
+        return u32, stats["dropped"]
 
     return per_tile
 
 
+def _stack_tiles(outs):
+    """Per-tile results (u32, counts...) stacked into (u32 (n_tiles, P),
+    each count (n_tiles,))."""
+    return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
 def trace_rays_tiled_u32_gen(scene: DeviceScene, cfg: RenderConfig,
-                             order_group, offsets, aa_weights, n_tiles: int):
+                             order_group, offsets, aa_weights, n_tiles: int,
+                             with_stats: bool = False):
     """Trace `n_tiles` tiles with device-side ray generation and pixel
     encode. order_group: (n_tiles * P,) tile-major row-major pixel indices,
     -1 marks padding slots beyond the frame. Returns (u32 (n_tiles, P) as
-    int64, dropped (n_tiles,) int64), all on the device."""
+    int64, dropped (n_tiles,) int64), all on the device; with `with_stats`
+    also unfinished (n_tiles,) int64 (`trace_rays`)."""
     P = order_group.shape[0] // n_tiles
-    per_tile = make_raygen_per_tile(scene, cfg, offsets, aa_weights, P)
-    outs = [per_tile(og) for og in order_group.reshape(n_tiles, P)]
-    return torch.stack([u for u, _ in outs]), torch.stack([dr for _, dr in outs])
+    per_tile = make_raygen_per_tile(scene, cfg, offsets, aa_weights, P, with_stats)
+    return _stack_tiles(per_tile(og) for og in order_group.reshape(n_tiles, P))
 
 
 def trace_rays_tiled(scene: DeviceScene, cfg: RenderConfig, o_tiles, d_tiles,
                      with_stats: bool = False):
     """Trace (n_tiles, T, 3) ray tiles one after another. Returns color
     (n_tiles, T, 3) and valid (n_tiles, T); with `with_stats=True` also
-    {"dropped": the count summed over the tiles}."""
+    {"dropped", "unfinished": each count summed over the tiles}."""
     outs = [trace_rays(scene, cfg, o, d, with_stats=True) for o, d in zip(o_tiles, d_tiles)]
     color = torch.stack([c for c, _, _ in outs])
     valid = torch.stack([v for _, v, _ in outs])
     if with_stats:
-        return color, valid, {"dropped": torch.stack([s["dropped"] for _, _, s in outs]).sum()}
+        return color, valid, {k: torch.stack([s[k] for _, _, s in outs]).sum()
+                              for k in ("dropped", "unfinished")}
     return color, valid
 
 
 def trace_rays_tiled_u32(scene: DeviceScene, cfg: RenderConfig, o_tiles, d_tiles,
-                         aa_weights):
+                         aa_weights, with_stats: bool = False):
     """`trace_rays_tiled` with the AA reduction and pixel encode on the
     device: each tile's T rays are U = len(aa_weights) consecutive samples
     per pixel. Returns (u32 (n_tiles, T // U) as int64, dropped (n_tiles,)
-    int64), as `trace_rays_tiled_u32_gen` does for device-built rays."""
+    int64), with `with_stats` also unfinished (n_tiles,), as
+    `trace_rays_tiled_u32_gen` does for device-built rays."""
     outs = []
     for o, d in zip(o_tiles, d_tiles):
         color, valid, stats = trace_rays(scene, cfg, o, d, with_stats=True)
-        outs.append((encode_pixels_u32(color, valid, aa_weights), stats["dropped"]))
-    return torch.stack([u for u, _ in outs]), torch.stack([dr for _, dr in outs])
+        counts = ("dropped", "unfinished") if with_stats else ("dropped",)
+        outs.append((encode_pixels_u32(color, valid, aa_weights), *(stats[k] for k in counts)))
+    return _stack_tiles(outs)

@@ -227,50 +227,55 @@ def trace_tiles_sharded(scene, cfg: RenderConfig, o_tiles, d_tiles, mesh: Mesh,
     traces its contiguous run of the (n_tiles, T, 3) tiles against the
     scene's replica (a DeviceScene, or its `shard_scene` replicas). Returns
     (color (n_tiles, T, 3), valid (n_tiles, T)) on the lead device, the
-    one-device call's bits; `with_stats` adds {"dropped": the sum}."""
+    one-device call's bits; `with_stats` adds {"dropped", "unfinished": each
+    count summed}."""
     reps = _replicas(scene, mesh)
 
     def entry(i, o, d):
         c, v, st = trace_rays_tiled(reps[i], cfg, o, d, with_stats=True)
-        return c, v, st["dropped"]
+        return c, v, st["dropped"], st["unfinished"]
 
     outs = _on_entries(mesh, entry, [(o_tiles[a:b], d_tiles[a:b]) if b > a else None
                                      for a, b in _shares(o_tiles.shape[0], len(mesh))])
-    color = torch.cat([c for c, _, _ in outs])
-    valid = torch.cat([v for _, v, _ in outs])
+    color = torch.cat([out[0] for out in outs])
+    valid = torch.cat([out[1] for out in outs])
     if with_stats:
-        return color, valid, {"dropped": torch.stack([dr for _, _, dr in outs]).sum()}
+        return color, valid, {k: torch.stack([out[j] for out in outs]).sum()
+                              for j, k in ((2, "dropped"), (3, "unfinished"))}
     return color, valid
 
 
 def _join(outs) -> tuple:
-    return torch.cat([u for u, _ in outs]), torch.cat([dr for _, dr in outs])
+    """The entries' (u32, counts...) joined along the tile axis."""
+    return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
 def trace_tiles_sharded_u32(scene, cfg: RenderConfig, o_tiles, d_tiles, aa_weights,
-                            mesh: Mesh):
+                            mesh: Mesh, with_stats: bool = False):
     """`trace_rays_tiled_u32` with the tile axis split over the mesh (the
     AA reduction and pixel encode on each entry). Returns (u32 (n_tiles, P)
-    as int64, dropped (n_tiles,)) on the lead device."""
+    as int64, dropped (n_tiles,)) on the lead device, with `with_stats` also
+    unfinished (n_tiles,)."""
     reps = _replicas(scene, mesh)
     return _join(_on_entries(
-        mesh, lambda i, o, d, w: trace_rays_tiled_u32(reps[i], cfg, o, d, w),
+        mesh, lambda i, o, d, w: trace_rays_tiled_u32(reps[i], cfg, o, d, w, with_stats),
         [(o_tiles[a:b], d_tiles[a:b], aa_weights) if b > a else None
          for a, b in _shares(o_tiles.shape[0], len(mesh))]))
 
 
 def trace_tiles_sharded_u32_gen(scene, cfg: RenderConfig, order_group, offsets, aa_weights,
-                                mesh: Mesh, n_tiles: int):
+                                mesh: Mesh, n_tiles: int, with_stats: bool = False):
     """`trace_rays_tiled_u32_gen` with the tile axis split over the mesh:
     each entry generates its tiles' rays from its run of the tile-major
     pixel permutation `order_group` (n_tiles * P,), traces them and encodes
     the pixels. Returns (u32 (n_tiles, P) as int64, dropped (n_tiles,)) on
-    the lead device, the one-device call's bits."""
+    the lead device, the one-device call's bits; with `with_stats` also
+    unfinished (n_tiles,)."""
     reps = _replicas(scene, mesh)
     P = order_group.shape[0] // n_tiles
     return _join(_on_entries(
         mesh, lambda i, og, offs, w, n: trace_rays_tiled_u32_gen(reps[i], cfg, og, offs, w,
-                                                                 n_tiles=n),
+                                                                 n_tiles=n, with_stats=with_stats),
         [(order_group[a * P:b * P], offsets, aa_weights, b - a) if b > a else None
          for a, b in _shares(n_tiles, len(mesh))]))
 

@@ -246,7 +246,10 @@ class RaytracerRenderer:
         self.mesh = mesh_of(cfg.devices, device) if cfg.devices > 1 else None
         self.device = self.mesh.lead if self.mesh else resolve_device(device)
         self.cfg = cfg
+        # the last frame's ray counts (ops/trace.py::trace_rays, with_stats):
+        # refused by a full pool or stack; left untraced at the iteration cap
         self.last_dropped = 0
+        self.last_unfinished = 0
 
     def device_scene(self, scene: Scene) -> DeviceScene:
         if self.cfg.scene_backface_culling:
@@ -282,7 +285,7 @@ class RaytracerRenderer:
         (`cfg.device_ray_gen`) or from the host (`build_frame_rays`), the
         same bits either way. The tiles are traced in `launch_groups`, whose
         pixels are fetched together at the end; on a mesh each group's tiles
-        are split over its entries. Sets `last_dropped`."""
+        are split over its entries. Sets `last_dropped` and `last_unfinished`."""
         cfg = self.cfg
         plan = plan_frame(cfg)
         n_tiles, P = plan.n_tiles, plan.pix_per_tile
@@ -297,20 +300,21 @@ class RaytracerRenderer:
         for size in launch_groups(cfg, n_tiles, len(self.mesh) if self.mesh else 1):
             if cfg.device_ray_gen:
                 args = (cfg, order_dev[gs * P:(gs + size) * P], offs_dev, w_dev)
-                u32, dropped = (
-                    trace_tiles_sharded_u32_gen(reps, *args, self.mesh, n_tiles=size) if reps
-                    else trace_rays_tiled_u32_gen(dscene, *args, n_tiles=size))
+                parts.append(
+                    trace_tiles_sharded_u32_gen(reps, *args, self.mesh, n_tiles=size,
+                                                with_stats=True) if reps
+                    else trace_rays_tiled_u32_gen(dscene, *args, n_tiles=size, with_stats=True))
             else:
                 args = (cfg, self._to_dev(o_all[gs:gs + size]),
                         self._to_dev(d_all[gs:gs + size]), w_dev)
-                u32, dropped = (trace_tiles_sharded_u32(reps, *args, self.mesh) if reps
-                                else trace_rays_tiled_u32(dscene, *args))
-            parts.append((u32, dropped))
+                parts.append(trace_tiles_sharded_u32(reps, *args, self.mesh, with_stats=True)
+                             if reps else trace_rays_tiled_u32(dscene, *args, with_stats=True))
             gs += size
-        u32, dropped = (torch.cat(p).cpu() for p in zip(*parts))  # one fetch
+        u32, dropped, unfinished = (torch.cat(p).cpu() for p in zip(*parts))  # one fetch
         total_pixels = cfg.width * cfg.height
         px = u32.reshape(-1).numpy().astype(np.uint32)
         self.last_dropped = int(dropped.sum())
+        self.last_unfinished = int(unfinished.sum())
         _warn_drops(self.last_dropped)
         fb = np.zeros((total_pixels,), np.uint32)
         fb[plan.order] = px[:total_pixels]
@@ -342,7 +346,8 @@ class RaytracerRenderer:
         them by default; on a mesh each group's tiles split over its entries,
         except under `render_timing_debug`), their f32 colours fetched per
         group and reduced on the host. `render_timing_debug` adds the drop
-        warning. Sets `last_dropped`; each group's seconds go to `stats`."""
+        warning. Sets `last_dropped` and `last_unfinished`; each group's seconds
+        go to `stats`."""
         cfg = self.cfg
         plan = plan_frame(cfg)
         n_tiles, U = plan.n_tiles, plan.aa
@@ -353,7 +358,7 @@ class RaytracerRenderer:
         # (the JAX package's mesh drops those stats instead)
         reps = (shard_scene(dscene, self.mesh)
                 if self.mesh and not cfg.render_timing_debug else None)
-        colors, valids, dropped = [], [], 0
+        colors, valids, dropped, unfinished = [], [], 0, 0
         for gs in range(0, n_tiles, group):
             t_group = time.monotonic()
             args = (cfg, self._to_dev(o_all[gs : gs + group]),
@@ -363,8 +368,9 @@ class RaytracerRenderer:
             colors.append(c.cpu().numpy())
             valids.append(v.cpu().numpy())
             dropped += int(st["dropped"])
+            unfinished += int(st["unfinished"])
             stats.push(time.monotonic() - t_group)
-        self.last_dropped = dropped
+        self.last_dropped, self.last_unfinished = dropped, unfinished
         if cfg.render_timing_debug:
             _warn_drops(dropped)
         buf = ImageBuffer(cfg.width, cfg.height)
@@ -377,14 +383,14 @@ class RaytracerRenderer:
         producer/consumer window, main.rs:330-347): each tile of the fused
         frame's host-built rays is traced, fetched once and committed through
         the tile-major permutation; then `progress(buf, share of pixels
-        done)`. Sets `last_dropped`."""
+        done)`. Sets `last_dropped` and `last_unfinished`."""
         cfg = self.cfg
         plan = plan_frame(cfg)
         U, P = plan.aa, plan.pix_per_tile
         total_pixels = cfg.width * cfg.height
         buf = ImageBuffer(cfg.width, cfg.height)
         o_all, d_all = build_frame_rays(cfg, plan)
-        dropped = 0
+        dropped = unfinished = 0
         for k in range(plan.n_tiles):
             t_tile = time.monotonic()
             start, end = k * P, min((k + 1) * P, total_pixels)
@@ -393,6 +399,7 @@ class RaytracerRenderer:
                 dscene, cfg, self._to_dev(o_all[k]), self._to_dev(d_all[k]), with_stats=True
             )
             dropped += int(st["dropped"])
+            unfinished += int(st["unfinished"])
             _commit(buf, plan.order[start:end], color.cpu().numpy()[: n * U].reshape(n, U, 3),
                     valid.cpu().numpy()[: n * U].reshape(n, U), plan.weights)
             if cfg.simulate_slow_render:  # ref renderer/mod.rs:126-129
@@ -400,7 +407,7 @@ class RaytracerRenderer:
             stats.push(time.monotonic() - t_tile)
             timing.next()
             progress(buf, end / total_pixels)
-        self.last_dropped = dropped
+        self.last_dropped, self.last_unfinished = dropped, unfinished
         if cfg.render_timing_debug:
             _warn_drops(dropped)
         return buf

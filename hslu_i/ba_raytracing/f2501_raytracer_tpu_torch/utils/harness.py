@@ -1,5 +1,6 @@
 """Helpers that chip_smoke.py, utils/ab.py and the card tests share: the
-block partitions that the warp kernels must take, a tile of a frame as one
+block partitions that the warp kernels must take, the scenes and inputs of
+the shadow scan's switches (PRIME_GATE, SORT_GATE), a tile of a frame as one
 call, the calls of a kernel wrapper caught from a render, the shadow rays
 of the light loop, bitwise checks of the node kernels, the card's peaks and
 the occlusion's bound, timing by CUDA events and by torch.profiler, and
@@ -21,6 +22,12 @@ import time
 import numpy as np
 import torch
 
+from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.config import RenderConfig
+from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.materials import (
+    Material,
+    TransmissionProperties,
+)
+from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.models import triangle_cloud
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops import kernels, shading, trace
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops.intersect import (
     _backface_mask,
@@ -33,6 +40,8 @@ from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.renderer import (
     RaytracerRenderer,
     plan_frame,
 )
+from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.scene.builder import Scene, TriangleData
+from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.scene.lighting import PointLight
 
 # Block partitions that the JAX package takes (pallas_kernels.py:149-160)
 # and that the kernels with a warp per ray take too
@@ -42,6 +51,111 @@ PARTITIONS = {
     # blocks of 48 rows: a ragged last round of rows
     "block48": dict(triangle_block=48),
 }
+
+
+# ---- the shadow scan's switches (kernels.gate_switches) ------------------
+# (prime, sort) of kernels.PRIME_GATE and SORT_GATE: off, each, both
+GATE_SETTINGS = ((False, False), (True, False), (False, True), (True, True))
+# the light counts of the feature configs: default, soft_shadows,
+# high_quality (reference_default's) and extreme_quality
+GATE_LIGHTS = {5: {}, 50: dict(soft_shadows=True), 95: dict(high_quality=True),
+               140: dict(extreme_quality=True)}
+
+
+def with_gates(prime, sort, fn):
+    """fn() with kernels.PRIME_GATE and SORT_GATE set to (prime, sort)."""
+    keep = kernels.PRIME_GATE, kernels.SORT_GATE
+    kernels.PRIME_GATE, kernels.SORT_GATE = prime, sort
+    try:
+        return fn()
+    finally:
+        kernels.PRIME_GATE, kernels.SORT_GATE = keep
+
+
+def gate_cloud(n_lights, device="cuda"):
+    """(config, device scene) of the 235-block cloud, where the switches
+    have opaque blocks to reorder: semesterbild plus 15,000 small triangles
+    (triangle_cloud.build_scene's other defaults; a tenth of them glass) in
+    blocks of 64, as at 1080p, `realistic` with the light cloud of the
+    feature config that has n_lights lights (GATE_LIGHTS)."""
+    c = RenderConfig(width=1920, height=1080, scene_backface_culling=True, triangle_block=64,
+                     weight_cutoff=1e-3, reflections=True, light_reflections=True,
+                     refractions=True, **GATE_LIGHTS[n_lights])
+    scene = RaytracerRenderer(c, device=device).device_scene(
+        triangle_cloud.build_scene(c, n=15000))
+    assert scene.n_lights == n_lights and not scene.streaming, scene.n_lights
+    return c, scene
+
+
+def stack_scene() -> Scene:
+    """The JAX package's scene of its PRIME_GATE and SORT_GATE tests
+    (tests/test_prime_gate.py::_cloud_scene), built with the port's Scene
+    from the same seeds: two Morton clusters on one shadow column, a
+    watertight opaque grid at y = 0.45 over x [0.2, 0.3] and 24 small
+    triangles at y ~ 0.6 (tests/test_opq_gate.py::_lanegate_scene), lit by
+    a 17-light cloud around (0.25, 0.9, 0.5): three chunks of 8 lights."""
+    s = Scene()
+    opaque = Material.new((0.7, 0.7, 0.7), 0.0, 0.0, TransmissionProperties.none())
+    xs, zs = np.linspace(0.2, 0.3, 13), np.linspace(0.44, 0.56, 9)
+    for i in range(12):
+        for k in range(8):
+            a, bx = (xs[i], 0.45, zs[k]), (xs[i + 1], 0.45, zs[k])
+            cz, d2 = (xs[i], 0.45, zs[k + 1]), (xs[i + 1], 0.45, zs[k + 1])
+            s.add_triangle(TriangleData.with_material(a, bx, cz, opaque))
+            s.add_triangle(TriangleData.with_material(d2, cz, bx, opaque))
+    rng = np.random.default_rng(11)
+    for _ in range(24):
+        cx, cy = rng.uniform(0.21, 0.29), rng.uniform(0.58, 0.62)
+        e1, e2 = rng.uniform(-0.008, 0.008, 3), rng.uniform(-0.008, 0.008, 3)
+        a = np.array([cx, cy, 0.5])
+        s.add_triangle(TriangleData.with_material(
+            tuple(a), tuple(a + e1), tuple(a + e2),
+            Material.new((0.4, 0.5, 0.6), 0.0, 0.2, TransmissionProperties.none())))
+    rng = np.random.default_rng(23)
+    for _ in range(17):
+        p = np.float32([0.25, 0.9, 0.5]) + rng.uniform(-0.02, 0.02, 3)
+        s.add_light(PointLight.new(tuple(p), (1.0, 0.9, 0.8), 0.3))
+    return s
+
+
+def stack_inputs(n=256, device="cuda"):
+    """(config, device scene, light inputs) of `stack_scene` as the JAX
+    tests light it: n surface points along x in [0, 1] at y = 0.1, z = 0.5,
+    normal +y, view +z, colour (0.8, 0.7, 0.6), shininess 0.3, all valid;
+    the light inputs are the 11 leading arguments of the shading kernels."""
+    c = RenderConfig(width=32, height=16, triangle_block=64)
+    scene = RaytracerRenderer(c, device=device).device_scene(stack_scene())
+    x = torch.linspace(0.0, 1.0, n, device=device)
+
+    def rows(v):
+        return torch.tensor(v, dtype=torch.float32, device=device).expand(n, 3).contiguous()
+
+    point = torch.stack([x, torch.full_like(x, 0.1), torch.full_like(x, 0.5)], -1)
+    light = (scene.light_pack, scene.sph_pack, scene.trb_pack, scene.tri_blk_pack,
+             scene.tri_blk_aabb, point, rows([0.0, 1.0, 0.0]), rows([0.0, 0.0, 1.0]),
+             rows([0.8, 0.7, 0.6]), torch.full_like(x, 0.3), torch.ones_like(x))
+    return c, scene, light
+
+
+def node_state(n, seed, device="cuda"):
+    """The node kernels' per-ray state after the light inputs, drawn from a
+    seed for n rays: t, w, rior, budget, from_refl, h_httr, h_met, h_ior,
+    h_opac, h_boost (as trace._node_args orders them)."""
+    rng = np.random.default_rng(seed)
+
+    def g(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return (g(rng.uniform(0.1, 2.0, n).astype(np.float32)),
+            g(rng.uniform(0.05, 1.0, (n, 3)).astype(np.float32)),
+            g(np.where(rng.random(n) < 0.7, trace.AIR, 1.5).astype(np.float32)),
+            g(rng.integers(-1, 9, n).astype(np.int32)),
+            g((rng.random(n) < 0.5).astype(np.float32)),
+            g((rng.random(n) < 0.3).astype(np.float32)),
+            g(rng.uniform(0.0, 0.5, n).astype(np.float32)),
+            g(rng.uniform(1.2, 1.8, n).astype(np.float32)),
+            g(rng.uniform(0.2, 1.0, n).astype(np.float32)),
+            g(rng.uniform(0.0, 0.5, n).astype(np.float32)))
 
 
 # published H100 SXM peaks: fp32 outside the tensor cores, HBM bandwidth
