@@ -223,6 +223,9 @@ from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.utils.harness import (  # no
     tile_call,
     with_gates,
 )
+from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.utils.timing import (  # noqa: E402
+    device_busy_ms,
+)
 
 PKG = "hslu_i/ba_raytracing/f2501_raytracer_tpu_torch"
 TPU_KERNELS = "hslu_i/ba_raytracing/f2501_raytracer_tpu/ops/pallas_kernels.py"
@@ -1137,7 +1140,8 @@ def node_launch_ms(prof, node_kernel):
 
 def profile_tile(label, scene, node_kernel, c=cfg, k=3, aa=False):
     """Tile k of config c's frame on `scene` (with `aa`, its AA samples),
-    traced: host wall against the summed device time of every kernel;
+    traced: host wall against the device's busy time (the union of its
+    operations' intervals);
     `node_kernel` is launched once per node evaluation, and the device time
     of each of its calls is kept."""
     run = tile_call(scene, c, k, aa=aa)
@@ -1152,7 +1156,7 @@ def profile_tile(label, scene, node_kernel, c=cfg, k=3, aa=False):
         tile_wall = (time.monotonic() - t0) * 1e3
     nodes = kernels.LAUNCHES[node_kernel]
     avg = prof.key_averages()
-    busy = sum(e.self_device_time_total for e in avg) / 1e3
+    busy = device_busy_ms(prof.events())
     n_launch = sum(e.count for e in avg if e.key == "cudaLaunchKernel")
     top = sorted(avg, key=lambda e: -e.self_device_time_total)[:6]
     per_call = node_launch_ms(prof, node_kernel)

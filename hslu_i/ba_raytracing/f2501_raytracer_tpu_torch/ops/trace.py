@@ -58,6 +58,7 @@ import torch
 
 from ..config import DEFAULT_REFRACTION_INDEX, RenderConfig
 from ..scene.device import DeviceScene
+from ..utils import timing as spans
 from .intersect import _where0, cast_rays
 from .shading import (
     attenuation_factor_based_on_distance,
@@ -443,7 +444,14 @@ def _run_pool(scene, cfg, eps_dist, R, contrib, rows0, masks0):
 
     In packet mode every append mask is packet-uniform, so the pool holds
     whole packets and each serviced window starts on a packet; that is
-    checked on the device and read with `count`."""
+    checked on the device and read with `count`.
+
+    While spans record (`utils/timing.py`), each chunk is a `pool.chunk`
+    span (its iterations and its commit, enqueued; counters `iters` and
+    `live_iters`, the iterations that found the pool non-empty) and each
+    read of `count`, the first before any chunk, a `pool.sync` span beside
+    them; the chunk's staged pixels that give `live_iters` are read with
+    `count`."""
     ratio = max(int(cfg.compaction_ratio), 1)
     rt = int(cfg.kernel_ray_tile)
     W = max((R // ratio) // rt * rt, rt)
@@ -487,44 +495,55 @@ def _run_pool(scene, cfg, eps_dist, R, contrib, rows0, masks0):
     lanes = torch.arange(W, dtype=torch.int64, device=dev)
     k = rows0.shape[0] // R  # enabled child types (1 or 2)
 
-    def host_read():  # the chunk's one sync: count (and the checks)
-        if not packet:
-            return int(count)
-        n, bad = torch.stack([count, split.to(torch.int64)]).tolist()
-        if bad or n % PACKET:
-            raise RuntimeError(f"the pool split a packet of {PACKET} lanes (count {n})")
-        return n
+    def host_read(after_chunk=False):
+        """The chunk's one sync, a `pool.sync` span: count, with the packet
+        check and, while spans record, the chunk's live iterations read
+        beside it. Returns (count, live iterations or None)."""
+        # slot s found the pool non-empty exactly when its lane 0 was active,
+        # so when its first staged pixel is a real one (< R)
+        live = after_chunk and spans.ON
+        with spans.span("pool.sync"):
+            if packet or live:
+                got = torch.cat([count.view(1)]
+                                + ([split.to(torch.int64).view(1)] if packet else [])
+                                + ([stage_pix[::W]] if live else [])).tolist()
+            else:
+                got = [int(count)]
+        if packet and (got[1] or got[0] % PACKET):
+            raise RuntimeError(f"the pool split a packet of {PACKET} lanes (count {got[0]})")
+        return got[0], (sum(p < R for p in got[-chunk:]) if live else None)
 
-    n_pending = host_read()
+    n_pending, _ = host_read()
     it = 0
     while it < max_iters and n_pending > 0:
-        for slot in range(chunk):
-            start = torch.clamp(count - W, min=0)
-            idx = start + lanes
-            sel_active = idx < count
-            rows = pool.index_select(0, idx)
-            if cfg.resort_secondary:
-                order = _morton_order(rows, sel_active)
-                rows, sel_active = rows[order], sel_active[order]
-            e = _unpack_entry(rows)
-            contrib_w, _, rows_b, masks_b = _node_rows(
-                scene, cfg, eps_dist, e["o"], e["d"], e["ior"], e["w"],
-                e["budget"], e["from_refl"], sel_active, pix=e["pix"],
-            )
-            rows_sl = slice(slot * W, (slot + 1) * W)
-            stage_pix[rows_sl] = torch.where(sel_active, e["pix"], R + slot * W + lanes)
-            stage_contrib[rows_sl] = _where0(sel_active[:, None], contrib_w)
-            # cap so a full append of 2W candidates stays within the logical
-            # capacity; at the auto capacity this never engages
-            capped = torch.clamp(start, max=Q_cap - 2 * W)
-            dropped = dropped + (start - capped)
-            m = masks_b & sel_active.repeat(k)
-            if packet:
-                split = split | _splits_packets(m)
-            count = _pool_append(pool, capped, rows_b, m)
-            it += 1
-        _commit(accum, stage_pix, stage_contrib)
-        n_pending = host_read()
+        with spans.span("pool.chunk", iters=chunk) as sp_chunk:
+            for slot in range(chunk):
+                start = torch.clamp(count - W, min=0)
+                idx = start + lanes
+                sel_active = idx < count
+                rows = pool.index_select(0, idx)
+                if cfg.resort_secondary:
+                    order = _morton_order(rows, sel_active)
+                    rows, sel_active = rows[order], sel_active[order]
+                e = _unpack_entry(rows)
+                contrib_w, _, rows_b, masks_b = _node_rows(
+                    scene, cfg, eps_dist, e["o"], e["d"], e["ior"], e["w"],
+                    e["budget"], e["from_refl"], sel_active, pix=e["pix"],
+                )
+                rows_sl = slice(slot * W, (slot + 1) * W)
+                stage_pix[rows_sl] = torch.where(sel_active, e["pix"], R + slot * W + lanes)
+                stage_contrib[rows_sl] = _where0(sel_active[:, None], contrib_w)
+                # cap so a full append of 2W candidates stays within the logical
+                # capacity; at the auto capacity this never engages
+                capped = torch.clamp(start, max=Q_cap - 2 * W)
+                dropped = dropped + (start - capped)
+                m = masks_b & sel_active.repeat(k)
+                if packet:
+                    split = split | _splits_packets(m)
+                count = _pool_append(pool, capped, rows_b, m)
+                it += 1
+            _commit(accum, stage_pix, stage_contrib)
+        n_pending, sp_chunk.counters["live_iters"] = host_read(after_chunk=True)
     return accum[:R], dropped, count
 
 
@@ -741,7 +760,11 @@ def trace_rays_tiled_u32_gen(scene: DeviceScene, cfg: RenderConfig,
     also unfinished (n_tiles,) int64 (`trace_rays`)."""
     P = order_group.shape[0] // n_tiles
     per_tile = make_raygen_per_tile(scene, cfg, offsets, aa_weights, P, with_stats)
-    return _stack_tiles(per_tile(og) for og in order_group.reshape(n_tiles, P))
+    outs = []
+    for og in order_group.reshape(n_tiles, P):
+        with spans.span("tile"):
+            outs.append(per_tile(og))
+    return _stack_tiles(outs)
 
 
 def trace_rays_tiled(scene: DeviceScene, cfg: RenderConfig, o_tiles, d_tiles,
@@ -767,7 +790,9 @@ def trace_rays_tiled_u32(scene: DeviceScene, cfg: RenderConfig, o_tiles, d_tiles
     `trace_rays_tiled_u32_gen` does for device-built rays."""
     outs = []
     for o, d in zip(o_tiles, d_tiles):
-        color, valid, stats = trace_rays(scene, cfg, o, d, with_stats=True)
-        counts = ("dropped", "unfinished") if with_stats else ("dropped",)
-        outs.append((encode_pixels_u32(color, valid, aa_weights), *(stats[k] for k in counts)))
+        with spans.span("tile"):
+            color, valid, stats = trace_rays(scene, cfg, o, d, with_stats=True)
+            counts = ("dropped", "unfinished") if with_stats else ("dropped",)
+            outs.append((encode_pixels_u32(color, valid, aa_weights),
+                         *(stats[k] for k in counts)))
     return _stack_tiles(outs)

@@ -62,6 +62,7 @@ from .parallel.mesh import (
 )
 from .scene.builder import Scene
 from .scene.device import DeviceScene, build_device_scene
+from .utils import timing as spans
 from .utils.devices import resolve_device
 from .utils.timing import RenderTiming, TileStats
 
@@ -285,15 +286,29 @@ class RaytracerRenderer:
         (`cfg.device_ray_gen`) or from the host (`build_frame_rays`), the
         same bits either way. The tiles are traced in `launch_groups`, whose
         pixels are fetched together at the end; on a mesh each group's tiles
-        are split over its entries. Sets `last_dropped` and `last_unfinished`."""
+        are split over its entries. Sets `last_dropped` and `last_unfinished`.
+
+        Records the frame's spans (`utils/timing.py`) while a torch profiler
+        records: `frame`, and inside it `frame.plan` (the plan and the uploads
+        of its tables or rays), a `tile` per tile (ops/trace.py),
+        `frame.fetch` (the host waiting for the device, then the copy back)
+        and `frame.reorder`."""
+        spans.frame_recording()
+        with spans.span("frame"):
+            # the frame's host arrays are freed as `_frame_u32` returns: inside the span
+            return self._frame_u32(dscene)
+
+    def _frame_u32(self, dscene: DeviceScene) -> np.ndarray:
+        """`render_u32`'s frame, inside its `frame` span."""
         cfg = self.cfg
-        plan = plan_frame(cfg)
-        n_tiles, P = plan.n_tiles, plan.pix_per_tile
-        w_dev = self._to_dev(plan.weights)
-        if cfg.device_ray_gen:
-            order_dev, offs_dev = frame_order_device(cfg, plan, n_tiles, self.device)
-        else:
-            o_all, d_all = build_frame_rays(cfg, plan)
+        with spans.span("frame.plan"):
+            plan = plan_frame(cfg)
+            n_tiles, P = plan.n_tiles, plan.pix_per_tile
+            w_dev = self._to_dev(plan.weights)
+            if cfg.device_ray_gen:
+                order_dev, offs_dev = frame_order_device(cfg, plan, n_tiles, self.device)
+            else:
+                o_all, d_all = build_frame_rays(cfg, plan)
         reps = shard_scene(dscene, self.mesh) if self.mesh else None  # once a frame
         parts = []
         gs = 0
@@ -310,14 +325,16 @@ class RaytracerRenderer:
                 parts.append(trace_tiles_sharded_u32(reps, *args, self.mesh, with_stats=True)
                              if reps else trace_rays_tiled_u32(dscene, *args, with_stats=True))
             gs += size
-        u32, dropped, unfinished = (torch.cat(p).cpu() for p in zip(*parts))  # one fetch
-        total_pixels = cfg.width * cfg.height
-        px = u32.reshape(-1).numpy().astype(np.uint32)
-        self.last_dropped = int(dropped.sum())
-        self.last_unfinished = int(unfinished.sum())
-        _warn_drops(self.last_dropped)
-        fb = np.zeros((total_pixels,), np.uint32)
-        fb[plan.order] = px[:total_pixels]
+        with spans.span("frame.fetch"):
+            u32, dropped, unfinished = (torch.cat(p).cpu() for p in zip(*parts))  # one fetch
+        with spans.span("frame.reorder"):
+            total_pixels = cfg.width * cfg.height
+            px = u32.reshape(-1).numpy().astype(np.uint32)
+            self.last_dropped = int(dropped.sum())
+            self.last_unfinished = int(unfinished.sum())
+            _warn_drops(self.last_dropped)
+            fb = np.zeros((total_pixels,), np.uint32)
+            fb[plan.order] = px[:total_pixels]
         return fb
 
     def render_device(

@@ -148,6 +148,7 @@ from harness import (  # noqa: E402
     tile_call,
     with_gates,
 )
+from timing import device_busy_ms  # noqa: E402 (this checkout's, as harness.py)
 
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch import (  # noqa: E402
     RaytracerRenderer,
@@ -213,8 +214,9 @@ def frames(n):
 
 def traced_tile(name, scene):
     """Tile 3 traced with torch.profiler, as chip_smoke.py's `profile_tile`:
-    host wall, device busy time, launches per node evaluation, the kernels
-    that take the most device time."""
+    host wall, device busy time (the union of the device operations'
+    intervals), launches per node evaluation, the kernels that take the most
+    device time."""
     run = tile_call(scene, cfg, 3)
     run()
     torch.cuda.synchronize()
@@ -227,7 +229,7 @@ def traced_tile(name, scene):
         wall = (time.monotonic() - t0) * 1e3
     nodes = kernels.LAUNCHES[KERNELS[name][0]]
     avg = prof.key_averages()
-    busy = sum(e.self_device_time_total for e in avg) / 1e3
+    busy = device_busy_ms(prof.events())
     n_launch = sum(e.count for e in avg if e.key == "cudaLaunchKernel")
     print(f"{name} tile 3 traced: wall {wall:.1f} ms, {nodes} node evaluations, device busy "
           f"{busy:.2f} ms, {n_launch} kernel launches ({n_launch / nodes:.1f} per node "
