@@ -1145,7 +1145,8 @@ def profile_tile(label, scene, node_kernel, c=cfg, k=3, aa=False):
     `node_kernel` is launched once per node evaluation, and the device time
     of each of its calls is kept."""
     run = tile_call(scene, c, k, aa=aa)
-    run()  # warm
+    run()  # warm: on a key new to the stream the pool's first chunk runs eagerly,
+    run()  # the next is captured, so the traced run replays
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]

@@ -33,7 +33,9 @@ at once (a mesh runs one per entry, parallel/mesh.py).
 The device of the input tensors picks the implementation: a CUDA tensor
 goes to the kernel (or the call raises); a CPU tensor goes to the plain
 PyTorch twin (`*_plain`), which the CPU tests hold against the JAX package.
-`LAUNCHES` counts kernel launches (twin calls are not counted).
+`LAUNCHES` counts kernel launches (twin calls are not counted): a launch
+recorded into a CUDA graph counts when the graph is replayed
+(`counting_into`, `count_launches`; ops/trace.py's pool chunks).
 
 The shadow scan of the three shading kernels has the JAX package's two
 switches, PRIME_GATE and SORT_GATE (`RT_PRIME_GATE`, `RT_SORT_GATE`; off
@@ -44,6 +46,7 @@ with either switch on or off.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -83,12 +86,34 @@ LAUNCHES = {name: 0 for name in KERNEL_SOURCES}
 # the builds, the loaded libraries, LAUNCHES and the tables' caches
 _lock = threading.Lock()
 _libs: dict = {}
+_capture = threading.local()  # `launches`: the open capture's counts on this thread
 
 
 def reset_launch_counts() -> None:
     with _lock:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+
+
+@contextlib.contextmanager
+def counting_into(counts):
+    """While inside, this thread's launches count in the dict `counts`, not
+    in LAUNCHES: they are being captured into a CUDA graph and run only when
+    it is replayed, and each replay adds `counts` (`count_launches`). With
+    None they count in LAUNCHES again (an eager call between two graphs of
+    a capture)."""
+    saved = getattr(_capture, "launches", None)
+    _capture.launches = counts
+    try:
+        yield counts
+    finally:
+        _capture.launches = saved
+
+
+def count_launches(counts: dict) -> None:
+    with _lock:
+        for k, n in counts.items():
+            LAUNCHES[k] += n
 
 
 def _nvcc() -> str:
@@ -222,8 +247,12 @@ def _launch(dev, name, *args):
     err = _fn(name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+    counts = getattr(_capture, "launches", None)
     with _lock:
-        LAUNCHES[name] += 1
+        if counts is None:
+            LAUNCHES[name] += 1
+        else:
+            counts[name] = counts.get(name, 0) + 1
 
 
 def _ptr(t):
@@ -551,6 +580,13 @@ PRIME_GATE = os.environ.get("RT_PRIME_GATE", "0") != "0"
 SORT_GATE = os.environ.get("RT_SORT_GATE", "0") != "0"
 # lights per chunk of both switches (JAX MAX_UNROLL_LIGHTS; csrc RT_GATE_CHUNK)
 GATE_CHUNK = 8
+
+
+def launch_settings() -> tuple:
+    """The module settings the wrappers read at each call to choose a
+    kernel's build or form: a CUDA graph of their launches holds for these
+    values only."""
+    return PRIME_GATE, SORT_GATE, PACKET_MIN_RAYS, NODE_WARP_MAX_LIVE
 
 
 def gate_switches(n_lights, nb, n_trans_blocks):
@@ -951,3 +987,16 @@ def shade_eval_rows(
         _ptr(contrib), _ptr(rfl_rows), _ptr(rfl_m), _ptr(rfr_rows), _ptr(rfr_m),
     )
     return contrib, rfl_rows, rfl_m, rfr_rows, rfr_m
+
+
+# the module's own kernel wrappers, by name (ops/trace.py's chunk graphs)
+_OWN = {name: globals()[name] for name in KERNEL_SOURCES}
+
+
+def swapped_wrappers() -> dict:
+    """{name: wrapper} of the kernel wrappers that are not the module's own.
+    One swapped in (a hook that watches the calls, a stand-in) is Python a
+    CUDA graph of its launches would not run: ops/trace.py's chunk graphs
+    call it eagerly between graphs."""
+    g = globals()
+    return {name: g[name] for name, fn in _OWN.items() if g[name] is not fn}

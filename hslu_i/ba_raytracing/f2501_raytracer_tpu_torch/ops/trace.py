@@ -52,7 +52,9 @@ always takes its one row scatter and one commit per chunk.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 
 import torch
 
@@ -426,6 +428,229 @@ def _splits_packets(m):
     return (pk.any(1) != pk.all(1)).any()
 
 
+class _PoolBuffers:
+    """The pool loop's device state at width W, `chunk` iterations a chunk
+    and logical capacity Q_cap: the pool (Q+1, 16) with its dump row,
+    `count`, `dropped` and the packet `split` flag, the accumulator (R +
+    chunk*W, 3) with a dump row per staging row, the chunk's staging rows and
+    the lanes 0..W-1. A tile fills them, then each chunk updates them in
+    place, so a CUDA graph of a chunk reads and writes the same memory at
+    every replay."""
+
+    def __init__(self, dev, R, W, chunk, Q, Q_cap):
+        self.W, self.chunk, self.Q_cap = W, chunk, Q_cap
+        f32, i64 = torch.float32, torch.int64
+        self.pool = torch.empty((Q + 1, POOL_COLS), dtype=f32, device=dev)
+        self.count = torch.empty((), dtype=i64, device=dev)
+        self.dropped = torch.empty((), dtype=i64, device=dev)
+        self.split = torch.empty((), dtype=torch.bool, device=dev)
+        self.accum = torch.empty((R + chunk * W, 3), dtype=f32, device=dev)
+        self.stage_pix = torch.empty((chunk * W,), dtype=i64, device=dev)
+        self.stage_contrib = torch.empty((chunk * W, 3), dtype=f32, device=dev)
+        self.lanes = torch.arange(W, dtype=i64, device=dev)
+
+
+def _own_copies(values, keep):
+    """`values` with every tensor whose data pointer is not in `keep`
+    cloned."""
+    return [v.clone() if isinstance(v, torch.Tensor) and v.data_ptr() not in keep else v
+            for v in values]
+
+
+def _cloned(out):
+    """A swapped wrapper's outputs, every tensor cloned."""
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    if isinstance(out, (tuple, list)):
+        return type(out)(_cloned(o) for o in out)
+    if isinstance(out, dict):
+        return {k: _cloned(v) for k, v in out.items()}
+    return out
+
+
+def _refill(held, out):
+    """Writes the outputs `out` of a swapped wrapper's call at a replay into
+    those of its call at the capture, `held`, which the next graph reads."""
+    if isinstance(held, torch.Tensor):
+        held.copy_(out)
+    elif isinstance(held, (tuple, list)):
+        for h, o in zip(held, out, strict=True):
+            _refill(h, o)
+    elif isinstance(held, dict):
+        for k, h in held.items():
+            _refill(h, out[k])
+    elif held != out:
+        raise RuntimeError(f"a swapped kernel wrapper returned {out!r} at a replay "
+                           f"where the chunk's capture got {held!r}")
+
+
+_cutting = threading.Lock()  # one capture at a time cuts at the swapped wrappers
+
+
+class _Captured:
+    """A captured pool chunk: its CUDA graphs in order and, between each
+    two, a call of a kernel wrapper that was swapped in when it was captured
+    (`kernels.swapped_wrappers`: a hook that watches the calls, a stand-in).
+    That is Python a graph would not run, so the capture ends a graph at
+    each of its calls, and every replay makes the call eagerly between the
+    graphs: on copies of the tensor arguments the graphs wrote (the next
+    replay rewrites them; the scene's are passed as they are), its outputs
+    copied into those the next graph reads, so what a hook keeps of a call
+    stays as the call saw it. With no wrapper swapped a chunk is one graph.
+    The graphs share one memory pool. `launches` counts the graphs'
+    launches, added to `kernels.LAUNCHES` at the capture's run and at each
+    replay; the eager calls count their own."""
+
+    def __init__(self, swapped, scene):
+        self.swapped = swapped
+        self.graphs, self.calls, self.launches = [], [], {}
+        self.keep = {v.data_ptr() for v in (getattr(scene, f.name)
+                                            for f in dataclasses.fields(scene))
+                     if isinstance(v, torch.Tensor)}
+
+    def _call(self, fn, a, kw):
+        from . import kernels
+
+        with kernels.counting_into(None):
+            return fn(*_own_copies(a, self.keep),
+                      **dict(zip(kw, _own_copies(kw.values(), self.keep))))
+
+    def capture(self, body, side):
+        """Captures the chunk `body` on the stream `side` and runs it once,
+        each graph replayed on the caller's stream as soon as it is
+        captured."""
+        from . import kernels
+
+        caller = torch.cuda.current_stream(side.device)
+        pool = torch.cuda.graph_pool_handle()
+        me = threading.get_ident()
+        open_graph = []
+
+        def begin():
+            open_graph.append(torch.cuda.CUDAGraph())
+            # thread-local: a mesh entry captures while other entries launch
+            open_graph[0].capture_begin(pool=pool, capture_error_mode="thread_local")
+
+        def end():
+            g = open_graph.pop()
+            g.capture_end()
+            self.graphs.append(g)
+            with torch.cuda.stream(caller):
+                g.replay()
+
+        def cut(fn):
+            def call(*a, **kw):
+                if threading.get_ident() != me:
+                    return fn(*a, **kw)
+                end()
+                with torch.cuda.stream(caller):
+                    held = _cloned(self._call(fn, a, kw))
+                self.calls.append((fn, a, kw, held))
+                begin()
+                return held
+            return call
+
+        with (_cutting if self.swapped else contextlib.nullcontext()), \
+                torch.cuda.stream(side), kernels.counting_into(self.launches):
+            for name, fn in self.swapped.items():
+                setattr(kernels, name, cut(fn))
+            begin()
+            try:
+                body()
+            except BaseException:
+                if open_graph:  # none is open when a call between graphs raised
+                    open_graph.pop().capture_end()
+                raise
+            finally:
+                for name, fn in self.swapped.items():
+                    setattr(kernels, name, fn)
+            end()
+        kernels.count_launches(self.launches)
+        return self
+
+    def replay(self):
+        from . import kernels
+
+        for g, (fn, a, kw, held) in zip(self.graphs, self.calls):
+            g.replay()
+            _refill(held, self._call(fn, a, kw))
+        self.graphs[-1].replay()
+        kernels.count_launches(self.launches)
+
+
+class _ChunkGraph:
+    """One pool chunk of one (device, stream) as a CUDA graph. `key` names
+    everything a chunk bakes in (`_graph_key`); while it holds, the buffers
+    serve tile after tile. On a new key the first chunk runs eagerly, which
+    loads the kernels and fills the wrappers' caches outside any capture;
+    the next is captured (`_Captured`), then replayed, and every later one
+    replayed. The capture holds for the kernel wrappers swapped in when it
+    was made: once they change, the next chunk captures anew, cut at the
+    calls of those swapped in now. A chunk run eagerly while a wrapper is
+    swapped does not warm the entry (a stand-in may leave the module's own
+    wrapper cold). `held` keeps the scene the graph reads alive, so its
+    memory is not reused."""
+
+    def __init__(self):
+        self.lock = threading.Lock()  # one tile at a time on the buffers
+        self.key = self.held = self.bufs = self.captured = self.side = None
+        self.warm = False
+
+    def buffers(self, key, held, dev, *shape):
+        if key != self.key:
+            self.key, self.held, self.captured, self.warm = key, held, None, False
+            self.bufs = _PoolBuffers(dev, *shape)
+        return self.bufs
+
+    def run(self, body) -> bool:
+        """One chunk, run eagerly, captured or replayed: whether replayed."""
+        from . import kernels
+
+        swapped = kernels.swapped_wrappers()
+        if self.captured is not None and self.captured.swapped == swapped:
+            self.captured.replay()
+            return True
+        if not self.warm:
+            body()
+            self.warm = not swapped
+            return False
+        self.captured = None  # its graphs and their pool go before the next capture
+        if self.side is None:
+            self.side = torch.cuda.Stream(self.bufs.lanes.device)
+        self.captured = _Captured(swapped, self.held).capture(body, self.side)
+        return False
+
+
+_graphs: dict = {}  # (device index, stream) -> _ChunkGraph
+_graphs_lock = threading.Lock()
+
+
+def _chunk_graph(dev):
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with _graphs_lock:
+        return _graphs.setdefault((dev.index, stream), _ChunkGraph())
+
+
+def drop_pool_graphs() -> None:
+    """Forget every captured pool chunk and its buffers: the next chunk on
+    each stream runs eagerly, then captures anew (a test that starts from
+    nothing captured)."""
+    with _graphs_lock:
+        _graphs.clear()
+
+
+def _graph_key(scene, cfg, eps_dist, *shape):
+    """What a captured chunk bakes in: the shapes, the config (paths, depths,
+    cutoffs, packet mode, resort), eps, the commit (a caller may swap it),
+    the kernels' module settings, and the scene's tables by storage with
+    its host fields."""
+    from .kernels import launch_settings
+
+    return (shape, cfg, float(eps_dist), _commit, launch_settings(), tuple(
+        (v.data_ptr(), tuple(v.shape), v.dtype) if isinstance(v, torch.Tensor) else v
+        for v in (getattr(scene, f.name) for f in dataclasses.fields(scene))))
+
+
 def _run_pool(scene, cfg, eps_dist, R, contrib, rows0, masks0):
     """Compacted wavefront with a dense LIFO ray pool (JAX `_run_pool`):
     each iteration services the top W pending rays, so its cost scales with
@@ -442,16 +667,22 @@ def _run_pool(scene, cfg, eps_dist, R, contrib, rows0, masks0):
     chunk, whatever `commit_splits` says (the JAX package's split commit
     gives the same sums).
 
+    On a CUDA device a chunk is a CUDA graph (`_ChunkGraph`, one per device
+    and stream): one launch and one read of `count` per chunk; while a
+    kernel wrapper is swapped in, a graph between each two of its calls,
+    which are made eagerly (`_Captured`). On the CPU the same chunk body
+    runs eagerly on buffers of its own.
+
     In packet mode every append mask is packet-uniform, so the pool holds
     whole packets and each serviced window starts on a packet; that is
     checked on the device and read with `count`.
 
     While spans record (`utils/timing.py`), each chunk is a `pool.chunk`
-    span (its iterations and its commit, enqueued; counters `iters` and
-    `live_iters`, the iterations that found the pool non-empty) and each
-    read of `count`, the first before any chunk, a `pool.sync` span beside
-    them; the chunk's staged pixels that give `live_iters` are read with
-    `count`."""
+    span (its iterations and its commit, enqueued or replayed; counters
+    `iters`, `live_iters`, the iterations that found the pool non-empty,
+    and `graph`, 1 for a replayed chunk) and each read of `count`, the first
+    before any chunk, a `pool.sync` span beside them; the chunk's staged
+    pixels that give `live_iters` are read with `count`."""
     ratio = max(int(cfg.compaction_ratio), 1)
     rt = int(cfg.kernel_ray_tile)
     W = max((R // ratio) // rt * rt, rt)
@@ -474,26 +705,72 @@ def _run_pool(scene, cfg, eps_dist, R, contrib, rows0, masks0):
                          f"in whole packets of {PACKET}")
 
     dev = contrib.device
-    pool = torch.zeros((Q + 1, POOL_COLS), dtype=torch.float32, device=dev)
-    count = _pool_append(pool, torch.zeros((), dtype=torch.int64, device=dev),
-                         rows0, masks0)
-    dropped = torch.clamp(count - Q_cap, min=0)
-    count = torch.clamp(count, max=Q_cap)
-    split = _splits_packets(masks0) if packet else None
+    shape = (R, W, max(int(cfg.loop_chunk), 1), Q, Q_cap)
+    g = _chunk_graph(dev) if dev.type == "cuda" else None
+    with g.lock if g else contextlib.nullcontext():
+        b = (g.buffers(_graph_key(scene, cfg, eps_dist, *shape), scene, dev, *shape) if g
+             else _PoolBuffers(dev, *shape))
+        return _pool_loop(scene, cfg, eps_dist, contrib, rows0, masks0, b, g)
 
-    max_iters = cfg.max_nodes * ratio
-    chunk = max(int(cfg.loop_chunk), 1)
-    # per-chunk contribution staging: iteration i writes its (W, 3)
-    # contributions at rows [i*W, (i+1)*W) and ONE `_commit` per chunk adds
-    # them. A dead staging row s points at its own dump row R + s of the
-    # accumulator: rows that share a target are summed one after another by
-    # one thread in the sorted commit, so the (mostly dead) rows of a
-    # drained pool must not all share one
-    accum = torch.cat([contrib, torch.zeros((chunk * W, 3), dtype=contrib.dtype, device=dev)])
-    stage_pix = torch.empty((chunk * W,), dtype=torch.int64, device=dev)
-    stage_contrib = torch.empty((chunk * W, 3), dtype=torch.float32, device=dev)
-    lanes = torch.arange(W, dtype=torch.int64, device=dev)
+
+def _pool_loop(scene, cfg, eps_dist, contrib, rows0, masks0, b, g):
+    """`_run_pool`'s loop on the buffers `b`, its chunks through the graph
+    `g` (None: eagerly). Returns copies, never the buffers: the next tile
+    refills them."""
+    R = contrib.shape[0]
+    W, chunk, Q_cap = b.W, b.chunk, b.Q_cap
     k = rows0.shape[0] // R  # enabled child types (1 or 2)
+    packet = cfg.packet_mode
+    # the tile's state: an empty pool, the prologue's rows appended. Per-chunk
+    # contribution staging: iteration i writes its (W, 3) contributions at
+    # rows [i*W, (i+1)*W) and ONE `_commit` per chunk adds them. A dead
+    # staging row s points at its own dump row R + s of the accumulator:
+    # rows that share a target are summed one after another by one thread
+    # in the sorted commit, so the (mostly dead) rows of a drained pool must
+    # not all share one
+    b.pool.zero_()
+    count = _pool_append(b.pool, 0, rows0, masks0)
+    torch.clamp(count - Q_cap, min=0, out=b.dropped)
+    torch.clamp(count, max=Q_cap, out=b.count)
+    if packet:
+        b.split.copy_(_splits_packets(masks0))
+    b.accum[:R].copy_(contrib)
+    b.accum[R:].zero_()
+    lanes = b.lanes
+
+    def run_chunk():
+        """`chunk` iterations and their commit, on the buffers alone; the
+        counts rebound per iteration are written back at the end."""
+        count, dropped, split = b.count, b.dropped, b.split
+        for slot in range(chunk):
+            start = torch.clamp(count - W, min=0)
+            idx = start + lanes
+            sel_active = idx < count
+            rows = b.pool.index_select(0, idx)
+            if cfg.resort_secondary:
+                order = _morton_order(rows, sel_active)
+                rows, sel_active = rows[order], sel_active[order]
+            e = _unpack_entry(rows)
+            contrib_w, _, rows_b, masks_b = _node_rows(
+                scene, cfg, eps_dist, e["o"], e["d"], e["ior"], e["w"],
+                e["budget"], e["from_refl"], sel_active, pix=e["pix"],
+            )
+            rows_sl = slice(slot * W, (slot + 1) * W)
+            b.stage_pix[rows_sl] = torch.where(sel_active, e["pix"], R + slot * W + lanes)
+            b.stage_contrib[rows_sl] = _where0(sel_active[:, None], contrib_w)
+            # cap so a full append of 2W candidates stays within the logical
+            # capacity; at the auto capacity this never engages
+            capped = torch.clamp(start, max=Q_cap - 2 * W)
+            dropped = dropped + (start - capped)
+            m = masks_b & sel_active.repeat(k)
+            if packet:
+                split = split | _splits_packets(m)
+            count = _pool_append(b.pool, capped, rows_b, m)
+        _commit(b.accum, b.stage_pix, b.stage_contrib)
+        b.count.copy_(count)
+        b.dropped.copy_(dropped)
+        if packet:
+            b.split.copy_(split)
 
     def host_read(after_chunk=False):
         """The chunk's one sync, a `pool.sync` span: count, with the packet
@@ -504,47 +781,26 @@ def _run_pool(scene, cfg, eps_dist, R, contrib, rows0, masks0):
         live = after_chunk and spans.ON
         with spans.span("pool.sync"):
             if packet or live:
-                got = torch.cat([count.view(1)]
-                                + ([split.to(torch.int64).view(1)] if packet else [])
-                                + ([stage_pix[::W]] if live else [])).tolist()
+                got = torch.cat([b.count.view(1)]
+                                + ([b.split.to(torch.int64).view(1)] if packet else [])
+                                + ([b.stage_pix[::W]] if live else [])).tolist()
             else:
-                got = [int(count)]
+                got = [int(b.count)]
         if packet and (got[1] or got[0] % PACKET):
             raise RuntimeError(f"the pool split a packet of {PACKET} lanes (count {got[0]})")
         return got[0], (sum(p < R for p in got[-chunk:]) if live else None)
 
+    max_iters = cfg.max_nodes * max(int(cfg.compaction_ratio), 1)
     n_pending, _ = host_read()
     it = 0
     while it < max_iters and n_pending > 0:
         with spans.span("pool.chunk", iters=chunk) as sp_chunk:
-            for slot in range(chunk):
-                start = torch.clamp(count - W, min=0)
-                idx = start + lanes
-                sel_active = idx < count
-                rows = pool.index_select(0, idx)
-                if cfg.resort_secondary:
-                    order = _morton_order(rows, sel_active)
-                    rows, sel_active = rows[order], sel_active[order]
-                e = _unpack_entry(rows)
-                contrib_w, _, rows_b, masks_b = _node_rows(
-                    scene, cfg, eps_dist, e["o"], e["d"], e["ior"], e["w"],
-                    e["budget"], e["from_refl"], sel_active, pix=e["pix"],
-                )
-                rows_sl = slice(slot * W, (slot + 1) * W)
-                stage_pix[rows_sl] = torch.where(sel_active, e["pix"], R + slot * W + lanes)
-                stage_contrib[rows_sl] = _where0(sel_active[:, None], contrib_w)
-                # cap so a full append of 2W candidates stays within the logical
-                # capacity; at the auto capacity this never engages
-                capped = torch.clamp(start, max=Q_cap - 2 * W)
-                dropped = dropped + (start - capped)
-                m = masks_b & sel_active.repeat(k)
-                if packet:
-                    split = split | _splits_packets(m)
-                count = _pool_append(pool, capped, rows_b, m)
-                it += 1
-            _commit(accum, stage_pix, stage_contrib)
+            if g is None:
+                run_chunk()
+            sp_chunk.counters["graph"] = int(g is not None and g.run(run_chunk))
+        it += chunk
         n_pending, sp_chunk.counters["live_iters"] = host_read(after_chunk=True)
-    return accum[:R], dropped, count
+    return b.accum[:R].clone(), b.dropped.clone(), b.count.clone()
 
 
 def _commit(accum, pix, contrib):

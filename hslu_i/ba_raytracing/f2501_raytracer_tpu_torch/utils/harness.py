@@ -327,7 +327,9 @@ def tile_call(scene, c, k, device="cuda", aa=False):
 def caught_calls(names, run, limit=None):
     """{name: the first `limit` (None: all) calls of kernels.<name> while
     `run` runs, as (args, kw)}, tensor arguments copied (the pool and the
-    stack reuse their buffers)."""
+    stack reuse their buffers). A pool chunk captured as a CUDA graph makes
+    the catching wrappers' calls between its graphs (ops/trace.py's
+    `_Captured`), so every call is caught."""
     wrappers = {name: getattr(kernels, name) for name in names}
     caught = {name: [] for name in names}
 
