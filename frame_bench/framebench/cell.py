@@ -1,11 +1,13 @@
 """One run of one cell: set-up, the timed (or traced) window, the comparison
 with the reference, and the result's line.
 
-Order: build the raw scene from the seed, hand it to the port, upload it,
-render the warm-up frame (the run's first frame; it builds and loads every
-kernel and fills every cache the cell's shapes use), then measure. Once the
-window has closed the peak memory is read, the port's state freed, and the
-plain reference renders the same scene on the same device in float32.
+Order: find the plain reference the configuration names (`spec.reference`;
+a bad name stops the run here), build the raw scene from the seed, hand it
+to the port, upload it, render the warm-up frame (the run's first frame; it
+builds and loads every kernel and fills every cache the cell's shapes use),
+then measure. Once the window has closed the peak memory is read, the
+port's state freed, and the reference renders the same scene on the same
+device in float32.
 """
 
 from __future__ import annotations
@@ -99,6 +101,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device="cuda",
     bench = spec.load_benchmark(root)
     cell = spec.cell(bench, workload)
     cfg = spec.config(bench, cell, root)
+    reference = spec.reference(cfg)
     traffic = spec.traffic(cell, bench_dir)
     W, H = int(traffic["width"]), int(traffic["height"])
     raw = spec.scene_module(cfg["scene"], bench_dir).build(W, H, seed, cfg["seed_offset_bound"])
@@ -179,10 +182,9 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device="cuda",
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    from reference.whitted import reference_frame  # noqa: E402 (frame_bench/ is on the path)
 
     t_ref = time.monotonic()
-    ref = reference_frame(raw, cfg["render"], W, H, seed, dev)
+    ref = reference.reference_frame(raw, cfg["render"], W, H, seed, dev)
     numbers = compare.frame_numbers(sample, ref)
     numbers["frames_failed"] = frames.failed
     checked = compare.checks(numbers, dict(cfg["limits"], frames_failed=0))

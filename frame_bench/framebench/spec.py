@@ -1,14 +1,22 @@
 """The benchmark's data, found by name: `BENCHMARK.json` at the checkout's
 root, each configuration's file, each traffic mix (`traffic/<mix>.json`),
-each scene (`scenes/<scene>.py`) and each per-layer metric's reader
+each scene (`scenes/<scene>.py`), each configuration's plain reference
+(`reference/<module>.py`) and each per-layer metric's reader
 (`layer_metrics/<metric>.py`). A cell or a metric is added by adding files
-and entries; nothing here names one."""
+and entries; nothing here names one.
+
+A configuration file may name its reference as `"reference": "<module>"`
+(`whitted` without the key). The module exposes
+`reference_frame(raw, render, width, height, seed, device, dtype=torch.float32)`,
+which returns the frame as (H*W,) uint32 0xFFRRGGBB, row-major, 0 where
+nothing was hit; it imports neither the port nor the JAX package."""
 
 from __future__ import annotations
 
 import importlib.util
 import json
 import os
+import re
 
 BENCH_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(BENCH_DIR)
@@ -67,3 +75,23 @@ def reader(metric: str, bench_dir: str = BENCH_DIR):
     wrappers whose calls of the sampled tile it needs."""
     return _load(os.path.join(bench_dir, "layer_metrics", f"{metric}.py"),
                  "frame_bench_metric_" + metric.replace(".", "_").replace("-", "_"))
+
+
+DEFAULT_REFERENCE = "whitted"
+
+
+def reference(cfg: dict):
+    """The plain reference module that configuration `cfg` names, imported
+    as `reference.<module>` (so its relative imports work) from the
+    `reference` package on `sys.path`, `frame_bench/reference/`. Raises
+    ValueError, naming the modules there, for a name that is not one of them
+    or whose module has no `reference_frame`."""
+    name = cfg.get("reference", DEFAULT_REFERENCE)
+    folder = importlib.import_module("reference").__path__[0]
+    have = sorted(f[:-3] for f in os.listdir(folder) if f.endswith(".py") and f != "__init__.py")
+    found = isinstance(name, str) and re.fullmatch("[A-Za-z0-9_]+", name) and name in have
+    mod = importlib.import_module(f"reference.{name}") if found else None
+    if not callable(getattr(mod, "reference_frame", None)):
+        raise ValueError(f"configuration {cfg.get('name')!r} names the reference {name!r}: no module "
+                         f"of {folder} with a reference_frame (modules: {', '.join(have)})")
+    return mod

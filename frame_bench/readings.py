@@ -10,8 +10,9 @@ reference (the lower readings); for each control seed also the reference
 computed in bfloat16, the control (the upper readings), and two faults
 planted in the program's frame: half of its tiles left black, and one
 tile's pixels altered. Prints one JSON line per seed and the summary: each
-number's largest sound reading and smallest control reading. The
-benchmark's own runs never run this.
+number's largest sound reading and smallest control reading. The reference
+and its control are the module the cell's configuration names
+(`spec.reference`). The benchmark's own runs never run this.
 """
 
 import argparse
@@ -27,7 +28,6 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from framebench import compare, port, spec  # noqa: E402
-from reference.whitted import reference_frame  # noqa: E402
 
 
 def tile_pixels(width, height, pix_per_tile, ts=16):
@@ -49,6 +49,7 @@ def main():
     bench = spec.load_benchmark()
     cell = spec.cell(bench, args.workload)
     cfg = spec.config(bench, cell)
+    reference_frame = spec.reference(cfg).reference_frame
     traffic = spec.traffic(cell)
     W, H = int(traffic["width"]), int(traffic["height"])
     dev = torch.device("cuda:0")

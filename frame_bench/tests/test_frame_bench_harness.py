@@ -34,7 +34,8 @@ def copy(tmp_path_factory):
 
 
 def _cpu_run(root, workload, seconds, trace):
-    """A run in a fresh interpreter, the card check skipped: (returncode,
+    """A run of the copy at `root` in a fresh interpreter, its `frame_bench/`
+    first on the path as run.py puts it, the card check skipped: (returncode,
     stdout, stderr)."""
     code = (
         "import sys; sys.path[:0] = [sys.argv[1], sys.argv[2]]\n"
@@ -45,8 +46,8 @@ def _cpu_run(root, workload, seconds, trace):
         "bad = cell.forbidden_modules()\n"
         "if bad: print('loaded:', bad, file=sys.stderr); sys.exit(3)\n"
         "cell.emit(r)\n")
-    out = subprocess.run([sys.executable, "-c", code, fb_util.BENCH_DIR, fb_util.ROOT, workload,
-                          str(seconds), str(int(trace)), root],
+    out = subprocess.run([sys.executable, "-c", code, os.path.join(root, "frame_bench"), fb_util.ROOT,
+                          workload, str(seconds), str(int(trace)), root],
                          capture_output=True, text=True, env=ENV, timeout=600)
     return out.returncode, out.stdout, out.stderr
 
@@ -140,6 +141,69 @@ def test_new_config_traffic_and_metric_are_found_by_name(tmp_path):
     assert res["correct"] and res["metrics"]["frames_traced"]["value"] >= 1
 
 
+def _add_cell(root, config, workload, **changes):
+    """A configuration (`semesterbild_soft_shadows`'s file with `changes`) and
+    a cell that runs it under the copy's `frames_1080p`, added to the copy at
+    `root` as a file and entries."""
+    fb = os.path.join(root, "frame_bench")
+    with open(os.path.join(fb, "configs", "semesterbild_soft_shadows.json")) as f:
+        cfg = json.load(f)
+    cfg.update(changes, name=config)
+    with open(os.path.join(fb, "configs", f"{config}.json"), "w") as f:
+        json.dump(cfg, f)
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    bench["configs"].append(dict(bench["configs"][1], name=config,
+                                 file=f"frame_bench/configs/{config}.json"))
+    bench["workloads"].append({"name": workload, "config": config, "traffic": "frames_1080p",
+                               "chips": 1, "why": "a test"})
+    with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
+        json.dump(bench, f)
+
+
+RECORDING_REFERENCE = """import sys
+
+import torch
+
+from . import whitted
+
+
+def reference_frame(raw, render, width, height, seed, device, dtype=torch.float32):
+    print(f"called {__name__} {width}x{height} seed {seed}", file=sys.stderr)
+    return whitted.reference_frame(raw, render, width, height, seed, device, dtype)
+"""
+
+
+def test_new_config_names_its_own_reference(tmp_path):
+    """A configuration that names a reference module of its own, both added
+    as files and entries, no file of the copy edited: the run imports it as
+    `reference.<module>` and compares the window's frame with its frame."""
+    root = fb_util.bench_copy(tmp_path)
+    with open(os.path.join(root, "frame_bench", "reference", "whitted_recorded.py"), "w") as f:
+        f.write(RECORDING_REFERENCE)
+    _add_cell(root, "semesterbild_recorded", "recorded_tiny", reference="whitted_recorded")
+    rc, out, err = _cpu_run(root, "recorded_tiny", 1, False)
+    assert rc == 0, err[-3000:]
+    assert json.loads(out.strip().splitlines()[-1])["correct"] is True
+    assert "called reference.whitted_recorded 32x24 seed 11" in err.splitlines()
+
+
+@pytest.mark.parametrize("name", ["no_such_reference", "../reference/whitted", "geometry"])
+def test_missing_reference_stops_the_run_before_its_first_frame(tmp_path, monkeypatch, name):
+    """A name that is no reference module of `frame_bench/reference/` (none
+    such, a path, a module without `reference_frame`) stops the run at
+    set-up, before the port is built, naming the modules there."""
+    from framebench import port
+
+    root = fb_util.bench_copy(tmp_path)
+    _add_cell(root, "semesterbild_missing", "missing_tiny", reference=name)
+    built = []
+    monkeypatch.setattr(port, "Port", lambda *a, **k: built.append(a))
+    with pytest.raises(ValueError, match=r"'semesterbild_missing'.*\(modules: geometry, lights, whitted\)"):
+        fb_util.run_cpu(root, "missing_tiny")
+    assert built == []
+
+
 # ---- the timed path broken underneath: `correct` must come out false ----
 
 def _break(monkeypatch, fault):
@@ -163,18 +227,23 @@ def _break(monkeypatch, fault):
             contrib, zero, zero))
         monkeypatch.setattr(trace, "_run_pool", lambda scene, cfg, eps, R, contrib, *rows: (
             contrib, zero, zero))
-    elif fault == "a_pixel_altered_in_one_frame":
-        real = trace.encode_pixels_u32
-        n = {"calls": 0}
+    elif fault == "a_pixel_altered_in_one_frame":  # in the first timed frame's first tile
+        real_render, real_encode = renderer.RaytracerRenderer.render_u32, trace.encode_pixels_u32
+        n = {"frames": 0, "altered": False}
+
+        def render(self, dscene):
+            n["frames"] += 1
+            return real_render(self, dscene)
 
         def encode(color, valid, w):
-            n["calls"] += 1
-            out = real(color, valid, w)
-            if n["calls"] == 3:
+            out = real_encode(color, valid, w)
+            if n["frames"] == 2 and not n["altered"]:  # frame 1 is the warm-up frame
+                n["altered"] = True
                 out = out.clone()
                 out[5] ^= 0x404040
             return out
 
+        monkeypatch.setattr(renderer.RaytracerRenderer, "render_u32", render)
         monkeypatch.setattr(trace, "encode_pixels_u32", encode)
     elif fault == "rays_dropped":
         real = renderer.RaytracerRenderer.render_u32
