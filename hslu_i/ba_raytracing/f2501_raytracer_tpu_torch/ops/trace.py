@@ -680,9 +680,11 @@ def _run_pool(scene, cfg, eps_dist, R, contrib, rows0, masks0):
     While spans record (`utils/timing.py`), each chunk is a `pool.chunk`
     span (its iterations and its commit, enqueued or replayed; counters
     `iters`, `live_iters`, the iterations that found the pool non-empty,
-    and `graph`, 1 for a replayed chunk) and each read of `count`, the first
-    before any chunk, a `pool.sync` span beside them; the chunk's staged
-    pixels that give `live_iters` are read with `count`."""
+    `lanes`, iters x W, `live_lanes`, the lanes that serviced a pending
+    ray, and `graph`, 1 for a replayed chunk) and each read of `count`, the
+    first before any chunk, a `pool.sync` span beside them; the chunk's
+    staged pixels that give `live_iters` and their live count, computed
+    outside the chunk's graph, are read with `count`."""
     ratio = max(int(cfg.compaction_ratio), 1)
     rt = int(cfg.kernel_ray_tile)
     W = max((R // ratio) // rt * rt, rt)
@@ -774,32 +776,37 @@ def _pool_loop(scene, cfg, eps_dist, contrib, rows0, masks0, b, g):
 
     def host_read(after_chunk=False):
         """The chunk's one sync, a `pool.sync` span: count, with the packet
-        check and, while spans record, the chunk's live iterations read
-        beside it. Returns (count, live iterations or None)."""
-        # slot s found the pool non-empty exactly when its lane 0 was active,
-        # so when its first staged pixel is a real one (< R)
+        check and, while spans record, the chunk's live iterations and live
+        lanes read beside it. Returns (count, live iterations, live lanes),
+        the last two None unless spans record."""
+        # a staged row is live when it holds a real pixel (< R); slot s found
+        # the pool non-empty exactly when its lane 0 was live
         live = after_chunk and spans.ON
         with spans.span("pool.sync"):
             if packet or live:
                 got = torch.cat([b.count.view(1)]
                                 + ([b.split.to(torch.int64).view(1)] if packet else [])
-                                + ([b.stage_pix[::W]] if live else [])).tolist()
+                                + ([(b.stage_pix < R).sum().view(1), b.stage_pix[::W]]
+                                   if live else [])).tolist()
             else:
                 got = [int(b.count)]
         if packet and (got[1] or got[0] % PACKET):
             raise RuntimeError(f"the pool split a packet of {PACKET} lanes (count {got[0]})")
-        return got[0], (sum(p < R for p in got[-chunk:]) if live else None)
+        if not live:
+            return got[0], None, None
+        return got[0], sum(p < R for p in got[-chunk:]), got[-chunk - 1]
 
     max_iters = cfg.max_nodes * max(int(cfg.compaction_ratio), 1)
-    n_pending, _ = host_read()
+    n_pending, _, _ = host_read()
     it = 0
     while it < max_iters and n_pending > 0:
-        with spans.span("pool.chunk", iters=chunk) as sp_chunk:
+        with spans.span("pool.chunk", iters=chunk, lanes=chunk * W) as sp_chunk:
             if g is None:
                 run_chunk()
             sp_chunk.counters["graph"] = int(g is not None and g.run(run_chunk))
         it += chunk
-        n_pending, sp_chunk.counters["live_iters"] = host_read(after_chunk=True)
+        n_pending, live_iters, live_lanes = host_read(after_chunk=True)
+        sp_chunk.counters.update(live_iters=live_iters, live_lanes=live_lanes)
     return b.accum[:R].clone(), b.dropped.clone(), b.count.clone()
 
 

@@ -290,9 +290,11 @@ class RaytracerRenderer:
 
         Records the frame's spans (`utils/timing.py`) while a torch profiler
         records: `frame`, and inside it `frame.plan` (the plan and the uploads
-        of its tables or rays), a `tile` per tile (ops/trace.py),
-        `frame.fetch` (the host waiting for the device, then the copy back)
-        and `frame.reorder`."""
+        of its tables or rays; counters `aa_samples`, the AA table's rows or
+        1 without AA, `aa_distinct`, the samples traced a pixel, `rays`, the
+        primary rays of every tile, padding included, and `pixels`), a
+        `tile` per tile (ops/trace.py), `frame.fetch` (the host waiting for
+        the device, then the copy back) and `frame.reorder`."""
         spans.frame_recording()
         with spans.span("frame"):
             # the frame's host arrays are freed as `_frame_u32` returns: inside the span
@@ -301,9 +303,14 @@ class RaytracerRenderer:
     def _frame_u32(self, dscene: DeviceScene) -> np.ndarray:
         """`render_u32`'s frame, inside its `frame` span."""
         cfg = self.cfg
-        with spans.span("frame.plan"):
+        with spans.span("frame.plan") as sp_plan:
             plan = plan_frame(cfg)
             n_tiles, P = plan.n_tiles, plan.pix_per_tile
+            if spans.ON:
+                sp_plan.counters.update(
+                    aa_samples=cfg.total_aa_rays if cfg.anti_aliasing else 1,
+                    aa_distinct=plan.aa, rays=n_tiles * P * plan.aa,
+                    pixels=cfg.width * cfg.height)
             w_dev = self._to_dev(plan.weights)
             if cfg.device_ray_gen:
                 order_dev, offs_dev = frame_order_device(cfg, plan, n_tiles, self.device)

@@ -102,7 +102,9 @@ def test_one_frames_spans_form_one_tree(scene):
     assert parent_names == {"frame.plan": {"frame"}, "tile": {"frame"}, "frame.fetch": {"frame"},
                             "frame.reorder": {"frame"}, "pool.chunk": {"tile"},
                             "pool.sync": {"tile"}}
-    assert all(s.counters == {} for s in rec if s.name not in ("pool.chunk",))
+    assert all(s.counters == {} for s in rec if s.name not in ("pool.chunk", "frame.plan"))
+    (plan,) = [s for s in rec if s.name == "frame.plan"]
+    assert set(plan.counters) == {"aa_samples", "aa_distinct", "rays", "pixels"}
     # a read of the count, then chunks and reads in turn, never overlapping
     for tile in (s for s in rec if s.name == "tile"):
         kids = [s for s in rec if s.parent == tile.id]
@@ -118,7 +120,9 @@ def test_live_iterations_are_the_iterations_that_find_the_pool_non_empty(scene):
     _, four = _recorded_frame(scene, loop_chunk=4)
     one = [s.counters for s in one if s.name == "pool.chunk"]
     four = [s.counters for s in four if s.name == "pool.chunk"]
-    assert all(c == {"iters": 1, "live_iters": 1, "graph": 0} for c in one)
+    assert all({k: c[k] for k in ("iters", "live_iters", "graph")}
+               == {"iters": 1, "live_iters": 1, "graph": 0} for c in one)
+    assert all(0 < c["live_lanes"] <= c["lanes"] == 64 for c in one)
     assert all(c["iters"] == 4 and 0 < c["live_iters"] <= 4 for c in four)
     assert sum(c["live_iters"] for c in four) == len(one) < sum(c["iters"] for c in four)
 
