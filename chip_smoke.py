@@ -484,13 +484,19 @@ def record(name, label, n, err, ms, plain, byts, ops, extra=""):
     results[name][label] = dict(R=n, err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
 
 
-def alone(res, n_rays, dev_ms):
+def alone(res, n_rays, dev_ms, n_lights=None):
     """The time on the device alone of a resident kernel with a warp per
-    ray (the CUDA events above also time the wrapper's host work)."""
+    ray (the CUDA events above also time the wrapper's host work);
+    shade_eval_rows gives its light count, with which a wavefront may take
+    its light-lanes form (kernels.node_form)."""
     k = kernels.rays_per_warp(n_rays, many=32)
     res.update(device_ms=dev_ms, rays_per_warp=k)
+    form = f"{k} rays per warp"
+    if n_lights is not None and kernels.node_form(n_rays, n_lights) == kernels.LIGHT_LANES:
+        res.update(form="light lanes")
+        form = "a warp per ray, its lights over the lanes"
     log(f"  on the device alone {'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}; "
-        f"{k} rays per warp")
+        f"{form}")
 
 
 def check_cast(label, o, d, iters):
@@ -548,7 +554,8 @@ def check_rows(label, args, iters, scene=None, c=None):
            shade_ops(scene, point, normal, hval, OPS_EPILOGUE, kw["eps_dist"]),
            f"; {scene.n_lights} lights; children refl {int(rfl_m.sum())} refr "
            f"{int(rfr_m.sum())}; bit-identical to shade_eval, the same bits on three runs")
-    alone(results["shade_eval_rows"][label], point.shape[0], device_ms(fn, iters))
+    alone(results["shade_eval_rows"][label], point.shape[0], device_ms(fn, iters),
+          kw["n_lights"])
     return got
 
 
@@ -1358,6 +1365,15 @@ def used(launches):
     return {k: v for k, v in launches.items() if v}
 
 
+def pool_kernels(launches, n_tiles):
+    """The kernels a pool-path frame with many lights launched, after
+    checking that each pool iteration's shade_eval_rows took the light-lanes
+    form and each tile's prologue (a ray per lane) did not."""
+    ll = kernels.LIGHT_LANES_LAUNCHES
+    assert launches[ll] == launches["shade_eval_rows"] - n_tiles, (launches, n_tiles)
+    return set(used(launches)) - {ll}
+
+
 def same_image(a, b):
     """Two ImageBuffers with the same `valid` and colour bits."""
     return (np.array_equal(a.valid, b.valid)
@@ -1423,7 +1439,8 @@ with phase("entry_points"):
         f"at {px_off:.4%} of pixels")
     assert np.array_equal(buf_f32.valid, buf_u32.valid)
     assert du8.max() <= 1 and px_off < 0.01, (du8.max(), px_off)
-    assert set(used(l_f32)) == set(used(l_u32)) == set(NODE_PATH), (l_f32, l_u32)
+    assert (pool_kernels(l_f32, p_ref.n_tiles) == pool_kernels(l_u32, p_ref.n_tiles)
+            == set(NODE_PATH)), (l_f32, l_u32)
     assert r_f32.last_dropped == r_ref.last_dropped
     assert checksum(fb_ref) == CHECKSUMS["reference_default"], checksum(fb_ref)
     frames["reference_default"] = dict(
@@ -1444,7 +1461,7 @@ with phase("entry_points"):
         f"{r_ext.last_dropped}, unfinished {note_unfinished('extreme', r_ext)}, u32 sha256 "
         f"{[checksum(fb) for fb, _, _ in runs]}")
     assert checksum(runs[0][0]) == checksum(runs[1][0]) == CHECKSUMS["extreme"]
-    assert set(used(runs[1][2])) == set(NODE_PATH), runs[1][2]
+    assert pool_kernels(runs[1][2], p_ext.n_tiles) == set(NODE_PATH), runs[1][2]
     frames["extreme"] = dict(
         size=f"{CFG_EXT.width}x{CFG_EXT.height}", wall_ms=runs[1][1] * 1e3,
         wall_ms_first=runs[0][1] * 1e3, launches=runs[1][2], dropped=r_ext.last_dropped,

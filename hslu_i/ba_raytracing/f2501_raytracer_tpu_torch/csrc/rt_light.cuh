@@ -1,10 +1,11 @@
 // Direct + specular lighting with the hard-shadow scan, shared by the
 // port's three shading kernels: rt_shadow_scan (one lane scans one shadow
-// ray: light_shade.cu's (ray, light) items and the node kernels' form with a
-// ray per lane) and rt_warp_shadow_scan (a warp shares the scan of one
-// shadow ray: the node kernels' form with a warp per ray); rt_light_ray and
-// rt_light_add, the lighting of one light, which every kernel runs per ray
-// in light order.
+// ray: light_shade.cu's (ray, light) items, the node kernels' form with a
+// ray per lane and shade_eval_rows' light-lanes form) and
+// rt_warp_shadow_scan (a warp shares the scan of one shadow ray: the node
+// kernels' form with a warp per ray); rt_light_ray and rt_light_add
+// (rt_light_terms, added), the lighting of one light, which every kernel
+// runs per ray in light order.
 //
 // Replaces the shading core of the TPU kernels in
 // hslu_i/ba_raytracing/f2501_raytracer_tpu/ops/pallas_kernels.py:
@@ -446,13 +447,14 @@ __device__ __forceinline__ LightRay rt_light_ray(const float* L, float eps, floa
   return q;
 }
 
-// One reachable light's direct and specular terms, added to acc[0..2] /
-// acc[3..5]; (dec, fr, fg, fb): the shadow sums of its scan.
-__device__ __forceinline__ void rt_light_add(const float* L, const LightRay& q, float dec,
-                                             float fr, float fg, float fb, float nx, float ny,
-                                             float nz, float dx, float dy, float dz, float mcr,
-                                             float mcg, float mcb, bool has_spec,
-                                             float spec_exp, float* acc) {
+// One reachable light's direct and specular terms (t[0..2] direct, t[3..5]
+// specular; (dec, fr, fg, fb): the shadow sums of its scan) and whether they
+// are added: only where diffuse > 0, and t[3..5] only with has_spec.
+__device__ __forceinline__ bool rt_light_terms(const float* L, const LightRay& q, float dec,
+                                               float fr, float fg, float fb, float nx, float ny,
+                                               float nz, float dx, float dy, float dz, float mcr,
+                                               float mcg, float mcb, bool has_spec,
+                                               float spec_exp, float* t) {
   const float combined = fminf(fmaxf(1.0f - dec, 0.0f), 1.0f);
   const float att = 0.95f * ((RT_EPS + q.ldist) + q.ldist * q.ldist);
   const float att_sig = (tanhf(att) + 1.0f) / 2.0f;
@@ -470,14 +472,33 @@ __device__ __forceinline__ void rt_light_add(const float* L, const LightRay& q, 
   const float spec_f = has_spec ? powf(sdot, spec_exp) : 0.0f;
   const float lf = diffuse * ci * combined;
   const float sf = ci * combined * spec_f;
-  if (diffuse > 0.0f) {
-    acc[0] += mcr * lcsr * lf;
-    acc[1] += mcg * lcsg * lf;
-    acc[2] += mcb * lcsb * lf;
+  t[0] = mcr * lcsr * lf;
+  t[1] = mcg * lcsg * lf;
+  t[2] = mcb * lcsb * lf;
+  t[3] = L[3] * sf;
+  t[4] = L[4] * sf;
+  t[5] = L[5] * sf;
+  return diffuse > 0.0f;
+}
+
+// rt_light_terms added to acc[0..2] / acc[3..5]. The port builds with
+// --fmad=false, so a term keeps its bits whether it is added here or on
+// another lane (rt_node.cuh::rt_node_light_lanes).
+__device__ __forceinline__ void rt_light_add(const float* L, const LightRay& q, float dec,
+                                             float fr, float fg, float fb, float nx, float ny,
+                                             float nz, float dx, float dy, float dz, float mcr,
+                                             float mcg, float mcb, bool has_spec,
+                                             float spec_exp, float* acc) {
+  float t[6];
+  if (rt_light_terms(L, q, dec, fr, fg, fb, nx, ny, nz, dx, dy, dz, mcr, mcg, mcb, has_spec,
+                     spec_exp, t)) {
+    acc[0] += t[0];
+    acc[1] += t[1];
+    acc[2] += t[2];
     if (has_spec) {
-      acc[3] += L[3] * sf;
-      acc[4] += L[4] * sf;
-      acc[5] += L[5] * sf;
+      acc[3] += t[3];
+      acc[4] += t[4];
+      acc[5] += t[5];
     }
   }
 }

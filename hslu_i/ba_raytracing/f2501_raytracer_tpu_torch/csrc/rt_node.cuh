@@ -188,7 +188,12 @@ __device__ void rt_node_epilogue(const NodeParams& p, int r, const Surf& s, cons
 // its ray's shadows alone (rt_light.cuh::rt_shadow_scan over the one-thread
 // tables). In both, the lighting of a light (rt_light_ray, rt_light_add) and
 // the node epilogue run on the lane that holds the ray, in the order of the
-// plain path, so every form gives the same bits.
+// plain path, so every form gives the same bits. K = RT_LIGHT_LANES
+// (shade_eval_rows.cu only): a warp per ray whose lanes take its lights
+// (rt_node_light_lanes below).
+#define RT_LIGHT_LANES 0
+// Lights whose terms a warp of the light-lanes form holds at a time
+#define RT_LL_CHUNK 64
 
 // A warp's shared memory in the form with a warp per ray: its rays' shadow
 // records (rt_common.cuh's RT_RAY layout), their sums, and the stage of the
@@ -200,11 +205,19 @@ struct NodeWarpShared {
   float4 stage[K == 32 ? 1 : RT_STAGE_ROWS * RT_ROW4];
 };
 
+// ... and in the light-lanes form: the terms of a chunk of lights, six per
+// light (channel c of light j at c * RT_LL_CHUNK + j), then whether each
+// light adds them.
+template <>
+struct NodeWarpShared<RT_LIGHT_LANES> {
+  float terms[7 * RT_LL_CHUNK];
+};
+
 // Bytes of the dynamic shared memory a node kernel's thread block stages:
-// the one-thread tables (a ray per lane, where they fit), or the big rows
-// in the 80-byte layout (a warp per ray).
+// the one-thread tables (a ray per lane and the light-lanes form, where
+// they fit), or the big rows in the 80-byte layout (a warp per ray).
 __host__ inline size_t rt_node_dyn_bytes(const ShadeScene& sc, int K) {
-  if (K == 32) return rt_tables_fit(sc) ? rt_table_bytes(sc) : 0;
+  if (K != 1) return rt_tables_fit(sc) ? rt_table_bytes(sc) : 0;
   return sizeof(float4) * RT_ROW4 * sc.P;
 }
 
@@ -212,7 +225,7 @@ __host__ inline size_t rt_node_dyn_bytes(const ShadeScene& sc, int K) {
 // start; every thread calls this (it synchronises) before any returns.
 template <int K>
 __device__ __forceinline__ Tables rt_node_stage(const ShadeScene& sc, float4* dyn) {
-  if constexpr (K == 32) {
+  if constexpr (K != 1) {
     return rt_stage_tables(sc, rt_tables_fit(sc), reinterpret_cast<float*>(dyn));
   } else {
     rt_stage_block_rows(dyn, sc.trb, sc.P);
@@ -281,6 +294,82 @@ __device__ __forceinline__ void rt_node_rays(const ShadeScene& sc, const Tables&
     float contrib[3];
     Child rfl, rfr;
     rt_node_epilogue(p, r, s, acc, acc + 3, contrib, &rfl, &rfr);
+    store(r, contrib, rfl, rfr);
+  }
+}
+
+// The light-lanes form: the node of ray r, which the whole warp holds. Its
+// lights go to the lanes in ceil(n_lights / 32) rounds of an even share
+// (`width` lanes, so that a round takes neighbouring lights): light
+// l0 + j0 + lane of each round, two rounds to a chunk, whose terms the warp
+// holds. A lane traces its light's shadow ray (rt_light_ray) and scans it
+// alone (rt_shadow_scan over the one-thread tables, or rt_shadow_scan_gated,
+// whose prime is then chosen over the warp's lights), then computes the
+// light's six terms (rt_light_terms). The terms go to sh.terms, with a flag
+// for each light that the one-thread loop skips (behind the surface,
+// occluded, or diffuse <= 0); lane c < 6 then adds the terms of channel c in
+// light order, skipping exactly the flagged lights, as rt_light_add adds
+// them on one lane, so the sums have its bits (the port builds with
+// --fmad=false). A ray without a hit scans nothing: its lighting is exactly
+// 0. Lane 0 runs the epilogue and store(r, ...). All 32 lanes.
+template <bool GATED, class Store>
+__device__ __forceinline__ void rt_node_light_lanes(const ShadeScene& sc, const Tables& tb,
+                                                    const NodeParams& p, int lane, int r,
+                                                    NodeWarpShared<RT_LIGHT_LANES>& sh,
+                                                    Store store) {
+  const Surf s = rt_surf(p, r);
+  const float shin = p.shin[r];
+  const bool has_spec = shin > 0.0f;
+  const float spec_exp = fmaxf(shin * 512.0f, 1.0f);
+  float acc = 0.0f;  // lane c < 6: channel c of (direct, specular)
+  const bool adder = lane < 3 || (lane < 6 && has_spec);
+  float* flags = sh.terms + 6 * RT_LL_CHUNK;
+  const int rounds = (sc.n_lights + 31) / 32;
+  const int width = (sc.n_lights + rounds - 1) / rounds;
+  for (int l0 = 0; s.hval && l0 < sc.n_lights; l0 += RT_LL_CHUNK / 32 * width) {
+    const int lc = min(RT_LL_CHUNK / 32 * width, sc.n_lights - l0);
+    for (int j0 = 0; j0 < lc; j0 += width) {  // every lane, for the gated scan's ballots
+      const int j = j0 + lane;
+      const bool has = lane < width && j < lc;
+      const float* L = tb.lights + (l0 + j) * 8;
+      LightRay q = {};
+      bool lit = false;
+      if (has) {
+        q = rt_light_ray(L, p.eps, s.px, s.py, s.pz, s.nx, s.ny, s.nz);
+        lit = q.cos_in > 0.0f;  // else intensity and color are exactly 0
+      }
+      Occl occ = {0.0f, 0.0f, 0.0f, 0.0f, true};
+      if constexpr (GATED) {
+        occ = rt_shadow_scan_gated(sc, tb, lit, l0 + j, q.sox, q.soy, q.soz, q.ldx, q.ldy, q.ldz,
+                                   q.maxd);
+      } else {
+        if (lit) occ = rt_shadow_scan(sc, tb, q.sox, q.soy, q.soz, q.ldx, q.ldy, q.ldz, q.maxd);
+      }
+      if (has) {
+        float t[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        const bool adds = !occ.opq && rt_light_terms(L, q, occ.dec, occ.fr, occ.fg, occ.fb, s.nx,
+                                                     s.ny, s.nz, s.dx, s.dy, s.dz, s.mcr, s.mcg,
+                                                     s.mcb, has_spec, spec_exp, t);
+#pragma unroll
+        for (int c = 0; c < 6; ++c) sh.terms[c * RT_LL_CHUNK + j] = t[c];
+        flags[j] = adds ? 1.0f : 0.0f;
+      }
+    }
+    __syncwarp();  // the chunk's terms are written
+    if (adder) {
+      const float* tc = sh.terms + lane * RT_LL_CHUNK;
+      for (int j = 0; j < lc; ++j)
+        if (flags[j] != 0.0f) acc += tc[j];
+    }
+    __syncwarp();  // the terms are read before the next chunk writes them
+  }
+  float sums[6];
+#pragma unroll
+  for (int c = 0; c < 6; ++c) sums[c] = __shfl_sync(RT_WARP, acc, c);
+  if (lane == 0) {
+    float contrib[3];
+    Child rfl, rfr;
+    rt_node_epilogue(p, r, s, sums, sums + 3, contrib, &rfl, &rfr);
     store(r, contrib, rfl, rfr);
   }
 }

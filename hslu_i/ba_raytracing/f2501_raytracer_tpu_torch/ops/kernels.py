@@ -33,9 +33,11 @@ at once (a mesh runs one per entry, parallel/mesh.py).
 The device of the input tensors picks the implementation: a CUDA tensor
 goes to the kernel (or the call raises); a CPU tensor goes to the plain
 PyTorch twin (`*_plain`), which the CPU tests hold against the JAX package.
-`LAUNCHES` counts kernel launches (twin calls are not counted): a launch
-recorded into a CUDA graph counts when the graph is replayed
-(`counting_into`, `count_launches`; ops/trace.py's pool chunks).
+`LAUNCHES` counts kernel launches (twin calls are not counted), and under
+LIGHT_LANES_LAUNCHES the `shade_eval_rows` launches that took its
+light-lanes form (`node_form`): a launch recorded into a CUDA graph counts
+when the graph is replayed (`counting_into`, `count_launches`; ops/trace.py's
+pool chunks).
 
 The shadow scan of the three shading kernels has the JAX package's two
 switches, PRIME_GATE and SORT_GATE (`RT_PRIME_GATE`, `RT_SORT_GATE`; off
@@ -81,7 +83,9 @@ NVCC_FLAGS = (
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-LAUNCHES = {name: 0 for name in KERNEL_SOURCES}
+# the key of LAUNCHES that counts shade_eval_rows' light-lanes launches
+LIGHT_LANES_LAUNCHES = "shade_eval_rows.light_lanes"
+LAUNCHES = {**{name: 0 for name in KERNEL_SOURCES}, LIGHT_LANES_LAUNCHES: 0}
 
 # the builds, the loaded libraries, LAUNCHES and the tables' caches
 _lock = threading.Lock()
@@ -192,7 +196,7 @@ _ARGTYPES = {
         _P, _P, _P, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P,
         _P]),
     "shade_eval_rows": ("rt_shade_eval_rows", [
-        *_SCENE, _P, _P, _I, _I, _I,  # the gate's superblocks, rays_per_warp
+        *_SCENE, _P, _P, _I, _I, _I,  # the gate's superblocks, the form
         *([_P] * 17), _I,  # per-ray fields, R
         _F, _I, _I, _I, _I, _I, _F, _F,  # node constants
         *([_P] * 6)]),  # 5 outputs, stream
@@ -247,12 +251,18 @@ def _launch(dev, name, *args):
     err = _fn(name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+    _count(name)
+
+
+def _count(key):
+    """One launch under `key`: into the open capture's counts on this
+    thread, else into LAUNCHES."""
     counts = getattr(_capture, "launches", None)
     with _lock:
         if counts is None:
-            LAUNCHES[name] += 1
+            LAUNCHES[key] += 1
         else:
-            counts[name] = counts.get(name, 0) + 1
+            counts[key] = counts.get(key, 0) + 1
 
 
 def _ptr(t):
@@ -389,6 +399,25 @@ PACKET_MIN_RAYS = 8 * 132 * 32
 
 def rays_per_warp(n_rays: int, many: int = 8) -> int:
     return many if n_rays >= PACKET_MIN_RAYS else 1
+
+
+# From this many lights on, a wavefront of shade_eval_rows (fewer than
+# PACKET_MIN_RAYS rays) takes the light-lanes form: a warp per ray whose
+# lanes take its lights, each scanning a shadow ray alone, where the form
+# with a warp per ray walks a ray's lights one after another, its lanes
+# sharing each light's scan. Set from device times of the three forms at
+# W = 2048 and 3584 and 5 to 140 lights on an H100 (PERF.md, kernel #6).
+LIGHT_LANES_MIN_LIGHTS = 16
+# shade_eval_rows' form code of the light-lanes form (csrc RT_LIGHT_LANES)
+LIGHT_LANES = 0
+
+
+def node_form(n_rays: int, n_lights: int) -> int:
+    """The form of a shade_eval_rows call: 32 (a ray per lane) from
+    PACKET_MIN_RAYS rays on; below, LIGHT_LANES from LIGHT_LANES_MIN_LIGHTS
+    lights on, else 1 (a warp per ray, its lanes sharing each shadow scan)."""
+    k = rays_per_warp(n_rays, many=32)
+    return LIGHT_LANES if k == 1 and n_lights >= LIGHT_LANES_MIN_LIGHTS else k
 
 
 def _warp_tables(tri_cast_pack, tri_aabb, tri_saabb, sb_sizes, **more):
@@ -586,7 +615,7 @@ def launch_settings() -> tuple:
     """The module settings the wrappers read at each call to choose a
     kernel's build or form: a CUDA graph of their launches holds for these
     values only."""
-    return PRIME_GATE, SORT_GATE, PACKET_MIN_RAYS, NODE_WARP_MAX_LIVE
+    return PRIME_GATE, SORT_GATE, PACKET_MIN_RAYS, NODE_WARP_MAX_LIVE, LIGHT_LANES_MIN_LIGHTS
 
 
 def gate_switches(n_lights, nb, n_trans_blocks):
@@ -974,10 +1003,10 @@ def shade_eval_rows(
     rfr_rows = torch.empty((R, POOL_COLS), dtype=f32, device=dev)
     rfl_m = torch.empty((R,), dtype=torch.bool, device=dev)
     rfr_m = torch.empty((R,), dtype=torch.bool, device=dev)
+    form = node_form(R, n_lights)
     _launch(dev,
         "shade_eval_rows", *scene,
-        *_gate_args(light_pack, tri_blk_aabb, n_lights, n_trans_blocks), *gate,
-        rays_per_warp(R, many=32),
+        *_gate_args(light_pack, tri_blk_aabb, n_lights, n_trans_blocks), *gate, form,
         _ptr(point), _ptr(normal), _ptr(view), _ptr(color), _ptr(shininess),
         _ptr(valid), _ptr(t), _ptr(w), _ptr(rior), _ptr(budget), _ptr(from_refl),
         _ptr(h_httr), _ptr(h_met), _ptr(h_ior), _ptr(h_opac), _ptr(h_boost),
@@ -986,6 +1015,8 @@ def shade_eval_rows(
                       refr_max, weight_cutoff, air),
         _ptr(contrib), _ptr(rfl_rows), _ptr(rfl_m), _ptr(rfr_rows), _ptr(rfr_m),
     )
+    if form == LIGHT_LANES:
+        _count(LIGHT_LANES_LAUNCHES)
     return contrib, rfl_rows, rfl_m, rfr_rows, rfr_m
 
 

@@ -13,6 +13,8 @@ file from anywhere:
     python3 hslu_i/ba_raytracing/f2501_raytracer_tpu_torch/utils/ab.py \
         forms [--scene semesterbild semesterbild_cloud occlusion]
     python3 hslu_i/ba_raytracing/f2501_raytracer_tpu_torch/utils/ab.py \
+        nodes [--root DIR]
+    python3 hslu_i/ba_raytracing/f2501_raytracer_tpu_torch/utils/ab.py \
         sass [--kernel NAME] [--out PATH]
     python3 hslu_i/ba_raytracing/f2501_raytracer_tpu_torch/utils/ab.py \
         cli [--preset NAME] [--out PATH] [--root DIR]
@@ -81,6 +83,22 @@ forms      the kernels with a warp per ray, with one ray per warp and with
            with `occlusion`, occlude_triangles (a ray per lane) on the
            cases of `kernels`. `kernels.PACKET_MIN_RAYS` decides between
            one and many. The results must be the same.
+nodes      shade_eval_rows at the pool's two widths, W = 2048 (the first
+           pool iteration of tile 3 of the 1080p `realistic` frame) and
+           W = 3584 (the same of the 480x270 `extreme` frame, AA samples
+           and all), each under the light packs of 5, 50, 95 and 140 lights
+           (the light clouds of harness.GATE_LIGHTS; 140: extreme's own)
+           and under the first 10, 20 and 30 lights of the 50, and at
+           W = 1536 (the same of 1140x950 `reference_default`, 95 lights),
+           in each of its forms in turns: a warp per ray, a ray per lane
+           and, where the tree has it, the light-lanes form (a warp per
+           ray, its lights over the lanes; kernels.node_form). Each: the
+           time on the device alone per form, which form the tree takes,
+           the call's lit (ray, light) pairs and shadow rows scanned up to
+           the first opaque hit (frame_bench/framebench/roofline.py's
+           count), its bound, and the share of the light-lanes form's lane
+           slots that scan rows, with its rounds and without (a lane going
+           on to its next light at once). The results must be the same.
 sass       the machine code of one kernel's build (cuobjdump -sass) into
            PATH (default: sass_NAME.txt beside the built library); printed:
            for each kernel function (each form) its instructions, and for
@@ -111,7 +129,8 @@ import sys
 import time
 
 parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-parser.add_argument("what", choices=("frames", "kernels", "shading", "forms", "sass", "cli"))
+parser.add_argument("what",
+                    choices=("frames", "kernels", "shading", "forms", "nodes", "sass", "cli"))
 parser.add_argument("n", type=int, nargs="?", default=2, help="frames: warm frames per scene")
 parser.add_argument("--scene", nargs="+",
                     choices=("semesterbild", "semesterbild_cloud", "occlusion"),
@@ -131,6 +150,7 @@ sys.path[0:1] = [os.path.abspath(ARGS.root), os.path.dirname(os.path.abspath(__f
 
 import torch  # noqa: E402
 from harness import (  # noqa: E402
+    GATE_LIGHTS,
     GATE_SETTINGS,
     OPS_OCCL,
     PARTITIONS,
@@ -149,6 +169,11 @@ from harness import (  # noqa: E402
     with_gates,
 )
 from timing import device_busy_ms  # noqa: E402 (this checkout's, as harness.py)
+
+# the roofline's count of a shading call (this checkout's benchmark)
+sys.path.insert(2, os.path.join(os.path.dirname(os.path.abspath(__file__)), *[".."] * 4,
+                                "frame_bench"))
+from framebench import roofline  # noqa: E402
 
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch import (  # noqa: E402
     RaytracerRenderer,
@@ -553,6 +578,124 @@ SASS_CLASSES = (("shared loads", ("LDS",)), ("global loads", ("LDG", "LD.")),
                 ("MUFU", ("MUFU",)), ("branches", ("BRA",)))
 
 
+# shade_eval_rows' forms by the settings that choose them: (PACKET_MIN_RAYS,
+# LIGHT_LANES_MIN_LIGHTS)
+NODE_FORMS = {"a warp per ray": (1 << 30, 1 << 30), "a ray per lane": (0, 1 << 30),
+              "light lanes": (1 << 30, 0)}
+
+
+def node_calls():
+    """(label, args, kw) of `nodes`: the first pool call of tile 3 of the
+    1080p `realistic` and the 480x270 `extreme` frames, caught from renders,
+    each with the light pack of every light count of GATE_LIGHTS and with
+    the first 10, 20 and 30 lights of the 50; and the same call of the
+    1140x950 `reference_default` frame at its own 95 lights."""
+    c_ext = RenderConfig(width=480, height=270, **dict(MAIN, tile_rays=262144), **EXTREME)
+    c_ref = RenderConfig.reference_default(
+        **{k: v for k, v in MAIN.items() if k != "scene_backface_culling"})
+    packs = {n: scene_of("semesterbild", RenderConfig(width=1920, height=1080, **MAIN,
+                                                      **REALISTIC, **feats)).light_pack
+             for n, feats in GATE_LIGHTS.items()}
+    lights = list(packs.items())
+    lights[1:1] = [(n, packs[50]) for n in (10, 20, 30)]
+    out = []
+    for where, c, n_own in (("realistic 1920x1080", cfg, 5), ("extreme 480x270", c_ext, 140),
+                            ("reference_default 1140x950", c_ref, 95)):
+        _, (a, kw) = caught_calls(["shade_eval_rows"], tile_call(
+            scene_of("semesterbild", c), c, 3, aa=n_own > 5), 2)["shade_eval_rows"]
+        assert kw["n_lights"] == n_own, kw["n_lights"]
+        for n, pack in lights if n_own < 95 else [(n_own, a[0])]:
+            out.append((f"{where} tile 3's first pool call (W = {a[5].shape[0]}), {n} lights",
+                        [pack, *a[1:]], dict(kw, n_lights=n)))
+    return out
+
+
+def pair_rows(a, kw):
+    """The shadow rows each lit (ray, light) pair of a shading call scans up
+    to its first opaque hit, spheres counted as rows: (n_lights, live rays)
+    int64, 0 where the light is not lit. The roofline's walk
+    (roofline.shade_ops), pair by pair."""
+    light_pack, sph_pack, trb_pack, tri_blk_pack, tri_blk_aabb = a[:5]
+    keep = a[10] != 0
+    P, N = a[5][keep], a[6][keep]
+    n_sph = int((sph_pack[:, 12] != 0).sum())
+    packs = [(trb_pack, None)] + [(tri_blk_pack[b], tri_blk_aabb[b])
+                                  for b in range(tri_blk_pack.shape[0])]
+    out = torch.zeros((kw["n_lights"], P.shape[0]), dtype=torch.int64, device=P.device)
+    for li in range(kw["n_lights"]):
+        lp = light_pack[li, 0:3]
+        ltp = lp[None, :] - P
+        lt = ltp.norm(dim=1)
+        lit = (ltp * N).sum(1) / lt > 0
+        ld = ltp[lit] / lt[lit, None]
+        so = P[lit] + ld * kw["eps_dist"]
+        maxd = (lp[None, :] - so).norm(dim=1)
+        rows = torch.full_like(maxd, n_sph, dtype=torch.int64)
+        st, sv = roofline._sphere_ts(sph_pack[:, 0:3], sph_pack[:, 3], sph_pack[:, 12] != 0, so,
+                                     ld)
+        live_ = ~(sv & (st <= maxd[:, None]) & (sph_pack[None, :, 8] == 0)).any(1)
+        for pack, box in packs:
+            scan = live_ if box is None else live_ & roofline.gate_hits(box[None], so, ld,
+                                                                       maxd)[:, 0]
+            t, v = roofline._woop_ts(pack, so, ld)
+            stop = v & (t <= maxd[:, None]) & (pack[None, :, 14] == 0)
+            n_rows = int((pack[:, 13] != 0).sum()) if box is None else pack.shape[0]
+            upto = torch.where(stop.any(1), stop.float().argmax(1).long() + 1,
+                               torch.full_like(rows, n_rows))
+            rows += torch.where(scan, upto, 0)
+            live_ = live_ & ~(scan & stop.any(1))
+        out[li, lit] = rows
+    return out
+
+
+def lane_use(rows):
+    """The share of the lanes' issue slots that scan rows, for the warps of
+    a light-lanes call (a warp a ray, ceil(L / 32) rounds of an even share
+    of lanes, a round as long as its longest scan), and for the same lights
+    on the same lanes if a lane went on to its next light without waiting
+    for the round."""
+    L, n = rows.shape
+    rounds = -(-L // 32)
+    width = -(-L // rounds)
+    per = torch.nn.functional.pad(rows, (0, 0, 0, rounds * width - L)).view(rounds, width, n)
+    work = float(rows.sum())
+    return (work / max(32 * float(per.amax(1).sum()), 1.0),
+            work / max(32 * float(per.sum(0).amax(0).sum()), 1.0))
+
+
+def nodes():
+    registers()
+    lanes = hasattr(kernels, "LIGHT_LANES_MIN_LIGHTS")
+    forms_ = {k: v for k, v in NODE_FORMS.items() if lanes or k != "light lanes"}
+    keep = kernels.PACKET_MIN_RAYS, getattr(kernels, "LIGHT_LANES_MIN_LIGHTS", None)
+    for label, a, kw in node_calls():
+        fn = lambda: kernels.shade_eval_rows(*a, **kw)  # noqa: E731
+        takes = kernels.node_form(a[5].shape[0], kw["n_lights"]) if lanes else 1
+        ms, outs = {f: [] for f in forms_}, {}
+        for form in (*forms_, *reversed(forms_)):
+            kernels.PACKET_MIN_RAYS = forms_[form][0]
+            if lanes:
+                kernels.LIGHT_LANES_MIN_LIGHTS = forms_[form][1]
+            outs[form] = flat(fn())
+            ms[form].append(device_ms(fn, 20))
+        kernels.PACKET_MIN_RAYS = keep[0]
+        if lanes:
+            kernels.LIGHT_LANES_MIN_LIGHTS = keep[1]
+        first = outs["a warp per ray"]
+        assert all(all(same_bits(x, y) for x, y in zip(first, o)) for o in outs.values()), label
+        rows = pair_rows(a, kw)
+        rounds, free = lane_use(rows)
+        b, by = bound_ms(nbytes(*a, *first), roofline.shade_ops("shade_eval_rows", a,
+                                                                kw["n_lights"], kw["eps_dist"]))
+        print(f"shade_eval_rows {label}: {live(a)} live rays, {int((rows > 0).sum())} lit (ray, "
+              f"light) pairs, {int(rows.sum())} rows scanned (spheres counted as rows); lanes "
+              f"busy in the light-lanes form's rounds {rounds:.1%}, without rounds {free:.1%}; "
+              f"bound {b:.5f} ms ({by}); device ms "
+              + ", ".join(f"{k} {v}" for k, v in ms.items())
+              + f"; this tree takes {'light lanes' if takes == 0 else takes}; the same bits",
+              flush=True)
+
+
 def sass():
     kernels.build_kernels([ARGS.kernel])
     listing = subprocess.run(
@@ -603,6 +746,8 @@ elif ARGS.what == "kernels":
     kernel_times()
 elif ARGS.what == "shading":
     shading()
+elif ARGS.what == "nodes":
+    nodes()
 elif ARGS.what == "sass":
     sass()
 elif ARGS.what == "cli":

@@ -108,9 +108,22 @@ def test_cast_kernel_matches_twin(cuda, backface):
 RESIDENT_WIDTHS = (0, 1, 7, 2049, 131072)  # ragged warps and thread blocks; a tile
 
 
-def _other_form(monkeypatch, n):
+# shade_eval_rows' three forms (kernels.node_form): a warp per ray, a ray
+# per lane, and a warp per ray whose lanes take its lights
+NODE_FORMS = (1, 32, kernels.LIGHT_LANES)
+
+
+def _other_form(monkeypatch, n, form=None):
     """Make the wrappers take the other number of rays per warp for n rays:
-    one, or many (a ray per lane in the resident kernels)."""
+    one, or many (a ray per lane in the resident kernels); with `form`, make
+    shade_eval_rows take that form of NODE_FORMS at any ray and light
+    count."""
+    if form is not None:
+        monkeypatch.setattr(kernels, "PACKET_MIN_RAYS", 0 if form == 32 else 1 << 30)
+        monkeypatch.setattr(kernels, "LIGHT_LANES_MIN_LIGHTS",
+                            0 if form == kernels.LIGHT_LANES else 1 << 30)
+        assert kernels.node_form(n, 1) == form
+        return
     one = kernels.rays_per_warp(n) == 1
     monkeypatch.setattr(kernels, "PACKET_MIN_RAYS", 0 if one else 1 << 30)
     assert (kernels.rays_per_warp(n) == 1) != one
@@ -299,35 +312,60 @@ def test_shade_kernel_matches_twin(cuda):
 
 def _node_scene(dev, scene):
     """(cfg, scene) of the node kernels' tests: the 1080p scene with 5 or 50
-    lights, or the resident cloud, whose Morton blocks hold glass."""
+    lights, or with extreme's 140 (5 clouds of 28), or the resident cloud,
+    whose Morton blocks hold glass."""
     if scene == "cloud":
         cfg, ds = _cloud_scene(dev)
         assert not ds.streaming and ds.n_trans_blocks > 0
+    elif scene == "140_lights":
+        cfg, ds = _scene(dev, **dict(REALISTIC, extreme_quality=True))
+        assert ds.n_lights == 140
     else:
         cfg, ds = _scene(dev, **dict(REALISTIC, soft_shadows=scene == "50_lights"))
         assert ds.n_lights == (50 if scene == "50_lights" else 5)
     return cfg, ds
 
 
+def _unlit_rows(light, n_lights, every=97):
+    """Every `every`-th ray of the lighting inputs `light` moved to a hit
+    that faces away from all lights: 1000 units past their centre along
+    -z, its normal -z. Returns the inputs and the rays that hit something
+    and see no light."""
+    pack, point, normal, valid = light[0], light[5].clone(), light[6].clone(), light[10]
+    pos = pack[:n_lights, 0:3]
+    away = torch.tensor([0.0, 0.0, -1.0], device=point.device)
+    point[::every] = pos.mean(0) + 1000.0 * away
+    normal[::every] = away
+    facing = ((pos[None, :, :] - point[:, None, :]) * normal[:, None, :]).sum(-1) > 0
+    return (*light[:5], point, normal, *light[7:]), (valid != 0) & ~facing.any(1)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("scene", ["5_lights", "50_lights", "cloud"])
+@pytest.mark.parametrize("scene", ["5_lights", "50_lights", "140_lights", "cloud"])
 def test_shade_rows_kernel_widths_forms_and_bits(cuda, monkeypatch, scene):
-    """Ray counts from 0 to a tile, one ray per warp and a ray per lane,
-    three runs: the twin's masks and values within its bar, and the bits of
+    """Ray counts from 0 to a tile and the pool's 3584, in each of the three
+    forms (a warp per ray, a ray per lane, the light-lanes form), three runs
+    each: the twin's masks and values within its bar, and the bits of
     shade_eval (one thread per ray) on the same inputs: contrib, every child
-    field and the masks, rays without a hit included; the cloud adds
-    Morton blocks with glass (the 1080p scene has none)."""
+    field and the masks, rays without a hit and rays that see no light
+    included; the cloud adds Morton blocks with glass (the 1080p scene has
+    none), 140 lights extreme's light clouds."""
     cfg, ds = _node_scene(cuda, scene)
     light, node, pix, kw = _shade_inputs(cfg, ds, cuda, 131072, 31)
+    light, unlit = _unlit_rows(light, ds.n_lights)
     kw = _node_kw(cfg, kw)
     per_ray = (*light[5:], *node, pix)
-    for n in RESIDENT_WIDTHS:
+    for n in (*RESIDENT_WIDTHS, 3584):
         rays = [a[:n].contiguous() for a in per_ray]
         args = (*light[:5], *rays)
+        if n > 1000:
+            assert unlit[:n].any() and (rays[5] == 0).any()  # valid
         kernels.reset_launch_counts()
         got = kernels.shade_eval_rows(*args, **kw)
         torch.cuda.synchronize()
         assert kernels.LAUNCHES["shade_eval_rows"] == 1
+        lanes = kernels.node_form(n, ds.n_lights) == kernels.LIGHT_LANES
+        assert kernels.LAUNCHES[kernels.LIGHT_LANES_LAUNCHES] == int(lanes)
         contrib, rfl, rfl_m, rfr, rfr_m = got
         assert contrib.shape == (n, 3) and rfl.shape == rfr.shape == (n, 16)
         assert_node_bits(got, kernels.shade_eval(*args[:-1], **kw))
@@ -337,13 +375,12 @@ def test_shade_rows_kernel_widths_forms_and_bits(cuda, monkeypatch, scene):
         for a, b, m in ((contrib, ref[0], None), (rfl, ref[1], rfl_m), (rfr, ref[3], rfr_m)):
             a, b = (a, b) if m is None else (a[m], b[m])
             np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=2e-5, atol=2e-6)
-        for _ in range(2):
-            again = kernels.shade_eval_rows(*args, **kw)
-            assert all(same_bits(x, y) for x, y in zip(got, again))
-        with monkeypatch.context() as mp:
-            _other_form(mp, n)
-            other = kernels.shade_eval_rows(*args, **kw)
-        assert all(same_bits(x, y) for x, y in zip(got, other)), n
+        for form in NODE_FORMS:
+            with monkeypatch.context() as mp:
+                _other_form(mp, n, form)
+                for _ in range(3):
+                    other = kernels.shade_eval_rows(*args, **kw)
+                    assert all(same_bits(x, y) for x, y in zip(got, other)), (n, form)
     assert rfl_m.any() and rfr_m.any() and (contrib.amax(1) > 0).any()
 
 
@@ -968,7 +1005,8 @@ def test_kernels_from_two_threads_give_one_thread_bits(cuda):
         kernels.reset_launch_counts()
         with ThreadPoolExecutor(max_workers=2) as pool:
             outs = [f.result(timeout=300) for f in [pool.submit(launch, i) for i in range(2)]]
-        assert kernels.LAUNCHES == {k: 2 * (k == name) for k in kernels.KERNEL_SOURCES}, name
+        assert kernels.LAUNCHES == {**{k: 2 * (k == name) for k in kernels.KERNEL_SOURCES},
+                                    kernels.LIGHT_LANES_LAUNCHES: 0}, name
         for out in outs:
             assert len(out) == len(ref) and all(same_bits(a, b) for a, b in zip(out, ref)), name
 
@@ -1014,18 +1052,17 @@ def _same_under_switches(fn, label):
 
 def _switch_forms(monkeypatch, light, node, pix, kw, label):
     """The three shading kernels in every form under the switches:
-    light_shade; shade_eval_rows with one ray per warp and a ray per lane;
-    shade_eval with a warp per live ray and a ray per lane."""
+    light_shade; shade_eval_rows in its three forms; shade_eval with a warp
+    per live ray and a ray per lane."""
     n = light[5].shape[0]
     _same_under_switches(lambda: kernels.light_shade(*light, **{
         k: kw[k] for k in ("n_lights", "eps_dist", "n_trans_blocks", "bigtri_trans_rows")}),
         f"light_shade {label}")
-    for other in (False, True):
+    for form in NODE_FORMS:
         with monkeypatch.context() as mp:
-            if other:
-                _other_form(mp, n)
+            _other_form(mp, n, form)
             _same_under_switches(lambda: kernels.shade_eval_rows(*light, *node, pix, **kw),
-                                 f"shade_eval_rows {label} form {other}")
+                                 f"shade_eval_rows {label} form {form}")
     for most in (1 << 30, -1):
         monkeypatch.setattr(kernels, "NODE_WARP_MAX_LIVE", most)
         _same_under_switches(lambda: kernels.shade_eval(*light, *node, **kw),
