@@ -124,20 +124,9 @@ seconds):
      cast_triangles_stream); render_image_sharded and trace_rays_sharded
      on tile 3 of `default` bit for bit trace_rays, and on tile 3 of
      `realistic` within tests/test_multichip.py's bar;
-  7c. the shadow scan's switches (PRIME_GATE, SORT_GATE): shade_eval,
-     shade_eval_rows and light_shade on the 235-block cloud at 5, 50 and 95
-     lights (and shade_eval_rows at 140), at tile 3's R = 131072 primary
-     rays and W = 2048 of them, and on the JAX package's PRIME_GATE scene
-     (17 lights, 256 rays) in both forms of the node kernels: with each
-     switch and both on, the bits of both off on three runs; with both on
-     against the twin on 512 of the rays; both off and both on timed in
-     turns; whether each switch acts there; then the 1080p `soft_shadows`
-     and the 480x270 `extreme` frames with both on, each with its
-     checksum;
   8. every frame's `unfinished` count (the rays left untraced at the
      iteration cap): 0, but for the open faults of UNFINISHED_OPEN; print
-     the {"kernels": [...]} line (rows #5-#7 with the switches' results
-     under "switches"), then the {"ok": true, ...} line.
+     the {"kernels": [...]} line, then the {"ok": true, ...} line.
 With --report, the measurements also go to PATH as JSON.
 
 Exits non-zero without a CUDA device. Imports nothing of JAX.
@@ -201,7 +190,6 @@ from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.renderer import (  # noqa: E
     plan_frame,
 )
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.utils.harness import (  # noqa: E402
-    GATE_SETTINGS,
     OPS_OCCL,
     PARTITIONS,
     PEAK_F32,
@@ -210,18 +198,13 @@ from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.utils.harness import (  # no
     caught_calls,
     cuda_ms,
     device_ms,
-    flat,
-    gate_cloud,
     gate_hits,
     nbytes,
-    node_state,
     occlusion_tests,
     same_bits,
     same_occlusion,
     shadow_rays,
-    stack_inputs,
     tile_call,
-    with_gates,
 )
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.utils.timing import (  # noqa: E402
     device_busy_ms,
@@ -1764,143 +1747,6 @@ with phase("mesh"):
     for name in ("cast_triangles", "shade_eval_rows", "light_shade", "cast_triangles_stream"):
         assert launches_mesh[name] > 0, name
 
-# ---- phase 7c: the shadow scan's switches (PRIME_GATE, SORT_GATE) ---------
-# Where they can act: the 235-block cloud (harness.gate_cloud: 65 blocks with
-# glass, 170 opaque) at the light counts of the feature configs, tile 3's
-# primary rays at R = 131072 (#5: a ray per lane over its live rays; #6: a
-# ray per lane) and at W = 2048 of them (a warp per ray); and the JAX
-# package's PRIME_GATE scene (harness.stack_inputs: 17 lights, four opaque
-# blocks) at 256 rays, #5 and #6 in both forms. Each kernel, with each
-# switch and both on, gives the bits it gives with both off, on three runs;
-# with both on it is held against its twin on 512 of the rays at today's
-# bars; both off and both on are timed in turns (off, on, on, off; CUDA
-# events). Then the 1080p `soft_shadows` and the 480x270 `extreme` frames
-# with both on keep their checksums.
-GATE_SHAPES = {"R": (0, R), "W": (R // 2, R // 2 + W)}
-NODE_KERNELS = ("shade_eval_rows", "shade_eval")  # the kernels with two forms
-gate_results = {name: {} for name in ("light_shade", "shade_eval_rows", "shade_eval")}
-
-
-def gate_call(name, args, kw):
-    """A call of shading kernel `name` on the node kernels' 21 inputs `args`
-    (and `kw`, shade_kw's): light_shade takes the first 11."""
-    if name == "light_shade":
-        lkw = {k: kw[k] for k in ("n_lights", "eps_dist", "n_trans_blocks", "backface_culling",
-                                  "bigtri_trans_rows")}
-        return lambda: kernels.light_shade(*args[:11], **lkw)
-    if name == "shade_eval_rows":
-        pix = torch.arange(args[5].shape[0], dtype=torch.int32, device=DEV)
-        return lambda: kernels.shade_eval_rows(*args, pix, **kw)
-    return lambda: kernels.shade_eval(*args, **kw)
-
-
-def gate_twin(name, args, kw, got):
-    """Kernel output `got` against the twin of `name` on the same inputs:
-    masks and budgets identical, values within the traced-colour bar.
-    Returns the max |kernel - twin|."""
-    if name == "light_shade":
-        lkw = {k: kw[k] for k in ("n_lights", "eps_dist", "backface_culling")}
-        return close(f"{name} twin", list(zip(got, kernels.light_shade_plain(*args[:11], **lkw))))
-    if name == "shade_eval_rows":
-        pix = torch.arange(args[5].shape[0], dtype=torch.int32, device=DEV)
-        ref = kernels.shade_eval_rows_plain(*args, pix, **kw)
-        assert torch.equal(got[2], ref[2]) and torch.equal(got[4], ref[4]), f"{name} masks"
-        return close(f"{name} twin", [(got[0], ref[0]), (got[1][ref[2]], ref[1][ref[2]]),
-                                      (got[3][ref[4]], ref[3][ref[4]])])
-    (contrib, refl, refr), (c_ref, refl_ref, refr_ref) = got, kernels.shade_eval_plain(*args, **kw)
-    pairs = [(contrib, c_ref)]
-    for g, r in ((refl, refl_ref), (refr, refr_ref)):
-        m = r["mask"]
-        assert torch.equal(g["mask"], m) and torch.equal(g["budget"][m], r["budget"][m]), name
-        pairs += [(g[k][m], r[k][m]) for k in r if k not in ("mask", "budget")]
-    return close(f"{name} twin", pairs)
-
-
-def check_gate(case, name, shape, args, kw, iters, twin=True):
-    """Kernel `name` under the switches on these inputs (see phase 7c)."""
-    call = gate_call(name, args, kw)
-    base = flat(with_gates(False, False, call))
-    for prime, sort in GATE_SETTINGS:
-        for _ in range(3):
-            got = flat(with_gates(prime, sort, call))
-            assert all(same_bits(a, b) for a, b in zip(base, got)), (case, name, prime, sort)
-    err = None
-    if twin:
-        part = [a[:512].contiguous() if isinstance(a, torch.Tensor) and a.dim() and
-                a.shape[0] == args[5].shape[0] else a for a in args]
-        err = gate_twin(name, part, kw, with_gates(True, True, gate_call(name, part, kw)))
-    ms = {"off": [], "on": []}
-    for which in ("off", "on", "on", "off"):
-        ms[which].append(with_gates(which == "on", which == "on", lambda: cuda_ms(call, iters)))
-    res = dict(rays=args[5].shape[0], live=int((args[10] != 0).sum()), bits="same",
-               max_abs_err=err, ms_off=ms["off"], ms_on=ms["on"])
-    gate_results[name][f"{case} {shape}"] = res
-    vs_twin = (f"against the twin on {min(512, res['rays'])} rays: max |kernel - twin| {err:.3g}"
-               if twin else "not against the twin (the other form's inputs)")
-    log(f"  {name} {shape} ({res['rays']} rays, {res['live']} live): the same bits with each "
-        f"switch and both on, three runs each; {vs_twin}; ms by CUDA events off "
-        f"{[round(x, 4) for x in ms['off']]}, both on {[round(x, 4) for x in ms['on']]}")
-
-
-with phase("switches"):
-    report["switches"] = {}
-    for n_l in (5, 50, 95, 140):
-        c_g, ds_g = gate_cloud(n_l, DEV)
-        nb_g = ds_g.tri_blk_pack.shape[0]
-        acts = with_gates(True, True, lambda: kernels.gate_switches(n_l, nb_g, ds_g.n_trans_blocks))
-        log(f"cloud {n_l} lights: {nb_g} blocks, {ds_g.n_trans_blocks} transmissive; with both "
-            f"switches set PRIME acts {acts[0]}, SORT acts {acts[1]}")
-        report["switches"][f"cloud{n_l}"] = dict(nb=nb_g, n_trans_blocks=ds_g.n_trans_blocks,
-                                                 n_lights=n_l, prime=acts[0], sort=acts[1])
-        args_g = shade_args(ds_g, c_g, o_prim, d_prim, ones, **prim_state(R))
-        kw_g = shade_kw(ds_g, c_g)
-        for shape, (a, b) in GATE_SHAPES.items():
-            part = tuple(x[a:b].contiguous() if isinstance(x, torch.Tensor) and x.dim() and
-                         x.shape[0] == R else x for x in args_g)
-            for name in (("shade_eval_rows",) if n_l == 140 else gate_results):
-                check_gate(f"cloud{n_l}", name, shape, part, kw_g, 3 if shape == "R" else 20)
-        del ds_g
-    c_s, ds_s, light_s = stack_inputs(device=DEV)
-    nb_s = ds_s.tri_blk_pack.shape[0]
-    acts = with_gates(True, True, lambda: kernels.gate_switches(ds_s.n_lights, nb_s,
-                                                                 ds_s.n_trans_blocks))
-    assert acts == (True, True), acts
-    log(f"the PRIME_GATE scene: {ds_s.n_lights} lights, {nb_s} blocks, {ds_s.n_trans_blocks} "
-        f"transmissive; PRIME acts {acts[0]}, SORT acts {acts[1]}")
-    report["switches"]["stack17"] = dict(nb=nb_s, n_trans_blocks=ds_s.n_trans_blocks,
-                                         n_lights=ds_s.n_lights, prime=acts[0], sort=acts[1])
-    args_s = (*light_s, *node_state(light_s[5].shape[0], 43, DEV))
-    kw_s = dict(shade_kw(ds_s, c_s), reflections=True, refractions=True)
-    forms_kept = kernels.PACKET_MIN_RAYS, kernels.NODE_WARP_MAX_LIVE
-    for form, (most_rays, most_live) in (("one ray per warp", (1 << 30, 1 << 30)),
-                                         ("a ray per lane", (0, -1))):
-        kernels.PACKET_MIN_RAYS, kernels.NODE_WARP_MAX_LIVE = most_rays, most_live
-        for name in gate_results if form == "one ray per warp" else NODE_KERNELS:
-            check_gate("stack17", name, form, args_s, kw_s, 20, twin=form == "one ray per warp")
-    kernels.PACKET_MIN_RAYS, kernels.NODE_WARP_MAX_LIVE = forms_kept
-
-    # two frames with both switches on: their checksums
-    for label, c_f, r_f, scene_f in (
-            ("soft_shadows", c_soft, RaytracerRenderer(c_soft, device="cuda"),
-             scenes["soft_shadows"]),
-            ("extreme", CFG_EXT, r_ext, ds_ext)):
-        nb_f = scene_f.tri_blk_pack.shape[0]
-        acts = with_gates(True, True, lambda: kernels.gate_switches(
-            scene_f.n_lights, nb_f, scene_f.n_trans_blocks))
-        fb, wall, launches = with_gates(True, True, lambda: timed_run(
-            lambda: r_f.render_u32(scene_f)))
-        left = note_unfinished(f"{label} switches on", r_f)
-        log(f"{label} {c_f.width}x{c_f.height} with both switches on ({scene_f.n_lights} lights, "
-            f"{nb_f} blocks, {scene_f.n_trans_blocks} transmissive: PRIME acts {acts[0]}, SORT "
-            f"acts {acts[1]}): {wall * 1e3:.1f} ms, launches {used(launches)}, dropped "
-            f"{r_f.last_dropped}, unfinished {left}, u32 sha256 {checksum(fb)} (both off: "
-            f"{CHECKSUMS[label]})")
-        assert checksum(fb) == CHECKSUMS[label], (label, checksum(fb))
-        report["switches"][f"frame_{label}"] = dict(
-            wall_ms=wall * 1e3, checksum=checksum(fb), prime=acts[0], sort=acts[1],
-            unfinished=left, wall_ms_off=frames[label]["wall_ms"])
-    report["switches"]["kernels"] = gate_results
-
 # ---- phase 8: results ----------------------------------------------------
 # each kernel's launches: from the path it serves (the frame of phase 3/4)
 frames["occlude_rays"] = dict(launches=entry_launches)
@@ -1943,8 +1789,6 @@ for name, (src, tpu_line, path, main, others) in ENTRIES.items():
     )
     if name in ("cast_triangles", "cast_triangles_stream", "shade_eval_rows", "light_shade"):
         entry["launches_mesh"] = launches_mesh[name]
-    if name in gate_results:  # phase 7c: the switches' bits and times
-        entry["switches"] = gate_results[name]
     for label in others:
         o_res = results[name][label]
         sfx = EXTRA[label]

@@ -63,10 +63,7 @@ __device__ __forceinline__ LightRay ray_to(const float* L, float eps, int r,
 // With this bound ptxas keeps 48 registers and spills 12 bytes; without it
 // (66 registers, no spill) fewer thread blocks fit an SM, and the kernel ran
 // about 7% slower at 5 and at 50 lights on an H100, each build timed in turns
-// with the one-thread kernel it replaced. GATED: the shadow scans under the
-// switches (rt_light.cuh), a warp's 32 (ray, light) items being the prime's
-// scope.
-template <bool GATED>
+// with the one-thread kernel it replaced.
 __global__ void __launch_bounds__(32 * LS_MAX_WARPS) light_shade_kernel(
     ShadeScene sc, bool staged, float eps, int R,
     const float* __restrict__ point, const float* __restrict__ normal,
@@ -85,12 +82,7 @@ __global__ void __launch_bounds__(32 * LS_MAX_WARPS) light_shade_kernel(
     const int lc = min(chunk, sc.n_lights - l0);
     for (int l = warp; l < lc; l += warps) {
       Occl occ = {0.0f, 0.0f, 0.0f, 0.0f, true};
-      if constexpr (GATED) {  // every lane of the warp scans together
-        LightRay q = {};
-        if (hval) q = ray_to(tb.lights + (l0 + l) * 8, eps, r, point, normal);
-        occ = rt_shadow_scan_gated(sc, tb, hval && q.cos_in > 0.0f, l0 + l, q.sox, q.soy, q.soz,
-                                   q.ldx, q.ldy, q.ldz, q.maxd);
-      } else if (hval) {
+      if (hval) {
         const LightRay q = ray_to(tb.lights + (l0 + l) * 8, eps, r, point, normal);
         if (q.cos_in > 0.0f)  // else intensity and color are exactly 0: no scan
           occ = rt_shadow_scan(sc, tb, q.sox, q.soy, q.soz, q.ldx, q.ldy, q.ldz, q.maxd);
@@ -145,26 +137,25 @@ int block_warps(int n_lights) {
 
 }  // namespace
 
-// order, prime: the switches (rt_light.cuh; null and 0: off)
 extern "C" int rt_light_shade(const float* lights, int n_lights, const float* sph, int S,
                               const float* trb, int P, int trans_rows, const float* blk,
                               const float* blk_aabb, int nb, int B, int n_trans_blocks,
-                              const int* order, int prime, const float* point, const float* normal, const float* view,
+                              const float* point, const float* normal, const float* view,
                               const float* color, const float* shin, const float* valid,
                               int R, float eps, int backface, float* direct, float* spec,
                               void* stream) {
   const ShadeScene sc = {lights, sph, trb, blk, blk_aabb, n_lights, S, P, trans_rows,
-                         nb, B, n_trans_blocks, backface, order, prime};
+                         nb, B, n_trans_blocks, backface};
   const bool staged = rt_tables_fit(sc);
   const size_t smem = (staged ? rt_table_bytes(sc) : 0) +
                       sizeof(float) * std::min(n_lights, LS_LIGHTS) * LS_SUMS * 32;
-  if (R > 0) RT_BOOL_SWITCH(rt_gated(sc), GATED, {
+  if (R > 0) {
     const cudaError_t err = cudaFuncSetAttribute(
-        light_shade_kernel<GATED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        light_shade_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    light_shade_kernel<GATED><<<(R + 31) / 32, 32 * block_warps(n_lights), smem,
-                                (cudaStream_t)stream>>>(
+    light_shade_kernel<<<(R + 31) / 32, 32 * block_warps(n_lights), smem,
+                         (cudaStream_t)stream>>>(
         sc, staged, eps, R, point, normal, view, color, shin, valid, direct, spec);
-  });
+  }
   return (int)cudaGetLastError();
 }

@@ -25,25 +25,10 @@
 // discarded). Only the first n_lights rows of the light pack are read: the
 // pack is padded to a multiple of 8 rows, and the padding is never a light.
 //
-// The switches (JAX PRIME_GATE, SORT_GATE; pallas_kernels.py:1139, 1167;
-// off unless the wrapper sets them, ops/kernels.py::gate_switches). Both
-// only reorder the scan's opaque Morton blocks (those past n_trans_blocks,
-// in which every hit is opaque), so every output keeps its bits: an opaque
-// block without a hit adds nothing to the sums, and one with a hit ends the
-// scan with opq set, after which the sums are not read.
-//   SORT: the opaque blocks are walked in the order of a table
-//     (ShadeScene::order, kernels.chunk_block_order): one row per chunk of
-//     RT_GATE_CHUNK lights, the blocks nearest the chunk's light centroid
-//     first; light l reads row l / RT_GATE_CHUNK. The transmissive blocks
-//     keep storage order, and with it the order of the sums.
-//   PRIME: before the transmissive blocks, each shadow ray still open after
-//     the spheres and big primitives tests one opaque block first: of the
-//     warp's open shadow rays for this light, the block whose box most of
-//     them cross (the lowest index on a tie; none if no ray crosses one).
-//     A hit ends the ray's scan; otherwise the walk goes on and skips it.
-// The kernels build each scan twice, without the switches (GATED false:
-// the code of the scan before they existed) and with them, chosen at
-// launch.
+// The Morton blocks are scanned in storage order, transmissive blocks
+// first. The JAX package's two switches that reorder the opaque blocks (a
+// primed block first, blocks sorted by distance to the lights) are not
+// ported: on an H100 they were slower wherever they acted (PERF.md).
 #pragma once
 
 #include "rt_common.cuh"
@@ -52,20 +37,11 @@
 // The scene tables a shading kernel reads. Light rows: [pos3 | color3 |
 // intensity | pad]; sphere rows (16 floats): [c3 | r^2 | ior | opacity |
 // metallic | color.r | transmissive | absorption3 | valid | pad3];
-// triangle rows (32 floats): rt_common.cuh. The switches: `order`, the
-// opaque blocks' order table (n_chunks, nb - n_trans_blocks) int32 (SORT;
-// null when off), and `prime` (PRIME; 0 when off).
+// triangle rows (32 floats): rt_common.cuh.
 struct ShadeScene {
   const float *lights, *sph, *trb, *blk, *blk_aabb;
   int n_lights, S, P, trans_rows, nb, B, n_trans_blocks, backface;
-  const int* order;
-  int prime;
 };
-
-#define RT_GATE_CHUNK 8  // lights per row of the order table (JAX MAX_UNROLL_LIGHTS)
-
-// Whether a launch takes the scan's build with the switches
-__host__ inline bool rt_gated(const ShadeScene& sc) { return sc.order != nullptr || sc.prime; }
 
 // Bytes of the small tables (the lights in use, spheres, big primitives)
 // and whether they are staged in shared memory (the default 48 KB).
@@ -159,21 +135,14 @@ __device__ __forceinline__ Occl rt_scan_front(const ShadeScene& sc, const Tables
 
 // The Morton blocks of the scan (transmissive blocks first), behind the
 // block gate, each block's partial sums into *tot; stops at the first
-// opaque hit. GATED: the opaque blocks in row l / RT_GATE_CHUNK of the
-// order table when there is one, and block `skip` (the prime's; -1: none)
-// left out.
-template <bool GATED>
+// opaque hit.
 __device__ __forceinline__ void rt_scan_blocks(const ShadeScene& sc, float sox, float soy,
                                                float soz, float ldx, float ldy, float ldz,
-                                               float maxd, int l, int skip, Occl* tot) {
+                                               float maxd, Occl* tot) {
   const bool bf = sc.backface != 0;
   const int ntb = sc.n_trans_blocks;
-  const int* row = GATED && sc.order ? sc.order + (size_t)(l / RT_GATE_CHUNK) * (sc.nb - ntb)
-                                     : nullptr;
   const float ix = 1.0f / ldx, iy = 1.0f / ldy, iz = 1.0f / ldz;
-  for (int k = 0; k < sc.nb; ++k) {
-    const int b = GATED && row && k >= ntb ? row[k - ntb] : k;
-    if (GATED && b == skip) continue;
+  for (int b = 0; b < sc.nb; ++b) {
     if (!rt_gate(sc.blk_aabb + b * 8, sox, soy, soz, ix, iy, iz, maxd)) continue;
     if (occl_pack(sc.blk + (size_t)b * sc.B * 32, sc.B, sox, soy, soz, ldx, ldy, ldz, maxd, bf,
                   b < ntb, tot))
@@ -184,60 +153,15 @@ __device__ __forceinline__ void rt_scan_blocks(const ShadeScene& sc, float sox, 
 // Full shadow scan for one light; returns the totals (opq set => the rest
 // was skipped and the sums are not used). Per-pack partial sums are added
 // to the total in the plain path's order: spheres, big primitives, then
-// each Morton block.
+// each Morton block. Kept in two parts: as one function, ptxas schedules
+// the kernels that run it (light_shade, the node kernels' ray-per-lane and
+// light-lanes forms) otherwise than the code they were measured with
+// (PERF.md, section 6).
 __device__ __forceinline__ Occl rt_shadow_scan(const ShadeScene& sc, const Tables& tb, float sox,
                                                float soy, float soz, float ldx, float ldy,
                                                float ldz, float maxd) {
   Occl tot = rt_scan_front(sc, tb, sox, soy, soz, ldx, ldy, ldz, maxd);
-  if (!tot.opq) rt_scan_blocks<false>(sc, sox, soy, soz, ldx, ldy, ldz, maxd, 0, -1, &tot);
-  return tot;
-}
-
-// The prime's block for the one-lane scans of a warp (a shadow ray per
-// lane, all to light l or each to its own): of the opaque blocks, the one
-// whose box the most `open` shadow rays cross (JAX's score, :1455-1468),
-// the lowest index on a tie; -1 if no open ray crosses one. All 32 lanes,
-// which get the same block.
-__device__ __forceinline__ int rt_prime_block(const ShadeScene& sc, bool open, float sox,
-                                              float soy, float soz, float ldx, float ldy,
-                                              float ldz, float maxd) {
-  if (!__any_sync(RT_WARP, open)) return -1;
-  const float ix = open ? 1.0f / ldx : 0.0f, iy = open ? 1.0f / ldy : 0.0f;
-  const float iz = open ? 1.0f / ldz : 0.0f;
-  int best = -1, most = 0;
-  for (int b = sc.n_trans_blocks; b < sc.nb; ++b) {
-    const bool crosses = open && rt_gate(sc.blk_aabb + b * 8, sox, soy, soz, ix, iy, iz, maxd);
-    const int n = __popc(__ballot_sync(RT_WARP, crosses));
-    if (n > most) most = n, best = b;
-  }
-  return best;
-}
-
-// rt_shadow_scan with the switches, for the 32 lanes of a warp together
-// (every lane calls it): `lit` says that this lane has a shadow ray (so,
-// ld, maxd) to light l; a lane without one gets opq set, as its caller's
-// unscanned default. The sums of a ray without an opaque hit are
-// rt_shadow_scan's bits.
-__device__ __forceinline__ Occl rt_shadow_scan_gated(const ShadeScene& sc, const Tables& tb,
-                                                     bool lit, int l, float sox, float soy,
-                                                     float soz, float ldx, float ldy, float ldz,
-                                                     float maxd) {
-  Occl tot = {0.0f, 0.0f, 0.0f, 0.0f, true};
-  if (lit) tot = rt_scan_front(sc, tb, sox, soy, soz, ldx, ldy, ldz, maxd);
-  const bool open = lit && !tot.opq;
-  const int pb = sc.prime ? rt_prime_block(sc, open, sox, soy, soz, ldx, ldy, ldz, maxd) : -1;
-  if (!open) return tot;
-  // the prime's block, opacity only (JAX `_pair_flip_opq`): a block where
-  // every hit is opaque adds nothing to the sums of a ray it does not stop
-  Occl primed = {0.0f, 0.0f, 0.0f, 0.0f, false};
-  if (pb >= 0 &&
-      rt_gate(sc.blk_aabb + pb * 8, sox, soy, soz, 1.0f / ldx, 1.0f / ldy, 1.0f / ldz, maxd) &&
-      occl_pack(sc.blk + (size_t)pb * sc.B * 32, sc.B, sox, soy, soz, ldx, ldy, ldz, maxd,
-                sc.backface != 0, false, &primed)) {
-    tot.opq = true;
-    return tot;
-  }
-  rt_scan_blocks<true>(sc, sox, soy, soz, ldx, ldy, ldz, maxd, l, pb, &tot);
+  if (!tot.opq) rt_scan_blocks(sc, sox, soy, soz, ldx, ldy, ldz, maxd, &tot);
   return tot;
 }
 
@@ -251,97 +175,6 @@ struct WarpGate {
   int nsb, sb_shift;
 };
 
-// The prime's block for the rays `alive` of a warp (a bit per ray; their
-// records in `rays`, limit(k) ray k's segment end): of the blocks [b0, b1),
-// the one whose box the most of them cross, the lowest index on a tie; -1
-// if none crosses one. Lane l tests the boxes l, l + 32, ... All 32 lanes,
-// which get the same block.
-template <int K, class Limit>
-__device__ __forceinline__ int rt_warp_prime_block(const float* __restrict__ aabb, int b0,
-                                                   int b1, int lane, const float* rays,
-                                                   unsigned alive, Limit limit) {
-  unsigned most = 0, best = 0xffffffffu;
-  float box[8];
-  for (int b = b0 + lane; b < b1; b += 32) {
-    if (!rt_load_box(aabb + (size_t)b * 8, box)) continue;
-    const unsigned n = __popc(rt_gate_rays<K>(box, rays, alive, limit));
-    if (n > most) most = n, best = (unsigned)b;  // a lane's blocks rise: the lowest keeps a tie
-  }
-  const unsigned top = __reduce_max_sync(RT_WARP, most);
-  if (!top) return -1;
-  return (int)__reduce_min_sync(RT_WARP, most == top ? best : 0xffffffffu);
-}
-
-// rt_warp_blocks over a list instead of the superblocks: the blocks
-// list[0, n) in list order, each that the rays `who` of `alive` cross
-// (tested 32 boxes a step against the rays alive at the step's start), as
-// visit(b, who, 0, false). All 32 lanes.
-template <int K, class Limit, class Visit>
-__device__ __forceinline__ void rt_warp_block_list(const float* __restrict__ aabb,
-                                                   const int* __restrict__ list, int n, int lane,
-                                                   const float* rays, const unsigned& alive,
-                                                   Limit limit, Visit visit) {
-  float box[8];
-  for (int k0 = 0; k0 < n && alive; k0 += 32) {
-    int b = 0;
-    unsigned in_box = 0;  // the rays that cross this lane's box
-    if (k0 + lane < n) {
-      b = __ldg(list + k0 + lane);
-      if (rt_load_box(aabb + (size_t)b * 8, box)) in_box = rt_gate_rays<K>(box, rays, alive, limit);
-    }
-    unsigned blocks = __ballot_sync(RT_WARP, in_box != 0);
-    while (blocks && alive) {
-      const int owner = __ffs(blocks) - 1;
-      blocks &= blocks - 1;
-      const int bb = __shfl_sync(RT_WARP, b, owner);
-      const unsigned who = __shfl_sync(RT_WARP, in_box, owner) & alive;
-      if (who) visit(bb, who, 0.0f, false);
-    }
-  }
-}
-
-// The Morton blocks of rt_warp_shadow_scan under the switches, for the rays
-// `alive` of the warp (their shadow rays' light: l): the prime's block
-// first (every ray crossing it tests it), then the transmissive blocks in
-// storage order (the superblocks [0, n_trans_blocks): a superblock per
-// block), then the opaque ones in order row l / RT_GATE_CHUNK, or in
-// storage order without a table; the prime's block is not visited again.
-// Hits and sums as rt_warp_blocks' walk gives them. All 32 lanes.
-template <int K, bool RAGGED>
-__device__ __forceinline__ void rt_warp_scan_blocks_gated(const ShadeScene& sc, const WarpGate& g,
-                                                          int lane, const float* rays,
-                                                          float* sums, int l, unsigned& alive,
-                                                          unsigned& opq, float4* stage) {
-  const bool bf = sc.backface != 0;
-  const int ntb = sc.n_trans_blocks;
-  auto limit = [&](int k) { return rays[k * RT_RAY + 9]; };
-  auto block = [&](int b, unsigned who) {
-    occl_warp_block<K, RAGGED>(sc.blk + (size_t)b * sc.B * 32, sc.B, lane, rays, sums, who, bf,
-                               b < ntb, &alive, &opq, stage);
-  };
-  int pb = -1;
-  if (sc.prime && alive) {
-    pb = rt_warp_prime_block<K>(sc.blk_aabb, ntb, sc.nb, lane, rays, alive, limit);
-    float box[8];
-    if (pb >= 0 && rt_load_box(sc.blk_aabb + (size_t)pb * 8, box)) {
-      const unsigned who = rt_gate_rays<K>(box, rays, alive, limit);
-      if (who) block(pb, who);
-    }
-  }
-  auto visit = [&](int b, unsigned who, float, bool) {
-    if (b != pb) block(b, who);
-  };
-  if (!sc.order) {
-    rt_warp_blocks<K, false>(sc.blk_aabb, g.saabb, g.sb_start, g.nsb, g.sb_shift, nullptr, lane,
-                             rays, alive, limit, visit);
-    return;
-  }
-  rt_warp_blocks<K, false>(sc.blk_aabb, g.saabb, g.sb_start, ntb, g.sb_shift, nullptr, lane, rays,
-                           alive, limit, visit);
-  rt_warp_block_list<K>(sc.blk_aabb, sc.order + (size_t)(l / RT_GATE_CHUNK) * (sc.nb - ntb),
-                        sc.nb - ntb, lane, rays, alive, limit, visit);
-}
-
 // rt_shadow_scan with a warp's lanes sharing the work, for the shadow rays
 // `need` of the warp's K rays (records in `rays`: rt_common.cuh's RT_RAY
 // layout, max distance in slot 9). Spheres: lane s tests sphere s; big
@@ -353,13 +186,12 @@ __device__ __forceinline__ void rt_warp_scan_blocks_gated(const ShadeScene& sc, 
 // sums then into the total), so the sums are rt_shadow_scan's bits; a ray
 // with an opaque hit leaves the scan at once. Returns the rays that have an
 // opaque occluder; the others' totals are sums[k * OCCL_SUMS + 0..3]. All
-// 32 lanes. GATED: the Morton blocks under the switches
-// (rt_warp_scan_blocks_gated), the shadow rays' light being l.
-template <int K, bool RAGGED, bool GATED>
+// 32 lanes.
+template <int K, bool RAGGED>
 __device__ __forceinline__ unsigned rt_warp_shadow_scan(const ShadeScene& sc, const WarpGate& g,
                                                         const float4* big, int lane,
                                                         const float* rays, float* sums,
-                                                        unsigned need, float4* stage, int l) {
+                                                        unsigned need, float4* stage) {
   const bool bf = sc.backface != 0;
   unsigned alive = need, opq = 0;
   for (int k = 0; k < K; ++k) {
@@ -406,17 +238,13 @@ __device__ __forceinline__ unsigned rt_warp_shadow_scan(const ShadeScene& sc, co
                             &opq, &touched);
     occl_warp_fold<K>(sums, lane, touched);
   }
-  if constexpr (GATED) {
-    rt_warp_scan_blocks_gated<K, RAGGED>(sc, g, lane, rays, sums, l, alive, opq, stage);
-  } else {
-    rt_warp_blocks<K, false>(
-        sc.blk_aabb, g.saabb, g.sb_start, g.nsb, g.sb_shift, nullptr, lane, rays, alive,
-        [&](int k) { return rays[k * RT_RAY + 9]; },
-        [&](int b, unsigned who, float, bool) {
-          occl_warp_block<K, RAGGED>(sc.blk + (size_t)b * sc.B * 32, sc.B, lane, rays, sums, who,
-                                     bf, b < sc.n_trans_blocks, &alive, &opq, stage);
-        });
-  }
+  rt_warp_blocks<K, false>(
+      sc.blk_aabb, g.saabb, g.sb_start, g.nsb, g.sb_shift, nullptr, lane, rays, alive,
+      [&](int k) { return rays[k * RT_RAY + 9]; },
+      [&](int b, unsigned who, float, bool) {
+        occl_warp_block<K, RAGGED>(sc.blk + (size_t)b * sc.B * 32, sc.B, lane, rays, sums, who,
+                                   bf, b < sc.n_trans_blocks, &alive, &opq, stage);
+      });
   __syncwarp();  // every lane has read the records; the totals are written
   return opq;
 }

@@ -237,8 +237,8 @@ __device__ __forceinline__ Tables rt_node_stage(const ShadeScene& sc, float4* dy
 // lanes together: lighting over all lights, then rt_node_epilogue, whose
 // results go to store(r, contrib, rfl, rfr) on the lane that holds r. K = 1:
 // only lane 0 may hold a ray. All 32 lanes; RAGGED: sc.B is no multiple of
-// 32; GATED: the shadow scans under the switches (rt_light.cuh).
-template <int K, bool RAGGED, bool GATED, class Store>
+// 32.
+template <int K, bool RAGGED, class Store>
 __device__ __forceinline__ void rt_node_rays(const ShadeScene& sc, const Tables& tb,
                                              const WarpGate& g, const float4* big,
                                              const NodeParams& p, int lane, int r,
@@ -262,10 +262,7 @@ __device__ __forceinline__ void rt_node_rays(const ShadeScene& sc, const Tables&
       lit = q.cos_in > 0.0f;  // else intensity and color are exactly 0
     }
     Occl occ = {0.0f, 0.0f, 0.0f, 0.0f, true};  // can_reach is false: the light adds nothing
-    if constexpr (K == 32 && GATED) {
-      occ = rt_shadow_scan_gated(sc, tb, lit, l, q.sox, q.soy, q.soz, q.ldx, q.ldy, q.ldz,
-                                 q.maxd);
-    } else if constexpr (K == 32) {
+    if constexpr (K == 32) {
       if (lit) occ = rt_shadow_scan(sc, tb, q.sox, q.soy, q.soz, q.ldx, q.ldy, q.ldz, q.maxd);
     } else {
       if (lit) {
@@ -278,8 +275,8 @@ __device__ __forceinline__ void rt_node_rays(const ShadeScene& sc, const Tables&
       const unsigned need = __ballot_sync(RT_WARP, lit);  // bit k: ray k
       if (!need) continue;
       __syncwarp();  // the records are written
-      const unsigned opq = rt_warp_shadow_scan<K, RAGGED, GATED>(sc, g, big, lane, sh.rays,
-                                                                 sh.sums, need, sh.stage, l);
+      const unsigned opq = rt_warp_shadow_scan<K, RAGGED>(sc, g, big, lane, sh.rays, sh.sums,
+                                                          need, sh.stage);
       if (lit) {
         const float* tot = sh.sums + lane * OCCL_SUMS;
         occ = Occl{tot[0], tot[1], tot[2], tot[3], (opq >> lane & 1u) != 0};
@@ -303,8 +300,7 @@ __device__ __forceinline__ void rt_node_rays(const ShadeScene& sc, const Tables&
 // (`width` lanes, so that a round takes neighbouring lights): light
 // l0 + j0 + lane of each round, two rounds to a chunk, whose terms the warp
 // holds. A lane traces its light's shadow ray (rt_light_ray) and scans it
-// alone (rt_shadow_scan over the one-thread tables, or rt_shadow_scan_gated,
-// whose prime is then chosen over the warp's lights), then computes the
+// alone (rt_shadow_scan over the one-thread tables), then computes the
 // light's six terms (rt_light_terms). The terms go to sh.terms, with a flag
 // for each light that the one-thread loop skips (behind the surface,
 // occluded, or diffuse <= 0); lane c < 6 then adds the terms of channel c in
@@ -312,7 +308,7 @@ __device__ __forceinline__ void rt_node_rays(const ShadeScene& sc, const Tables&
 // them on one lane, so the sums have its bits (the port builds with
 // --fmad=false). A ray without a hit scans nothing: its lighting is exactly
 // 0. Lane 0 runs the epilogue and store(r, ...). All 32 lanes.
-template <bool GATED, class Store>
+template <class Store>
 __device__ __forceinline__ void rt_node_light_lanes(const ShadeScene& sc, const Tables& tb,
                                                     const NodeParams& p, int lane, int r,
                                                     NodeWarpShared<RT_LIGHT_LANES>& sh,
@@ -328,7 +324,7 @@ __device__ __forceinline__ void rt_node_light_lanes(const ShadeScene& sc, const 
   const int width = (sc.n_lights + rounds - 1) / rounds;
   for (int l0 = 0; s.hval && l0 < sc.n_lights; l0 += RT_LL_CHUNK / 32 * width) {
     const int lc = min(RT_LL_CHUNK / 32 * width, sc.n_lights - l0);
-    for (int j0 = 0; j0 < lc; j0 += width) {  // every lane, for the gated scan's ballots
+    for (int j0 = 0; j0 < lc; j0 += width) {
       const int j = j0 + lane;
       const bool has = lane < width && j < lc;
       const float* L = tb.lights + (l0 + j) * 8;
@@ -339,12 +335,7 @@ __device__ __forceinline__ void rt_node_light_lanes(const ShadeScene& sc, const 
         lit = q.cos_in > 0.0f;  // else intensity and color are exactly 0
       }
       Occl occ = {0.0f, 0.0f, 0.0f, 0.0f, true};
-      if constexpr (GATED) {
-        occ = rt_shadow_scan_gated(sc, tb, lit, l0 + j, q.sox, q.soy, q.soz, q.ldx, q.ldy, q.ldz,
-                                   q.maxd);
-      } else {
-        if (lit) occ = rt_shadow_scan(sc, tb, q.sox, q.soy, q.soz, q.ldx, q.ldy, q.ldz, q.maxd);
-      }
+      if (lit) occ = rt_shadow_scan(sc, tb, q.sox, q.soy, q.soz, q.ldx, q.ldy, q.ldz, q.maxd);
       if (has) {
         float t[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
         const bool adds = !occ.opq && rt_light_terms(L, q, occ.dec, occ.fr, occ.fg, occ.fb, s.nx,
@@ -398,10 +389,9 @@ static inline void rt_fill_node(ShadeScene* sc, NodeParams* p, const float* ligh
                                 const float* met, const float* hior, const float* opac,
                                 const float* boost, int R, float eps, int backface,
                                 int reflections, int refractions, int refl_max,
-                                int refr_max, float weight_cutoff, float air,
-                                const int* order, int prime) {
+                                int refr_max, float weight_cutoff, float air) {
   *sc = ShadeScene{lights, sph, trb, blk, blk_aabb, n_lights, S, P, trans_rows,
-                   nb, B, n_trans_blocks, backface, order, prime};
+                   nb, B, n_trans_blocks, backface};
   p->point = point; p->normal = normal; p->view = view; p->color = color; p->shin = shin;
   p->valid = valid; p->t = t; p->w = w; p->rior = rior; p->budget = budget;
   p->frefl = frefl; p->httr = httr; p->met = met; p->hior = hior; p->opac = opac;

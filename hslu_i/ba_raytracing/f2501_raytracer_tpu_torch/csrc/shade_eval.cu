@@ -170,7 +170,7 @@ __device__ __forceinline__ int live_slot(const int* __restrict__ live,
 
 // Launch 3: the form with a warp per ray. If the live rays are no more than
 // `warp_max_live`, the list's entries are dealt to the grid's warps in turn.
-template <bool RAGGED, bool GATED>
+template <bool RAGGED>
 __global__ void __launch_bounds__(32 * RT_WARPS, 2) shade_eval_warp_kernel(
     ShadeScene sc, WarpGate g, NodeParams p, Out out, const int* __restrict__ live,
     const int* __restrict__ offsets, int nseg, int warp_max_live) {
@@ -184,7 +184,7 @@ __global__ void __launch_bounds__(32 * RT_WARPS, 2) shade_eval_warp_kernel(
     store_node(p, out, r, contrib, rfl, rfr);
   };
   for (int i = blockIdx.x * RT_WARPS + warp; i < n; i += gridDim.x * RT_WARPS)
-    rt_node_rays<1, RAGGED, GATED>(sc, tb, g, s_dyn, p, lane,
+    rt_node_rays<1, RAGGED>(sc, tb, g, s_dyn, p, lane,
                             lane == 0 ? live_slot(live, offsets, nseg, i) : -1, s_warp[warp],
                             store);
 }
@@ -192,7 +192,6 @@ __global__ void __launch_bounds__(32 * RT_WARPS, 2) shade_eval_warp_kernel(
 // Launch 4: the form with a ray per lane, if the live rays are more than
 // `warp_max_live`: thread block s takes the live slots of segment s, a ray
 // per lane, in slot order (neighbouring pixels).
-template <bool GATED>
 __global__ void __launch_bounds__(SEG, 2) shade_eval_lane_kernel(
     ShadeScene sc, WarpGate g, NodeParams p, Out out, const int* __restrict__ live,
     const int* __restrict__ offsets, int nseg, int warp_max_live) {
@@ -207,8 +206,8 @@ __global__ void __launch_bounds__(SEG, 2) shade_eval_lane_kernel(
   };
   if (warp * 32 >= n) return;  // by whole warps
   const int i = threadIdx.x;
-  rt_node_rays<32, false, GATED>(sc, tb, g, s_dyn, p, lane,
-                                 i < n ? live[blockIdx.x * SEG + i] : -1, s_warp[warp], store);
+  rt_node_rays<32, false>(sc, tb, g, s_dyn, p, lane, i < n ? live[blockIdx.x * SEG + i] : -1,
+                          s_warp[warp], store);
 }
 
 int sm_count() {
@@ -221,31 +220,30 @@ int sm_count() {
   return n;
 }
 
-template <bool RAGGED, bool GATED>
+template <bool RAGGED>
 void launch_warp_form(const ShadeScene& sc, const WarpGate& g, const NodeParams& p,
                       const Out& out, const int* live, const int* offsets, int nseg,
                       int warp_max_live, cudaStream_t stream) {
   const size_t smem = rt_node_dyn_bytes(sc, 1);
   int per_sm = 0;  // as many thread blocks as the card runs at once
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, shade_eval_warp_kernel<RAGGED, GATED>,
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, shade_eval_warp_kernel<RAGGED>,
                                                 32 * RT_WARPS, smem);
   const int blocks = std::max(1, std::min((p.R + RT_WARPS - 1) / RT_WARPS, per_sm * sm_count()));
-  shade_eval_warp_kernel<RAGGED, GATED><<<blocks, 32 * RT_WARPS, smem, stream>>>(
+  shade_eval_warp_kernel<RAGGED><<<blocks, 32 * RT_WARPS, smem, stream>>>(
       sc, g, p, out, live, offsets, nseg, warp_max_live);
 }
 
 }  // namespace
 
-// order, prime: the switches (rt_light.cuh; null and 0: off); blk_saabb,
-// sb_start, nsb, sb_shift: the superblocks of the gate over blk_aabb (a
-// superblock per block: sb_shift 0); warp_max_live: the most live rays the
+// blk_saabb, sb_start, nsb, sb_shift: the superblocks of the gate over
+// blk_aabb (a superblock per block: sb_shift 0); warp_max_live: the most live rays the
 // form with a warp per ray takes; scratch: R + ceil(R / 128) + 1 int32 of
 // device memory
 extern "C" int rt_shade_eval(
     const float* lights, int n_lights, const float* sph, int S, const float* trb, int P,
     int trans_rows, const float* blk, const float* blk_aabb, int nb, int B,
-    int n_trans_blocks, const int* order, int prime, const float* blk_saabb,
-    const int* sb_start, int nsb, int sb_shift, int warp_max_live, const float* point, const float* normal, const float* view,
+    int n_trans_blocks, const float* blk_saabb, const int* sb_start, int nsb, int sb_shift,
+    int warp_max_live, const float* point, const float* normal, const float* view,
     const float* color, const float* shin, const float* valid, const float* t,
     const float* w, const float* rior, const int* budget, const float* frefl,
     const float* httr, const float* met, const float* hior, const float* opac,
@@ -260,7 +258,7 @@ extern "C" int rt_shade_eval(
   rt_fill_node(&sc, &p, lights, n_lights, sph, S, trb, P, trans_rows, blk, blk_aabb, nb, B,
                n_trans_blocks, point, normal, view, color, shin, valid, t, w, rior, budget,
                frefl, httr, met, hior, opac, boost, R, eps, backface, reflections,
-               refractions, refl_max, refr_max, weight_cutoff, air, order, prime);
+               refractions, refl_max, refr_max, weight_cutoff, air);
   const WarpGate g = {blk_saabb, sb_start, nsb, sb_shift};
   const Out out = {contrib, rfl_o, rfl_d, rfl_w, rfl_b, rfl_m,
                    rfr_o, rfr_d, rfr_w, rfr_b, rfr_i, rfr_m};
@@ -271,12 +269,11 @@ extern "C" int rt_shade_eval(
     int* offsets = scratch + R;  // the counts, then (launch 2) their offsets
     live_slots_kernel<<<nseg, SEG, 0, s>>>(p, out, live, offsets);
     scan_counts_kernel<<<1, SCAN_THREADS, 0, s>>>(offsets, nseg);
-    RT_BOOL_SWITCH(rt_gated(sc), GATED,
-                   RT_BOOL_SWITCH(B % 32 != 0, RAGGED,
-                                  launch_warp_form<RAGGED, GATED>(sc, g, p, out, live, offsets,
-                                                                  nseg, warp_max_live, s));
-                   shade_eval_lane_kernel<GATED><<<nseg, SEG, rt_node_dyn_bytes(sc, 32), s>>>(
-                       sc, g, p, out, live, offsets, nseg, warp_max_live));  // the lanes: any B
+    RT_BOOL_SWITCH(B % 32 != 0, RAGGED,
+                   launch_warp_form<RAGGED>(sc, g, p, out, live, offsets, nseg, warp_max_live,
+                                            s));
+    shade_eval_lane_kernel<<<nseg, SEG, rt_node_dyn_bytes(sc, 32), s>>>(
+        sc, g, p, out, live, offsets, nseg, warp_max_live);  // the lanes: any B
   }
   return (int)cudaGetLastError();
 }

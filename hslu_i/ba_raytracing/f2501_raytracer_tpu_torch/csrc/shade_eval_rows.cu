@@ -85,7 +85,7 @@ __device__ __forceinline__ void child_row(float4* dst, bool on, const Child& c,
 }
 
 // K: the form (rt_node.cuh), 1, 32 or RT_LIGHT_LANES
-template <int K, bool RAGGED, bool GATED>
+template <int K, bool RAGGED>
 __global__ void __launch_bounds__(32 * RT_WARPS, 2) shade_eval_rows_kernel(ShadeScene sc,
                                                                            WarpGate g,
                                                                            NodeParams p,
@@ -108,11 +108,11 @@ __global__ void __launch_bounds__(32 * RT_WARPS, 2) shade_eval_rows_kernel(Shade
     out.rfr_m[r] = p.refractions ? rfr.mask : 0;
   };
   if constexpr (K == RT_LIGHT_LANES) {
-    rt_node_light_lanes<GATED>(sc, tb, p, lane, r0, s_warp[warp], store);
+    rt_node_light_lanes(sc, tb, p, lane, r0, s_warp[warp], store);
   } else {
     const int r = r0 + lane;
-    rt_node_rays<K, RAGGED, GATED>(sc, tb, g, s_dyn, p, lane, (lane < K && r < p.R) ? r : -1,
-                                   s_warp[warp], store);
+    rt_node_rays<K, RAGGED>(sc, tb, g, s_dyn, p, lane, (lane < K && r < p.R) ? r : -1,
+                            s_warp[warp], store);
   }
   __syncwarp();  // the rows are in shared memory
   const int n = min(RAYS, p.R - r0);  // the warp's rays: 4n float4 per child
@@ -127,23 +127,21 @@ template <int K, bool RAGGED>
 void launch(const ShadeScene& sc, const WarpGate& g, const NodeParams& p, const Out& out,
             cudaStream_t stream) {
   const int per_block = RT_WARPS * (K == 32 ? 32 : 1);
-  RT_BOOL_SWITCH(rt_gated(sc), GATED,
-                 shade_eval_rows_kernel<K, RAGGED, GATED>
-                 <<<(p.R + per_block - 1) / per_block, 32 * RT_WARPS, rt_node_dyn_bytes(sc, K),
-                    stream>>>(sc, g, p, out));
+  shade_eval_rows_kernel<K, RAGGED>
+      <<<(p.R + per_block - 1) / per_block, 32 * RT_WARPS, rt_node_dyn_bytes(sc, K), stream>>>(
+          sc, g, p, out);
 }
 
 }  // namespace
 
-// order, prime: the switches (rt_light.cuh; null and 0: off); blk_saabb,
-// sb_start, nsb, sb_shift: the superblocks of the gate over blk_aabb;
-// form: 1 (a warp per ray), 32 (a ray per lane) or RT_LIGHT_LANES (a warp
+// blk_saabb, sb_start, nsb, sb_shift: the superblocks of the gate over
+// blk_aabb; form: 1 (a warp per ray), 32 (a ray per lane) or RT_LIGHT_LANES (a warp
 // per ray, its lights over the lanes)
 extern "C" int rt_shade_eval_rows(
     const float* lights, int n_lights, const float* sph, int S, const float* trb, int P,
     int trans_rows, const float* blk, const float* blk_aabb, int nb, int B,
-    int n_trans_blocks, const int* order, int prime, const float* blk_saabb,
-    const int* sb_start, int nsb, int sb_shift, int form, const float* point, const float* normal, const float* view,
+    int n_trans_blocks, const float* blk_saabb, const int* sb_start, int nsb, int sb_shift,
+    int form, const float* point, const float* normal, const float* view,
     const float* color, const float* shin, const float* valid, const float* t,
     const float* w, const float* rior, const int* budget, const float* frefl,
     const float* httr, const float* met, const float* hior, const float* opac,
@@ -158,7 +156,7 @@ extern "C" int rt_shade_eval_rows(
   rt_fill_node(&sc, &p, lights, n_lights, sph, S, trb, P, trans_rows, blk, blk_aabb, nb, B,
                n_trans_blocks, point, normal, view, color, shin, valid, t, w, rior, budget,
                frefl, httr, met, hior, opac, boost, R, eps, backface, reflections,
-               refractions, refl_max, refr_max, weight_cutoff, air, order, prime);
+               refractions, refl_max, refr_max, weight_cutoff, air);
   const WarpGate g = {blk_saabb, sb_start, nsb, sb_shift};
   const Out out = {pix, contrib, rfl_rows, rfr_rows, rfl_m, rfr_m};
   if (R > 0) {

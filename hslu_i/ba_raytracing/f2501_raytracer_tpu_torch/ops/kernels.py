@@ -39,11 +39,8 @@ light-lanes form (`node_form`): a launch recorded into a CUDA graph counts
 when the graph is replayed (`counting_into`, `count_launches`; ops/trace.py's
 pool chunks).
 
-The shadow scan of the three shading kernels has the JAX package's two
-switches, PRIME_GATE and SORT_GATE (`RT_PRIME_GATE`, `RT_SORT_GATE`; off
-unless set to anything but "0"), read at each call: see `gate_switches` and
-csrc/rt_light.cuh. They leave every output bit as it is, so the twins serve
-with either switch on or off.
+The shadow scan of the three shading kernels walks the Morton blocks in
+storage order (csrc/rt_light.cuh).
 """
 
 from __future__ import annotations
@@ -175,8 +172,8 @@ def build_kernels(names=None) -> dict:
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # scene tables of the shading kernels: lights, n_lights, sph, S, trb, P,
-# trans_rows, blk, blk_aabb, nb, B, n_trans_blocks; the switches: order, prime
-_SCENE = [_P, _I, _P, _I, _P, _I, _I, _P, _P, _I, _I, _I, _P, _I]
+# trans_rows, blk, blk_aabb, nb, B, n_trans_blocks
+_SCENE = [_P, _I, _P, _I, _P, _I, _I, _P, _P, _I, _I, _I]
 _ARGTYPES = {
     # o, d, R, trb, P, pack, nb, B, aabb, saabb, sb_start, nsb, sb_shift,
     # rays_per_warp, backface, t, idx, stream
@@ -592,90 +589,15 @@ def occlude_triangles(trb_pack, tri_cast_pack, tri_aabb, tri_saabb, o, d, max_di
 
 
 # ---------------------------------------------------------------------------
-# the shading kernels: the shadow scan's switches, shared input checks and the
-# node twin
+# the shading kernels: shared input checks and the node twin
 # ---------------------------------------------------------------------------
-
-# The JAX package's switches of the shadow scan (pallas_kernels.py:1139,
-# 1167), with its environment names and defaults. Module flags, read at each
-# call (tests flip them). Both only reorder the scan's opaque Morton blocks,
-# so every output keeps its bits (csrc/rt_light.cuh):
-#   PRIME_GATE: each shadow ray open after the spheres and big primitives
-#     first tests the opaque block whose box the most of its warp's open
-#     shadow rays cross;
-#   SORT_GATE: the opaque blocks are walked nearest the light chunk's
-#     centroid first (`chunk_block_order`).
-PRIME_GATE = os.environ.get("RT_PRIME_GATE", "0") != "0"
-SORT_GATE = os.environ.get("RT_SORT_GATE", "0") != "0"
-# lights per chunk of both switches (JAX MAX_UNROLL_LIGHTS; csrc RT_GATE_CHUNK)
-GATE_CHUNK = 8
 
 
 def launch_settings() -> tuple:
     """The module settings the wrappers read at each call to choose a
-    kernel's build or form: a CUDA graph of their launches holds for these
-    values only."""
-    return PRIME_GATE, SORT_GATE, PACKET_MIN_RAYS, NODE_WARP_MAX_LIVE, LIGHT_LANES_MIN_LIGHTS
-
-
-def gate_switches(n_lights, nb, n_trans_blocks):
-    """(prime, sort): whether each switch acts on a shading call over nb
-    Morton blocks, the first n_trans_blocks of them transmissive. JAX's
-    conditions (pallas_kernels.py:1682-1685, 2146-2148) with LANE_GATE and
-    `use_aabb`, which the port always has: PRIME where some block is opaque
-    and the lights span more than one chunk, SORT where some block is opaque
-    and there are two blocks or more."""
-    opaque = n_trans_blocks < nb
-    return (bool(PRIME_GATE and opaque and n_lights > GATE_CHUNK),
-            bool(SORT_GATE and opaque and nb > 1))
-
-
-def chunk_block_order(light_pack, tri_blk_aabb, n_lights, n_trans_blocks):
-    """The order table of SORT_GATE (JAX `_chunk_block_order`,
-    pallas_kernels.py:1170-1185): for each chunk of GATE_CHUNK lights, the
-    opaque blocks' indices (n_trans_blocks and up) sorted by the squared
-    distance from the centroid of the chunk's lights (those below n_lights)
-    to the block's box centre, nearest first, a tie in index order (a stable
-    sort). (n_chunks, nb - n_trans_blocks) int32 on the tables' device."""
-    C = GATE_CHUNK
-    n_chunks = -(-int(n_lights) // C)
-    # the pack is padded to a multiple of C rows (scene/device.py)
-    lp = light_pack[: n_chunks * C, 0:3].reshape(n_chunks, C, 3)
-    en = (torch.arange(n_chunks * C, device=light_pack.device) < int(n_lights)).reshape(n_chunks, C)
-    cen = (torch.where(en[..., None], lp, 0.0).sum(1)
-           / torch.clamp(en.sum(1, keepdim=True).to(torch.float32), min=1.0))
-    bc = (tri_blk_aabb[:, 0:3] + tri_blk_aabb[:, 3:6]) * 0.5
-    d2 = ((bc[int(n_trans_blocks):][None, :, :] - cen[:, None, :]) ** 2).sum(-1)
-    return (torch.argsort(d2, dim=1, stable=True) + int(n_trans_blocks)).to(torch.int32)
-
-
-_order_cache: dict = {}
-
-
-def _block_order(light_pack, tri_blk_aabb, n_lights, n_trans_blocks):
-    """`chunk_block_order`, built once per scene and light count, on the
-    card, which is then synchronised once (a launch on another stream may
-    read the table). The cache holds the two tables it was built from, so
-    their storage, which keys it, is not reused."""
-    key = (light_pack.data_ptr(), tuple(light_pack.shape), tri_blk_aabb.data_ptr(),
-           tuple(tri_blk_aabb.shape), int(n_lights), int(n_trans_blocks), str(light_pack.device))
-    with _lock:
-        hit = _order_cache.get(key)
-    if hit is None:
-        hit = (light_pack, tri_blk_aabb,
-               chunk_block_order(light_pack, tri_blk_aabb, n_lights, n_trans_blocks))
-        torch.cuda.current_stream(light_pack.device).synchronize()
-        with _lock:
-            _order_cache[key] = hit
-    return hit[2]
-
-
-def _gate_args(light_pack, tri_blk_aabb, n_lights, n_trans_blocks):
-    """The switches' arguments of a shading kernel's C entry point: the
-    order table (null when SORT does not act) and the prime flag."""
-    prime, sort = gate_switches(n_lights, tri_blk_aabb.shape[0], n_trans_blocks)
-    order = _block_order(light_pack, tri_blk_aabb, n_lights, n_trans_blocks) if sort else None
-    return (ctypes.c_void_p(None) if order is None else _ptr(order)), int(prime)
+    kernel's form: a CUDA graph of their launches holds for these values
+    only."""
+    return PACKET_MIN_RAYS, NODE_WARP_MAX_LIVE, LIGHT_LANES_MIN_LIGHTS
 
 
 _NODE_SCALARS = ("t", "rior", "from_refl", "h_httr", "h_met", "h_ior", "h_opac", "h_boost")
@@ -807,8 +729,7 @@ def light_shade(light_pack, sph_pack, trb_pack, tri_blk_pack, tri_blk_aabb,
     direct = torch.empty((R, 3), dtype=torch.float32, device=point.device)
     spec = torch.empty_like(direct)
     _launch(point.device,
-        "light_shade", *scene, *_gate_args(light_pack, tri_blk_aabb, n_lights, n_trans_blocks),
-        _ptr(point), _ptr(normal), _ptr(view), _ptr(color),
+        "light_shade", *scene, _ptr(point), _ptr(normal), _ptr(view), _ptr(color),
         _ptr(shininess), _ptr(valid), R, float(eps_dist), int(bool(backface_culling)),
         _ptr(direct), _ptr(spec),
     )
@@ -912,8 +833,7 @@ def shade_eval(
     # count (csrc/shade_eval.cu)
     scratch = torch.empty((R + -(-R // 128) + 1,), dtype=torch.int32, device=dev)
     _launch(dev,
-        "shade_eval", *scene, *_gate_args(light_pack, tri_blk_aabb, n_lights, n_trans_blocks),
-        *gate, int(NODE_WARP_MAX_LIVE),
+        "shade_eval", *scene, *gate, int(NODE_WARP_MAX_LIVE),
         _ptr(point), _ptr(normal), _ptr(view), _ptr(color), _ptr(shininess),
         _ptr(valid), _ptr(t), _ptr(w), _ptr(rior), _ptr(budget), _ptr(from_refl),
         _ptr(h_httr), _ptr(h_met), _ptr(h_ior), _ptr(h_opac), _ptr(h_boost), R,
@@ -1005,8 +925,7 @@ def shade_eval_rows(
     rfr_m = torch.empty((R,), dtype=torch.bool, device=dev)
     form = node_form(R, n_lights)
     _launch(dev,
-        "shade_eval_rows", *scene,
-        *_gate_args(light_pack, tri_blk_aabb, n_lights, n_trans_blocks), *gate, form,
+        "shade_eval_rows", *scene, *gate, form,
         _ptr(point), _ptr(normal), _ptr(view), _ptr(color), _ptr(shininess),
         _ptr(valid), _ptr(t), _ptr(w), _ptr(rior), _ptr(budget), _ptr(from_refl),
         _ptr(h_httr), _ptr(h_met), _ptr(h_ior), _ptr(h_opac), _ptr(h_boost),

@@ -9,7 +9,7 @@ file from anywhere:
     python3 hslu_i/ba_raytracing/f2501_raytracer_tpu_torch/utils/ab.py \
         kernels [--scene semesterbild semesterbild_cloud occlusion] [--root DIR]
     python3 hslu_i/ba_raytracing/f2501_raytracer_tpu_torch/utils/ab.py \
-        shading [--switches] [--root DIR]
+        shading [--root DIR]
     python3 hslu_i/ba_raytracing/f2501_raytracer_tpu_torch/utils/ab.py \
         forms [--scene semesterbild semesterbild_cloud occlusion]
     python3 hslu_i/ba_raytracing/f2501_raytracer_tpu_torch/utils/ab.py \
@@ -55,23 +55,6 @@ shading    the two shading kernels off the main path at every shape they
            the 1080p `default` (5 lights) and `soft_shadows` (50 lights)
            frames. Each: the time on the device alone (all of a call's
            kernels) and of the wrapper by CUDA events; first, the registers.
-           With --switches, instead: the shadow scan's switches
-           (kernels.PRIME_GATE, SORT_GATE) as the variable, in turns off,
-           prime, sort, both, both, sort, prime, off, at the points where
-           they can act: light_shade at 95 lights and W = 2048 (tile 66 of
-           the SIMD build, reference_default with packet_mode), at 50
-           lights and R = 131072 (tile 3 of 1080p `soft_shadows`);
-           shade_eval_rows at 140 lights and W = 3584 (tile 3 of 480x270
-           `extreme`); and on the 235-block cloud (semesterbild plus
-           15,000 small triangles in blocks of 64) at 50 lights,
-           light_shade at R (tile 3 of `soft_shadows`) and shade_eval_rows
-           at R and W (tile 3 of `soft_shadows` with `realistic`'s
-           children). Each: whether each switch acts, the time on the
-           device alone per setting, the same bits under all four (this
-           tree only: a parent without the switches times four times the
-           same kernel), and where the lit shadow rays' scans end: at an
-           opaque sphere or big primitive, in an opaque Morton block (the
-           only ends that the switches can bring forward), or at none.
 forms      the kernels with a warp per ray, with one ray per warp and with
            many, in turns one, many, many, one, for each scene named: on
            `semesterbild` cast_triangles and shade_eval_rows (a ray per
@@ -87,7 +70,7 @@ nodes      shade_eval_rows at the pool's two widths, W = 2048 (the first
            pool iteration of tile 3 of the 1080p `realistic` frame) and
            W = 3584 (the same of the 480x270 `extreme` frame, AA samples
            and all), each under the light packs of 5, 50, 95 and 140 lights
-           (the light clouds of harness.GATE_LIGHTS; 140: extreme's own)
+           (the light clouds of harness.LIGHT_FEATURES; 140: extreme's own)
            and under the first 10, 20 and 30 lights of the 50, and at
            W = 1536 (the same of 1140x950 `reference_default`, 95 lights),
            in each of its forms in turns: a warp per ray, a ray per lane
@@ -136,8 +119,6 @@ parser.add_argument("--scene", nargs="+",
                     choices=("semesterbild", "semesterbild_cloud", "occlusion"),
                     default=["semesterbild", "semesterbild_cloud"])
 parser.add_argument("--kernel", default="occlude_triangles", help="sass: the kernel")
-parser.add_argument("--switches", action="store_true",
-                    help="shading: time the shadow scan's switches instead")
 parser.add_argument("--out", help="sass: the file for the whole listing; cli: the PNG")
 parser.add_argument("--preset", default="reference_default",
                     choices=("default", "realistic", "reference_default"), help="cli: the preset")
@@ -150,8 +131,7 @@ sys.path[0:1] = [os.path.abspath(ARGS.root), os.path.dirname(os.path.abspath(__f
 
 import torch  # noqa: E402
 from harness import (  # noqa: E402
-    GATE_LIGHTS,
-    GATE_SETTINGS,
+    LIGHT_FEATURES,
     OPS_OCCL,
     PARTITIONS,
     bound_ms,
@@ -166,7 +146,6 @@ from harness import (  # noqa: E402
     scan_lengths,
     shadow_rays,
     tile_call,
-    with_gates,
 )
 from timing import device_busy_ms  # noqa: E402 (this checkout's, as harness.py)
 
@@ -184,9 +163,6 @@ from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.models import (  # noqa: E40
     triangle_cloud,
 )
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops import kernels  # noqa: E402
-from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops.intersect import (  # noqa: E402
-    occlude_packs,
-)
 
 if not torch.cuda.is_available():
     sys.exit("ab.py: no CUDA device available")
@@ -325,94 +301,7 @@ def live(a):
     return int((a[10] != 0).sum())
 
 
-def switch_calls():
-    """(label, wrapper, args, kw) of the points of `shading --switches`,
-    caught from renders."""
-    out = []
-    c = dataclasses.replace(RenderConfig.reference_default(
-        **{k: v for k, v in MAIN.items() if k != "scene_backface_culling"}),
-        packet_mode=True, aa_packet_lanes=8)
-    calls = caught_calls(["light_shade"], tile_call(scene_of("semesterbild", c), c, 66, aa=True),
-                         2)["light_shade"]
-    out.append(("SIMD build 1140x950 tile 66, W", kernels.light_shade, *calls[1]))
-    c = RenderConfig(width=1920, height=1080, **MAIN, soft_shadows=True)
-    calls = caught_calls(["light_shade"], tile_call(scene_of("semesterbild", c), c, 3),
-                         1)["light_shade"]
-    out.append(("soft_shadows 1920x1080 tile 3, R", kernels.light_shade, *calls[0]))
-    c = RenderConfig(width=480, height=270, **dict(MAIN, tile_rays=262144), **EXTREME)
-    calls = caught_calls(["shade_eval_rows"], tile_call(scene_of("semesterbild", c), c, 3,
-                                                        aa=True), 2)["shade_eval_rows"]
-    out.append(("extreme 480x270 tile 3, W", kernels.shade_eval_rows, *calls[1]))
-    for name, feats in (("light_shade", dict(soft_shadows=True)),
-                        ("shade_eval_rows", dict(REALISTIC, soft_shadows=True))):
-        c = RenderConfig(width=1920, height=1080, **dict(MAIN, triangle_block=64), **feats)
-        scene = RaytracerRenderer(c, device="cuda").device_scene(
-            triangle_cloud.build_scene(c, n=15000))
-        calls = caught_calls([name], tile_call(scene, c, 3), 2)[name]
-        for label, (a, kw) in zip(("R", "W"), calls):
-            out.append((f"cloud ({scene.tri_blk_pack.shape[0]} blocks) soft_shadows tile 3, "
-                        f"{label}", getattr(kernels, name), a, kw))
-    return out
-
-
-def scan_ends(a, kw):
-    """Where the shadow scans of a shading call's lit (ray, light) pairs
-    end: (pairs, at an opaque sphere or big primitive, at an opaque Morton
-    block, at no opaque hit). The switches reorder only the Morton blocks,
-    so only the second count can end earlier with them. Counted light by
-    light with the plain sphere and big-primitive scan and the streamed
-    occlusion kernel over the node pack (a superblock per block)."""
-    light_pack, sph, trb, blk, aabb, point, normal = a[:7]
-    keep = a[10] != 0
-    P, N = point[keep], normal[keep]
-    nb = blk.shape[0]
-    bf = kw.get("backface_culling", False)
-    n_pairs = n_front = n_block = 0
-    for li in range(kw["n_lights"]):
-        lp = light_pack[li, 0:3]
-        lt = lp[None, :] - P
-        dist = lt.norm(dim=1)
-        lit = (lt * N).sum(1) / dist > 0
-        ld = (lt[lit] / dist[lit, None]).contiguous()
-        so = (P[lit] + ld * kw["eps_dist"]).contiguous()
-        md = (lp[None, :] - so).norm(dim=1).contiguous()
-        front = occlude_packs(sph, trb, blk[:0], so, ld, md, bf)[0]
-        block = kernels.occlude_triangles_stream(blk, aabb, aabb, so, ld, md, sb_sizes=(1,) * nb,
-                                                 backface_culling=bf)[1]
-        n_pairs += so.shape[0]
-        n_front += int(front.sum())
-        n_block += int((block & ~front).sum())
-    return n_pairs, n_front, n_block, n_pairs - n_front - n_block
-
-
-def switches():
-    registers()
-    names = {(False, False): "off", (True, False): "prime", (False, True): "sort",
-             (True, True): "both"}
-    for label, wrapper, a, kw in switch_calls():
-        acts = with_gates(True, True, lambda: kernels.gate_switches(
-            kw["n_lights"], a[3].shape[0], kw["n_trans_blocks"]))
-        fn = lambda: wrapper(*a, **kw)  # noqa: E731
-        base = flat(with_gates(False, False, fn))
-        ms = {v: [] for v in names.values()}
-        n = 10 if a[5].shape[0] > 100_000 else 50
-        for setting in (*GATE_SETTINGS, *reversed(GATE_SETTINGS)):
-            assert all(same_bits(x, y) for x, y in zip(base, flat(with_gates(*setting, fn)))), \
-                (label, setting)
-            ms[names[setting]].append(with_gates(*setting, lambda: device_ms(fn, n)))
-        pairs, front, block, none = scan_ends(a, kw)
-        print(f"{wrapper.__name__} {label}: {a[5].shape[0]} rays, {live(a)} live, "
-              f"{kw['n_lights']} lights, {a[3].shape[0]} blocks ({kw['n_trans_blocks']} "
-              f"transmissive): PRIME acts {acts[0]}, SORT acts {acts[1]}; device ms "
-              + ", ".join(f"{k} {v}" for k, v in ms.items()) + "; the same bits; of "
-              f"{pairs} lit (ray, light) pairs the scan ends at an opaque sphere or big "
-              f"primitive for {front}, in an opaque Morton block for {block}, at no opaque "
-              f"hit for {none}", flush=True)
-
-
 def shading():
-    if ARGS.switches:
-        return switches()
     registers()
     for label, wrapper, a, kw in shading_calls():
         fn = lambda: wrapper(*a, **kw)  # noqa: E731
@@ -587,7 +476,7 @@ NODE_FORMS = {"a warp per ray": (1 << 30, 1 << 30), "a ray per lane": (0, 1 << 3
 def node_calls():
     """(label, args, kw) of `nodes`: the first pool call of tile 3 of the
     1080p `realistic` and the 480x270 `extreme` frames, caught from renders,
-    each with the light pack of every light count of GATE_LIGHTS and with
+    each with the light pack of every light count of LIGHT_FEATURES and with
     the first 10, 20 and 30 lights of the 50; and the same call of the
     1140x950 `reference_default` frame at its own 95 lights."""
     c_ext = RenderConfig(width=480, height=270, **dict(MAIN, tile_rays=262144), **EXTREME)
@@ -595,7 +484,7 @@ def node_calls():
         **{k: v for k, v in MAIN.items() if k != "scene_backface_culling"})
     packs = {n: scene_of("semesterbild", RenderConfig(width=1920, height=1080, **MAIN,
                                                       **REALISTIC, **feats)).light_pack
-             for n, feats in GATE_LIGHTS.items()}
+             for n, feats in LIGHT_FEATURES.items()}
     lights = list(packs.items())
     lights[1:1] = [(n, packs[50]) for n in (10, 20, 30)]
     out = []

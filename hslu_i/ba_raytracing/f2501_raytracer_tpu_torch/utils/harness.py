@@ -1,11 +1,12 @@
 """Helpers that chip_smoke.py, utils/ab.py and the card tests share: the
-block partitions that the warp kernels must take, the scenes and inputs of
-the shadow scan's switches (PRIME_GATE, SORT_GATE), a tile of a frame as one
-call, the calls of a kernel wrapper caught from a render, the shadow rays
-of the light loop, bitwise checks of the node kernels, the card's peaks and
-the occlusion's bound, timing by CUDA events and by torch.profiler, and
-small frames through the CPU twins in a process of their own
-(`python -m ...utils.harness JOBS THREADS`, `twin_frames`).
+block partitions that the warp kernels must take, the light counts of the
+feature configs, the 235-block cloud, the two-cluster stack scene and its
+inputs, a tile of a frame as one call, the calls of a kernel wrapper caught
+from a render, the shadow rays of the light loop, bitwise checks of the
+node kernels, the card's peaks and the occlusion's bound, timing by CUDA
+events and by torch.profiler, and small frames through the CPU twins in a
+process of their own (`python -m ...utils.harness JOBS THREADS`,
+`twin_frames`).
 
 utils/ab.py imports this file from its own directory (as `harness`), so
 that it can measure through it the package of another checkout, one that
@@ -53,34 +54,21 @@ PARTITIONS = {
 }
 
 
-# ---- the shadow scan's switches (kernels.gate_switches) ------------------
-# (prime, sort) of kernels.PRIME_GATE and SORT_GATE: off, each, both
-GATE_SETTINGS = ((False, False), (True, False), (False, True), (True, True))
 # the light counts of the feature configs: default, soft_shadows,
 # high_quality (reference_default's) and extreme_quality
-GATE_LIGHTS = {5: {}, 50: dict(soft_shadows=True), 95: dict(high_quality=True),
-               140: dict(extreme_quality=True)}
+LIGHT_FEATURES = {5: {}, 50: dict(soft_shadows=True), 95: dict(high_quality=True),
+                  140: dict(extreme_quality=True)}
 
 
-def with_gates(prime, sort, fn):
-    """fn() with kernels.PRIME_GATE and SORT_GATE set to (prime, sort)."""
-    keep = kernels.PRIME_GATE, kernels.SORT_GATE
-    kernels.PRIME_GATE, kernels.SORT_GATE = prime, sort
-    try:
-        return fn()
-    finally:
-        kernels.PRIME_GATE, kernels.SORT_GATE = keep
-
-
-def gate_cloud(n_lights, device="cuda"):
-    """(config, device scene) of the 235-block cloud, where the switches
-    have opaque blocks to reorder: semesterbild plus 15,000 small triangles
-    (triangle_cloud.build_scene's other defaults; a tenth of them glass) in
-    blocks of 64, as at 1080p, `realistic` with the light cloud of the
-    feature config that has n_lights lights (GATE_LIGHTS)."""
+def cloud_scene(n_lights, device="cuda"):
+    """(config, device scene) of the 235-block cloud, whose lit shadow scans
+    cross many opaque Morton blocks: semesterbild plus 15,000 small
+    triangles (triangle_cloud.build_scene's other defaults; a tenth of them
+    glass) in blocks of 64, as at 1080p, `realistic` with the light cloud
+    of the feature config that has n_lights lights (LIGHT_FEATURES)."""
     c = RenderConfig(width=1920, height=1080, scene_backface_culling=True, triangle_block=64,
                      weight_cutoff=1e-3, reflections=True, light_reflections=True,
-                     refractions=True, **GATE_LIGHTS[n_lights])
+                     refractions=True, **LIGHT_FEATURES[n_lights])
     scene = RaytracerRenderer(c, device=device).device_scene(
         triangle_cloud.build_scene(c, n=15000))
     assert scene.n_lights == n_lights and not scene.streaming, scene.n_lights
@@ -88,7 +76,7 @@ def gate_cloud(n_lights, device="cuda"):
 
 
 def stack_scene() -> Scene:
-    """The JAX package's scene of its PRIME_GATE and SORT_GATE tests
+    """The two-cluster stack scene of the JAX package's shadow-scan tests
     (tests/test_prime_gate.py::_cloud_scene), built with the port's Scene
     from the same seeds: two Morton clusters on one shadow column, a
     watertight opaque grid at y = 0.45 over x [0.2, 0.3] and 24 small

@@ -11,8 +11,9 @@ and blocks of 48 rows), the pool's chunk commit, and small renders against
 the CPU twins (the SIMD build's packet frame among them); each kernel
 launched from two host threads at once, each on a stream of its own, and a
 mesh of two entries on one card (parallel/mesh.py); the three shading
-kernels with the shadow scan's switches (PRIME_GATE, SORT_GATE), each and
-both, in every form: the bits they give with both off.
+kernels in every form against their twins where the shadow scans cross
+many opaque Morton blocks (the 235-block cloud at 5, 50 and 95 lights, the
+two-cluster stack scene).
 
 Needs an NVIDIA GPU and nvcc; every test carries the `gpu` marker and skips
 from the `cuda` fixture when there is no card. This file imports neither JAX
@@ -42,17 +43,15 @@ from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops.intersect import cast_ra
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops.trace import AIR, _commit
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.scene.builder import Scene
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.utils.harness import (
-    GATE_SETTINGS,
     PARTITIONS,
     assert_node_bits,
     caught_calls,
+    cloud_scene,
     flat,
-    gate_cloud,
     node_state,
     same_bits,
     same_occlusion,
     stack_inputs,
-    with_gates,
 )
 
 REALISTIC = dict(reflections=True, light_reflections=True, refractions=True)
@@ -1037,70 +1036,60 @@ def test_mesh_on_one_card_has_one_device_bits(cuda):
     np.testing.assert_allclose(t[valid].cpu().numpy(), hit.t[valid].cpu().numpy(), rtol=1e-6)
 
 
-# ---- the shadow scan's switches (kernels.PRIME_GATE, kernels.SORT_GATE) ----
+# ---- the shadow scan where it crosses many opaque Morton blocks -----------
 
 
-def _same_under_switches(fn, label):
-    """fn() (a shading kernel's call) with each switch and both on gives
-    the bits it gives with both off, on two runs each."""
-    base = flat(with_gates(False, False, fn))
-    for prime, sort in GATE_SETTINGS[1:]:
-        for _ in range(2):
-            got = flat(with_gates(prime, sort, fn))
-            assert all(same_bits(x, y) for x, y in zip(base, got)), (label, prime, sort)
-
-
-def _switch_forms(monkeypatch, light, node, pix, kw, label):
-    """The three shading kernels in every form under the switches:
-    light_shade; shade_eval_rows in its three forms; shade_eval with a warp
-    per live ray and a ray per lane."""
-    n = light[5].shape[0]
-    _same_under_switches(lambda: kernels.light_shade(*light, **{
-        k: kw[k] for k in ("n_lights", "eps_dist", "n_trans_blocks", "bigtri_trans_rows")}),
-        f"light_shade {label}")
+def _forms_match_twins(monkeypatch, light, node, pix, kw, label):
+    """The three shading kernels in every form against their twins:
+    light_shade and shade_eval_rows in its three forms within the twins'
+    bar (shade_eval_rows' masks identical), shade_eval with a warp per live
+    ray and a ray per lane bit for bit shade_eval_rows'."""
+    lkw = {k: kw[k] for k in ("n_lights", "eps_dist", "n_trans_blocks", "bigtri_trans_rows")}
+    got, ref = kernels.light_shade(*light, **lkw), kernels.light_shade_plain(*light, **lkw)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=2e-5, atol=2e-6,
+                                   err_msg=f"light_shade {label}")
+    ref = kernels.shade_eval_rows_plain(*light, *node, pix, **kw)
     for form in NODE_FORMS:
         with monkeypatch.context() as mp:
-            _other_form(mp, n, form)
-            _same_under_switches(lambda: kernels.shade_eval_rows(*light, *node, pix, **kw),
-                                 f"shade_eval_rows {label} form {form}")
+            _other_form(mp, light[5].shape[0], form)
+            rows = kernels.shade_eval_rows(*light, *node, pix, **kw)
+        assert torch.equal(rows[2], ref[2]) and torch.equal(rows[4], ref[4]), (label, form)
+        for a, b, m in ((rows[0], ref[0], None), (rows[1], ref[1], rows[2]),
+                        (rows[3], ref[3], rows[4])):
+            a, b = (a, b) if m is None else (a[m], b[m])
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=2e-5, atol=2e-6,
+                                       err_msg=f"shade_eval_rows {label} form {form}")
     for most in (1 << 30, -1):
         monkeypatch.setattr(kernels, "NODE_WARP_MAX_LIVE", most)
-        _same_under_switches(lambda: kernels.shade_eval(*light, *node, **kw),
-                             f"shade_eval {label} NODE_WARP_MAX_LIVE {most}")
+        assert_node_bits(rows, kernels.shade_eval(*light, *node, **kw))
+    return got[0]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_lights", [5, 50, 95])
-def test_switches_keep_the_bits_on_the_cloud(cuda, monkeypatch, n_lights):
-    """On the 235-block cloud (65 blocks with glass, so the transmissive
-    blocks keep their sums' order) at 5, 50 and 95 lights: PRIME_GATE acts
-    above 8 lights, SORT_GATE at all three."""
-    cfg, ds = gate_cloud(n_lights, cuda)
-    nb = ds.tri_blk_pack.shape[0]
-    assert 0 < ds.n_trans_blocks < nb == 235
-    assert with_gates(True, True, lambda: kernels.gate_switches(
-        ds.n_lights, nb, ds.n_trans_blocks)) == (n_lights > 8, True)
+def test_shading_forms_match_twins_on_the_cloud(cuda, monkeypatch, n_lights):
+    """On the 235-block cloud (65 blocks with glass, 170 opaque) at 5, 50
+    and 95 lights: the storage-order walk and its first-opaque-hit exit over
+    many opaque blocks."""
+    cfg, ds = cloud_scene(n_lights, cuda)
+    assert 0 < ds.n_trans_blocks < ds.tri_blk_pack.shape[0] == 235
     light, node, pix, kw = _shade_inputs(cfg, ds, cuda, 4099, 41)
-    _switch_forms(monkeypatch, light, node, pix, _node_kw(cfg, kw), f"{n_lights} lights")
+    _forms_match_twins(monkeypatch, light, node, pix, _node_kw(cfg, kw), f"{n_lights} lights")
 
 
 @pytest.mark.gpu
-def test_switches_keep_the_bits_on_the_stack_scene(cuda, monkeypatch):
-    """On the JAX package's PRIME_GATE scene (two Morton clusters on one
-    shadow column, 17 lights in three chunks): both switches act; the
-    grid's umbra is dark and the open lanes lit."""
+def test_shading_forms_match_twins_on_the_stack_scene(cuda, monkeypatch):
+    """On the two-cluster stack scene (17 lights, four opaque blocks on one
+    shadow column): the grid's umbra is dark and the open lanes lit."""
     cfg, ds, light = stack_inputs(device=cuda)
-    nb = ds.tri_blk_pack.shape[0]
-    assert with_gates(True, True, lambda: kernels.gate_switches(
-        ds.n_lights, nb, ds.n_trans_blocks)) == (True, True)
     n = light[5].shape[0]
     kw = dict(n_lights=ds.n_lights, eps_dist=float(cfg.camera.epsilon_distance),
               n_trans_blocks=ds.n_trans_blocks, bigtri_trans_rows=ds.bigtri_trans_rows,
               refl_max=5, refr_max=10, weight_cutoff=1e-3, air=AIR)
-    _switch_forms(monkeypatch, light, node_state(n, 43, cuda),
-                  torch.arange(n, dtype=torch.int32, device=cuda), kw, "stack scene")
-    direct = with_gates(True, True, lambda: kernels.light_shade(*light, **{
-        k: kw[k] for k in ("n_lights", "eps_dist", "n_trans_blocks", "bigtri_trans_rows")}))[0]
+    direct = _forms_match_twins(monkeypatch, light, node_state(n, 43, cuda),
+                                torch.arange(n, dtype=torch.int32, device=cuda), kw,
+                                "stack scene")
     x = light[5][:, 0]
     umbra, lit = direct[(x > 0.22) & (x < 0.28)], direct[(x > 0.6) & (x < 0.9)]
     assert float(umbra.mean()) < 0.5 * float(lit.mean()) and float(lit.mean()) > 0.0

@@ -4,7 +4,9 @@
 Hit fields come from the JAX cast of camera rays plus seeded random rays
 (parked like the trace parks missed lanes). Both packages get the same numpy
 arrays. Scenes: tests/scenes.py `mixed_scene` and semesterbild, each with
-its point lights (semesterbild: 5) and with the soft-shadow light cloud
+its point lights (semesterbild: 5; under `high_quality` 95, as in
+reference_default and the SIMD build, and under `extreme_quality` 140, as in
+the extreme_480x270 cell) and with the soft-shadow light cloud
 (semesterbild: 50 lights in a pack padded to 56 rows, so the TPU kernel runs
 six full 8-light chunks plus a tail and disables the padding rows, while the
 port's kernel and twin loop over the 50 lights; tests/test_torch_light_shade_soft.py).
@@ -83,8 +85,12 @@ def ill_conditioned(tds, point, normal, view, color, shininess, valid, eps, back
     return bad.numpy()
 
 
+# semesterbild's quality tiers: (lights, config flags)
+QUALITY = {"hq95": (95, dict(high_quality=True)), "xq140": (140, dict(extreme_quality=True))}
+
+
 def make_setup(name, soft):
-    kw = dict(width=W, height=H, soft_shadows=soft)
+    kw = dict(width=W, height=H, soft_shadows=soft, **QUALITY.get(name, (0, {}))[1])
     if name == "mixed":
         cfg = JaxConfig(**kw)
         ds = jax_build(mixed_scene(cfg), cfg)
@@ -106,6 +112,8 @@ def check_light_shade(setup, backface):
     )
     if name == "semesterbild":
         assert (jds.n_lights, jds.light_pack.shape[0]) == ((50, 56) if soft else (5, 8))
+    if name in QUALITY:
+        assert jds.n_lights == QUALITY[name][0]
     ref = pallas_light_shade(
         jds.light_pack, jds.sph_pack, jds.trb_pack, jds.tri_blk_pack, jds.tri_blk_aabb,
         *[jnp.asarray(fields[k]) for k in ORDER], ray_tile=128, interpret=True, **static,
@@ -125,7 +133,7 @@ def check_light_shade(setup, backface):
     assert (direct.max(axis=1) > 0).sum() > 0.25 * direct.shape[0]
 
 
-@pytest.fixture(scope="module", params=["mixed", "semesterbild"])
+@pytest.fixture(scope="module", params=["mixed", "semesterbild", *QUALITY])
 def setup(request):
     return make_setup(request.param, soft=False)
 

@@ -19,7 +19,9 @@ XLA contracts into fused multiply-adds, the port does not); the occlusion
 with identical `opq`, the sums within 1e-5 where it is false; the traced
 colour of the pool and the stack path with identical `valid`, within rtol
 2e-5 / atol 2e-6, knife edges (primary hit object differs) at most 0.5% and
-set apart.
+set apart. The trace of block48 on the stack path, the slowest case, lives in
+tests/test_torch_partition_trace_block48.py, so that test workers that take
+a file each share them out.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops import trace
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops.intersect import cast_rays, occlude_rays
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops.vecmath import normalized
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.utils.harness import PARTITIONS
+from test_torch_renderer import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_trace import _rays, carry
 
 CLOUD = dict(n=1100, edge_sigma=0.05, glass_share=0.25, seed=7)
@@ -145,9 +148,8 @@ def test_partition_cast_and_occlusion_match_jax(partition):
     assert opq.any() and not opq.all()
 
 
-@pytest.mark.parametrize("path", sorted(PATHS))
-@pytest.mark.parametrize("partition", sorted(PARTITIONS))
-def test_partition_trace_matches_jax(partition, path):
+def check_partition_trace(partition, path):
+    """The traced colour of path `path` (PATHS) at `partition`."""
     cfg, jcfg, jds, _, tds = _scenes(partition, **PATHS[path])
     o, d = _rays(cfg)
     ref = jax_trace.trace_rays(jds, jcfg, jnp.asarray(o), jnp.asarray(d), with_stats=True)
@@ -161,3 +163,10 @@ def test_partition_trace_matches_jax(partition, path):
     np.testing.assert_allclose(got[0].numpy()[~edge], np.asarray(ref[0])[~edge], rtol=2e-5,
                                atol=2e-6)
     assert got[0].numpy().max() > 0
+
+
+@pytest.mark.parametrize("partition, path", [
+    (partition, path) for partition in sorted(PARTITIONS) for path in sorted(PATHS)
+    if (partition, path) != ("block48", "stack")])
+def test_partition_trace_matches_jax(partition, path):
+    check_partition_trace(partition, path)

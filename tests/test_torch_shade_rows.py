@@ -1,6 +1,8 @@
 """PyTorch port: `shade_eval_rows` (CPU, through its plain twin) against the
 JAX `pallas_shade_eval_rows` kernel in interpret mode, on the same hit
-fields.
+fields: on `mixed_scene` and on semesterbild with its 5 lights, with
+`high_quality`'s 95 (reference_default, the SIMD build) and with
+`extreme_quality`'s 140 (the extreme_480x270 cell).
 
 Hit fields come from the JAX cast of camera rays plus seeded random rays
 (parked like the trace parks missed lanes); the node state (weights, media,
@@ -46,15 +48,21 @@ def carry(ds):
     return device_scene_from_arrays(fields, static, device="cpu")
 
 
-@pytest.fixture(scope="module", params=["mixed", "semesterbild"])
+# semesterbild's quality tiers: (lights, config flags)
+QUALITY = {"hq95": (95, dict(high_quality=True)), "xq140": (140, dict(extreme_quality=True))}
+
+
+@pytest.fixture(scope="module", params=["mixed", "semesterbild", *QUALITY])
 def setup(request):
-    kw = dict(width=W, height=H, reflections=True, refractions=True, weight_cutoff=1e-3)
+    kw = dict(width=W, height=H, reflections=True, refractions=True, weight_cutoff=1e-3,
+              **QUALITY.get(request.param, (0, {}))[1])
     if request.param == "mixed":
         cfg = JaxConfig(**kw)
         ds = jax_build(mixed_scene(cfg), cfg)
     else:
         cfg = JaxConfig(triangle_block=64, **kw)
         ds = jax_build(jax_model("semesterbild", cfg), cfg)
+        assert ds.n_lights == QUALITY.get(request.param, (5,))[0]
     cam = cfg.camera
     rng = np.random.default_rng(11)
     px, py = np.meshgrid(np.arange(W), np.arange(H))

@@ -17,6 +17,11 @@ rays whose lighting float32 cannot resolve (tests/test_torch_trace.py,
 tests/test_torch_light_shade.py). Frames: the image bar of
 tests/test_streaming.py:89-91 (fewer than 0.5% of pixels off by more than
 2e-3).
+
+The slowest cases live in files of their own, so that test workers that
+take a file each share them out: the stack path's three traced cases in
+tests/test_torch_stream_trace_stack.py (which runs this module's tests on
+its own `traced`), the pool frame in tests/test_torch_stream_frame.py.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops import kernels, trace
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops.intersect import cast_rays
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops.vecmath import normalized
 from test_torch_light_shade import ill_conditioned
+from test_torch_renderer import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_trace import _rays, carry
 
 BASE = dict(width=24, height=12, triangle_block=32)
@@ -61,11 +67,10 @@ PATHS = {
 }
 
 
-@pytest.fixture(scope="module", params=sorted(PATHS))
-def traced(request):
+def trace_path(name):
     """The same rays through the JAX plain path, the port's streamed path
-    and the port's resident path."""
-    kw = dict(BASE, **PATHS[request.param])
+    and the port's resident path on path `name` of PATHS."""
+    kw = dict(BASE, **PATHS[name])
     jcfg = JaxConfig(use_pallas=False, **kw)
     cfg = RenderConfig(**kw)
     jds = jax_build(jax_model("semesterbild", jcfg), jcfg)
@@ -88,7 +93,12 @@ def traced(request):
     edge |= ill_conditioned(tds, point, hit.normal, d0, hit.color, hit.shininess, hit.valid,
                             float(cfg.camera.epsilon_distance), cfg.backface_culling)
     assert edge.sum() <= 0.005 * edge.size, np.where(edge)
-    return request.param, streamed, resident, ref, edge
+    return name, streamed, resident, ref, edge
+
+
+@pytest.fixture(scope="module", params=["lighting", "pool"])
+def traced(request):
+    return trace_path(request.param)
 
 
 def test_streamed_trace_matches_jax(traced):
@@ -149,11 +159,10 @@ def test_build_flips_streaming_at_the_threshold():
     assert build_device_scene(scene, below, device="cpu").streaming
 
 
-@pytest.mark.parametrize("path", ["pool", "lighting"])
-def test_streamed_frame_matches_jax_and_resident(path):
-    """`RaytracerRenderer.render` with the threshold lowered to 1: the frame
-    against the JAX renderer (plain path) and against the port's resident
-    frame."""
+def check_streamed_frame(path):
+    """`RaytracerRenderer.render` with the threshold lowered to 1 on `path`
+    ("pool" or "lighting"): the frame against the JAX renderer (plain path)
+    and against the port's resident frame."""
     feats = dict(CHILDREN, kernel_ray_tile=128, compaction_ratio=2, loop_chunk=8,
                  max_nodes=16) if path == "pool" else {}
     kw = dict(width=32, height=20, scene_backface_culling=True, tile_rays=4096,
@@ -180,3 +189,8 @@ def test_streamed_frame_matches_jax_and_resident(path):
     for other in (ref, res):
         off = np.abs(got.color - other.color).max(axis=-1) > 2e-3
         assert off.sum() < 0.005 * n, off.sum()
+
+
+@pytest.mark.parametrize("path", ["lighting"])
+def test_streamed_frame_matches_jax_and_resident(path):
+    check_streamed_frame(path)

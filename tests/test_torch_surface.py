@@ -118,8 +118,8 @@ def test_ops_imports_its_submodules_without_a_cycle():
         "from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.utils import TileStats\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]\n"
         "assert not bad, bad\n"
-        "print(len(mods), kernels.GATE_CHUNK)\n"
+        "print(len(mods), kernels.LIGHT_LANES_MIN_LIGHTS)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=120)
-    assert out.returncode == 0 and out.stdout.split() == ["7", "8"], out.stderr
+    assert out.returncode == 0 and out.stdout.split() == ["7", "16"], out.stderr
