@@ -4,7 +4,8 @@
 
 Phases (any failure fails the run; nothing is caught; each prints its
 seconds):
-  1. the card's name and power limit; build all seven CUDA kernels from
+  1. the card's name and power limit; build all ten CUDA kernels (the
+     seven of the TPU's and the pool iteration's three glue kernels) from
      hslu_i/ba_raytracing/f2501_raytracer_tpu_torch/csrc (one nvcc each, in
      parallel) and print the build time and the registers of each kernel
      function and form (ptxas);
@@ -49,8 +50,8 @@ seconds):
      rays), occlude_triangles also in its other form bit for bit;
   3. render the full 1920x1080 `realistic` frame (bench.py's settings, the
      packed-row pool path) through RaytracerRenderer(cfg, device="cuda"):
-     warm frame wall time, launch counts (cast_triangles and
-     shade_eval_rows > 0, the others 0), dropped rays (0), the rays left
+     warm frame wall time, launch counts (cast_triangles, shade_eval_rows
+     and the three glue kernels > 0, the others 0), dropped rays (0), the rays left
      at the iteration cap (`unfinished`; every frame of the run), and the u32
      checksum, the warm-up frame's too; then the
      frame with the atomic commit (`index_add_`) against the sorted
@@ -58,6 +59,12 @@ seconds):
      torch.profiler (the `realistic` tile 3, the stack-path tile 1 and the
      `soft_shadows` tile 3): wall, node evaluations, device busy time, the
      kernels that take it, and the device time of each node-kernel call;
+     phase 3c: pool_take, pool_hit and pool_put against their twins bit
+     for bit at the first two pool iterations of tile 3 of the `realistic`
+     frame (W = 2048) and of the `extreme` frame (W = 3584), and the
+     `realistic` frame with each pool iteration in PyTorch ops (the glue,
+     forced) and as five kernels, in turns glue, fused, fused, glue: one
+     checksum, and the walls;
   4. the other paths at their sizes: 1080p `default`, `anti_aliasing` and
      `soft_shadows` (light_shade > 0, shade_eval_rows == 0), the 960x540
      stack-path frame (compaction_ratio 1; shade_eval > 0, shade_eval_rows
@@ -1065,6 +1072,10 @@ CHECKSUMS = {
 }
 
 
+# the kernels of a frame on the pool path with the fused iteration
+POOL_PATH = ("cast_triangles", "shade_eval_rows", *kernels.GLUE_KERNELS)
+
+
 def frame_phase(label, c, r, scene, expect):
     """Warm frame of one path: the kernels in `expect` launched, every other
     kernel not launched, dropped == 0, the warm-up frame's checksum."""
@@ -1089,7 +1100,7 @@ def frame_phase(label, c, r, scene, expect):
 
 # ---- phase 3: the 1080p realistic frame (packed-row pool path) -----------
 with phase("realistic"):
-    fb1, _ = frame_phase("realistic", cfg, renderer, ds, ("cast_triangles", "shade_eval_rows"))
+    fb1, _ = frame_phase("realistic", cfg, renderer, ds, POOL_PATH)
 
     # the commit A/B in one process: the atomic index_add_ against the
     # sorted commit, in turns old, new, new, old
@@ -1177,6 +1188,57 @@ with phase("profile"):
     c_soft = RenderConfig(width=1920, height=1080, **MAIN, **LIGHTING["soft_shadows"])
     report["tile_profile_soft_shadows"] = profile_tile(
         "soft_shadows", scenes["soft_shadows"], "light_shade", c_soft, 3)
+
+# ---- phase 3c: the pool iteration's glue kernels -------------------------
+def glue_bits(label, scene, c, aa):
+    """The first two iterations of tile 3's pool: pool_take, pool_hit and
+    pool_put against their twins (run on the same tensors) bit for bit,
+    pool_put on copies of its state and the pool's rows below the dump row
+    compared. Returns the pool's width."""
+    names = list(kernels.GLUE_KERNELS)
+    caught = caught_calls(names, tile_call(scene, c, 3, aa=aa), 2)
+    widths = set()
+    for (ta, tk), (ha, hk), (pa, pk) in zip(*(caught[n] for n in names)):
+        widths.add(tk["W"])
+        got, ref = kernels.pool_take(*ta, **tk), kernels.pool_take_plain(*ta, tk["W"])
+        assert all(same_bits(x, y) for x, y in zip(got, ref)), (label, "pool_take")
+        got, ref = kernels.pool_hit(*ha, **hk), kernels.pool_hit_plain(*ha, **hk)
+        assert all(same_bits(x, y) for x, y in zip(got, ref)), (label, "pool_hit")
+        k_st, p_st = ([x.clone() if isinstance(x, torch.Tensor) else x for x in pa]
+                      for _ in range(2))
+        kernels.pool_put(*k_st, **pk)
+        kernels.pool_put_plain(*p_st, **pk)
+        assert same_bits(k_st[0][:-1], p_st[0][:-1]), (label, "pool_put pool")
+        assert all(same_bits(x, y) for x, y in zip(k_st[1:5], p_st[1:5])), (label, "pool_put")
+    assert len(widths) == 1 and len(caught["pool_put"]) == 2, (label, widths)
+    return widths.pop()
+
+
+with phase("pool_glue"):
+    ds_glue_ext = RaytracerRenderer(CFG_EXT, device="cuda").device_scene(
+        build("semesterbild", CFG_EXT))
+    widths = {"realistic": glue_bits("realistic", ds, cfg, False),
+              "extreme": glue_bits("extreme", ds_glue_ext, CFG_EXT, True)}
+    assert widths == {"realistic": 2048, "extreme": 3584}, widths
+    # the 1080p realistic frame with each iteration in PyTorch ops (the glue,
+    # forced) and as five kernels, in turns glue, fused, fused, glue: one
+    # checksum, and the walls
+    fuses = trace._fuses
+    glue_walls = {"glue": [], "fused": []}
+    for form in ("glue", "fused", "fused", "glue"):
+        trace._fuses = fuses if form == "fused" else (lambda *a: False)
+        trace.drop_pool_graphs()
+        run_frame(renderer, ds)  # the first chunk runs eagerly, the next is captured
+        fb, wall, launches, dropped = run_frame(renderer, ds)
+        assert checksum(fb) == CHECKSUMS["realistic"] and dropped == 0, (form, checksum(fb))
+        assert (launches["pool_put"] > 0) == (form == "fused"), (form, launches)
+        glue_walls[form].append(wall * 1e3)
+    trace._fuses = fuses
+    trace.drop_pool_graphs()
+    log(f"pool glue kernels: the twins' bits at W = {widths}; realistic 1080p warm frame ms, "
+        f"glue {glue_walls['glue']}, fused {glue_walls['fused']}, one checksum")
+    report["pool_glue"] = dict(widths=widths, wall_ms=glue_walls)
+    del ds_glue_ext
 
 # ---- the CPU twins' frames of phases 5-7, in a process of their own ------
 # They take minutes of the host's CPU, the card's phases one core: a process
@@ -1368,7 +1430,7 @@ PRESETS = {"default": RenderConfig.default_scene, "realistic": RenderConfig.real
 # the CLI's runs: (scene, preset, width, height; None: the preset's own size)
 CLI_RUNS = (("semesterbild", "realistic", None, None), ("test_scene", "default", 384, 320),
             ("test_text", "realistic", 384, 320))
-NODE_PATH = ("cast_triangles", "shade_eval_rows")
+NODE_PATH = POOL_PATH
 
 def card_vs_twins(label):
     """A small frame of TWINS[label] on the card and through the CPU twins,
@@ -1773,7 +1835,7 @@ ENTRIES = {
 EXTRA = {"W": "pool", "R_soft": "soft", "V": "validation", "V_glass": "validation_glass",
          "S": "sparse", "R95": "hq95", "W95": "hq95_pool", "R140": "extreme",
          "W140": "extreme_pool", "S95": "hq95_sparse", "Rpk": "packet", "Wpk": "packet_pool"}
-assert set(ENTRIES) == set(kernels.KERNEL_SOURCES)
+assert set(ENTRIES) == set(kernels.KERNEL_SOURCES) - set(kernels.GLUE_KERNELS)
 line = []
 for name, (src, tpu_line, path, main, others) in ENTRIES.items():
     m = results[name][main]

@@ -161,10 +161,18 @@ def _homogeneous(o):
 
 def _sphere_nearest(scene, o, d, backface_culling):
     S = scene.sphere_slots
-    st, s_valid = _sphere_ts(scene.sph_center, scene.sph_r_sq, scene.sph_valid, o, d)
+    return _sphere_nearest_of(scene.sph_center, scene.sph_r_sq, scene.sph_valid,
+                              scene.mat_has_trans[:S], o, d, backface_culling)
+
+
+def _sphere_nearest_of(center, r_sq, sph_valid, has_trans, o, d, backface_culling):
+    """Nearest sphere of each ray over the (S,) sphere slots: (t, slot),
+    +inf and the first slot where none is hit; argmin keeps the first slot
+    on equal t."""
+    st, s_valid = _sphere_ts(center, r_sq, sph_valid, o, d)
     if backface_culling:
-        cos = _sphere_cos(scene.sph_center, o, d, _where0(s_valid, st))
-        s_valid = s_valid & _backface_mask(cos, scene.mat_has_trans[None, :S])
+        cos = _sphere_cos(center, o, d, _where0(s_valid, st))
+        s_valid = s_valid & _backface_mask(cos, has_trans[None, :])
     st = torch.where(s_valid, st, torch.full_like(st, INF))
     return torch.min(st, dim=1).values, torch.argmin(st, dim=1)
 
@@ -211,6 +219,14 @@ def cast_rays(scene: DeviceScene, o, d, backface_culling: bool = False) -> Hit:
             o, d, backface_culling=backface_culling, sb_sizes=scene.sb_sizes,
         )
         tri_base = S
+    return _hit_record(scene.mat_pack, S, o, d, best_t, best_idx, tt, tidx, tri_base)
+
+
+def _hit_record(mat_pack, S, o, d, best_t, best_idx, tt, tidx, tri_base) -> Hit:
+    """The cast's epilogue: the triangle scan's nearest hit (tt, tidx at
+    index tri_base + tidx) folded into the nearest (best_t, best_idx) so far
+    with a strict `<`, the hit point, one packed material row gather
+    (`mat_pack`, its first S rows the sphere slots) and the normal."""
     closer = tt < best_t
     best_t = torch.where(closer, tt, best_t)
     best_idx = torch.where(closer, tri_base + tidx.long(), best_idx)
@@ -221,7 +237,7 @@ def cast_rays(scene: DeviceScene, o, d, backface_culling: bool = False) -> Hit:
 
     # ONE packed (R, 16) row gather for every material field + the normal
     # auxiliary (sphere center / triangle shading normal)
-    row = scene.mat_pack.index_select(0, best_idx)
+    row = mat_pack.index_select(0, best_idx)
     is_sphere = best_idx < S
     aux = row[:, 9:12]
     sph_normal = normalized(point - aux)

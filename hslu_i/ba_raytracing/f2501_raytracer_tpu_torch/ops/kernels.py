@@ -18,6 +18,12 @@ Seven kernels, each replacing one Pallas kernel of the JAX package
 * `light_shade`     <- `_light_shade_kernel` / `pallas_light_shade`
   (configs without reflections or refractions)
 
+and three that replace none: the glue of a pool iteration on the card
+(`GLUE_KERNELS`; the JAX package leaves it to XLA), `pool_take`,
+`pool_hit` and `pool_put` around `cast_triangles` and `shade_eval_rows`
+(ops/trace.py::_pool_loop). `pool_put` updates its arguments in place
+(`IN_PLACE`); every other wrapper returns new tensors.
+
 Sources are `csrc/*.cu` (CUDA C++ for sm_90a with a plain C interface); the
 three shading kernels share the device code of `rt_light.cuh` and
 `rt_node.cuh`, and they and the two occlusion kernels that of
@@ -33,7 +39,8 @@ at once (a mesh runs one per entry, parallel/mesh.py).
 The device of the input tensors picks the implementation: a CUDA tensor
 goes to the kernel (or the call raises); a CPU tensor goes to the plain
 PyTorch twin (`*_plain`), which the CPU tests hold against the JAX package.
-`LAUNCHES` counts kernel launches (twin calls are not counted), and under
+`LAUNCHES` counts kernel launches (twin calls are not counted; `pool_put`
+once a fused pool iteration), and under
 LIGHT_LANES_LAUNCHES the `shade_eval_rows` launches that took its
 light-lanes form (`node_form`): a launch recorded into a CUDA graph counts
 when the graph is replayed (`counting_into`, `count_launches`; ops/trace.py's
@@ -56,9 +63,26 @@ import time
 
 import torch
 
-from .intersect import BIG_IDX, _add_pack_occlusion, _homogeneous, _pack_nearest
+from .intersect import (
+    BIG_IDX,
+    _add_pack_occlusion,
+    _hit_record,
+    _homogeneous,
+    _pack_nearest,
+    _sphere_nearest_of,
+)
 from .shading import ambient, light_sums
-from .trace import POOL_COLS, _node_children, _pack_entry
+from .trace import (
+    POOL_COLS,
+    _active_hit,
+    _hit_fields,
+    _node_children,
+    _pack_entry,
+    _park,
+    _pool_put,
+    _pool_window,
+    _unpack_entry,
+)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -73,7 +97,15 @@ KERNEL_SOURCES = {
     "shade_eval_rows": "shade_eval_rows.cu",
     "shade_eval": "shade_eval.cu",
     "light_shade": "light_shade.cu",
+    "pool_take": "pool_take.cu",
+    "pool_hit": "pool_hit.cu",
+    "pool_put": "pool_put.cu",
 }
+# the kernels of the pool iteration's glue, which replace no TPU kernel
+GLUE_KERNELS = ("pool_take", "pool_hit", "pool_put")
+# wrappers that update their tensor arguments in place (ops/trace.py's chunk
+# graphs call a swapped one on the arguments themselves, not on copies)
+IN_PLACE = ("pool_put",)
 COMMON_HEADERS = ("rt_common.cuh", "rt_occlude.cuh", "rt_light.cuh", "rt_node.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -170,7 +202,7 @@ def build_kernels(names=None) -> dict:
     return out
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # scene tables of the shading kernels: lights, n_lights, sph, S, trb, P,
 # trans_rows, blk, blk_aabb, nb, B, n_trans_blocks
 _SCENE = [_P, _I, _P, _I, _P, _I, _I, _P, _P, _I, _I, _I]
@@ -205,6 +237,13 @@ _ARGTYPES = {
     # scene, 6 per-ray inputs, R, eps, backface, 2 outputs, stream
     "light_shade": ("rt_light_shade", [
         *_SCENE, *([_P] * 6), _I, _F, _I, _P, _P, _P]),
+    # pool, count, W, o, d, w, ior, budget, from_refl, pix, take, stream
+    "pool_take": ("rt_pool_take", [_P, _P, _I, *([_P] * 8), _P]),
+    # sph, S, mat, o, d, tt, tidx, take, W, backface, 11 outputs, stream
+    "pool_hit": ("rt_pool_hit", [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, *([_P] * 11), _P]),
+    # pool, Q, Q_cap, count, dropped, stage_pix, stage_contrib, take, pix,
+    # contrib, rows_a, mask_a, rows_b, mask_b, k, W, slot, R, stream
+    "pool_put": ("rt_pool_put", [_P, _L, _L, *([_P] * 11), _I, _I, _I, _L, _P]),
 }
 
 
@@ -937,6 +976,173 @@ def shade_eval_rows(
     if form == LIGHT_LANES:
         _count(LIGHT_LANES_LAUNCHES)
     return contrib, rfl_rows, rfl_m, rfr_rows, rfr_m
+
+
+# ---------------------------------------------------------------------------
+# the pool iteration's glue: pool_take, pool_hit, pool_put (no TPU kernel;
+# the JAX package leaves these steps of `_run_pool` to XLA)
+# ---------------------------------------------------------------------------
+#
+# ops/trace.py's `_pool_loop` runs a pool iteration on the card as five
+# kernels: pool_take, cast_triangles, pool_hit, shade_eval_rows, pool_put.
+# Each twin is the iteration's PyTorch glue (`glue_step`) factored out, and
+# each kernel gives its twin's bits on every lane, dead and missed lanes
+# included.
+
+
+def pool_take_plain(pool, count, W):
+    """Plain twin of the take: `_pool_window`, `_unpack_entry`, `_park`,
+    the node kernels' dtypes."""
+    lanes = torch.arange(W, dtype=torch.int64, device=pool.device)
+    start, active, rows = _pool_window(pool, count, lanes)
+    e = _unpack_entry(rows)
+    o, d = _park(e["o"], e["d"], active)
+    return (o, d, e["w"].contiguous(), e["ior"].contiguous(), e["budget"].contiguous(),
+            e["from_refl"].to(torch.float32), e["pix"].to(torch.int32),
+            torch.stack([start, count]))
+
+
+def _check_pool(pool, dev):
+    _check(pool, "pool", torch.float32, (pool.shape[0], POOL_COLS), dev)
+    if pool.shape[0] < 2 or pool.data_ptr() % 16:
+        raise ValueError("pool: needs a dump row and 16-byte aligned rows")
+
+
+def pool_take(pool, count, *, W):
+    """The pool loop's take at width W: the rows [start, start + W) of the
+    packed pool (Q + 1, 16), start = max(count - W, 0) (`count`: int64 ()),
+    unpacked. Returns (o, d (W, 3) f32, parked where the lane is past count;
+    w (W, 3) f32; ior (W,) f32; budget (W,) int32; from_refl (W,) f32;
+    pix (W,) int32; take (2,) int64 [start, count])."""
+    dev = pool.device
+    _check_pool(pool, dev)
+    _check(count, "count", torch.int64, (), dev)
+    if not 0 < W < pool.shape[0]:
+        raise ValueError(f"W={W} outside (0, {pool.shape[0]})")
+    if dev.type == "cpu":
+        return pool_take_plain(pool, count, W)
+    f32 = torch.float32
+    o, d, w = (torch.empty((W, 3), dtype=f32, device=dev) for _ in range(3))
+    ior, from_refl = torch.empty((W,), dtype=f32, device=dev), torch.empty((W,), dtype=f32,
+                                                                           device=dev)
+    budget, pix = (torch.empty((W,), dtype=torch.int32, device=dev) for _ in range(2))
+    take = torch.empty((2,), dtype=torch.int64, device=dev)
+    _launch(dev, "pool_take", _ptr(pool), _ptr(count), W, _ptr(o), _ptr(d), _ptr(w),
+            _ptr(ior), _ptr(budget), _ptr(from_refl), _ptr(pix), _ptr(take))
+    return o, d, w, ior, budget, from_refl, pix, take
+
+
+def pool_hit_plain(sph_pack, mat_pack, o, d, tt, tidx, take, backface_culling=False):
+    """Plain twin of the hit record: the spheres (`_sphere_nearest_of` over
+    the sphere pack's columns), the cast's epilogue (`_hit_record`), the
+    active lanes' hits (`_active_hit`) and the node kernels' dtypes
+    (`_hit_fields`)."""
+    S = sph_pack.shape[0]
+    lanes = torch.arange(o.shape[0], dtype=torch.int64, device=o.device)
+    best_t, best_idx = _sphere_nearest_of(sph_pack[:, 0:3], sph_pack[:, 3],
+                                          sph_pack[:, 12] != 0.0, sph_pack[:, 8] != 0.0, o, d,
+                                          backface_culling)
+    hit = _hit_record(mat_pack, S, o, d, best_t, best_idx, tt, tidx, S)
+    return _hit_fields(hit, *_active_hit(hit, take[0] + lanes < take[1]))
+
+
+def pool_hit(sph_pack, mat_pack, o, d, tt, tidx, take, *, backface_culling=False):
+    """The pool loop's hit record of W parked rays o, d (W, 3) f32 (`pool_take`)
+    after the triangle cast (tt (W,) f32, tidx (W,) int32, `cast_triangles`):
+    the nearest sphere of the sphere pack (S, 16), the triangle hit folded
+    in at index S + tidx, the packed material row (`mat_pack` (N, 16)), the
+    normal, and the lanes below take[1] - take[0] active. Returns the node
+    kernels' hit inputs (point, normal, color (W, 3); shininess, valid
+    (1.0 / 0.0), t, has_trans (1.0 / 0.0), metallic, ior, opacity, boost
+    (W,); all f32), the point parked at 1e9 where there is no active hit."""
+    W, dev = _check_rays("pool_hit", o, d)
+    f32 = torch.float32
+    S = sph_pack.shape[0]
+    _check(sph_pack, "sph_pack", f32, (S, 16), dev)
+    _check(mat_pack, "mat_pack", f32, (mat_pack.shape[0], 16), dev)
+    _check(tt, "tt", f32, (W,), dev)
+    _check(tidx, "tidx", torch.int32, (W,), dev)
+    _check(take, "take", torch.int64, (2,), dev)
+    if not 0 < S <= mat_pack.shape[0]:
+        raise ValueError(f"{S} sphere slots for {mat_pack.shape[0]} material rows")
+    if dev.type == "cpu":
+        return pool_hit_plain(sph_pack, mat_pack, o, d, tt, tidx, take, backface_culling)
+    vec = [torch.empty((W, 3), dtype=f32, device=dev) for _ in range(3)]
+    scal = [torch.empty((W,), dtype=f32, device=dev) for _ in range(8)]
+    _launch(dev, "pool_hit", _ptr(sph_pack), S, _ptr(mat_pack), _ptr(o), _ptr(d), _ptr(tt),
+            _ptr(tidx), _ptr(take), W, int(bool(backface_culling)),
+            *[_ptr(t) for t in vec + scal])
+    return (*vec, *scal)
+
+
+def _put_children(rfl_rows, rfl_m, rfr_rows, rfr_m, reflections, refractions):
+    """The enabled children's (rows, mask) in the pool-append order [refr,
+    refl]."""
+    return ([(rfr_rows, rfr_m)] if refractions else []) + (
+        [(rfl_rows, rfl_m)] if reflections else [])
+
+
+def pool_put_plain(pool, count, dropped, stage_pix, stage_contrib, take, pix, contrib,
+                   rfl_rows, rfl_m, rfr_rows, rfr_m, *, slot, R, Q_cap, reflections=True,
+                   refractions=True):
+    """Plain twin of the put: `_pool_put` on the take's window, the children
+    concatenated in the pool-append order; count and dropped rewritten."""
+    W = contrib.shape[0]
+    lanes = torch.arange(W, dtype=torch.int64, device=pool.device)
+    children = _put_children(rfl_rows, rfl_m, rfr_rows, rfr_m, reflections, refractions)
+    start, n = take[0], take[1]
+    new_count, new_dropped, _ = _pool_put(
+        pool, stage_pix, stage_contrib, slot, R, Q_cap, start, dropped, start + lanes < n,
+        pix.to(torch.int64), contrib, torch.cat([r for r, _ in children]),
+        torch.cat([m for _, m in children]), lanes)
+    count.copy_(new_count)
+    dropped.copy_(new_dropped)
+
+
+def pool_put(pool, count, dropped, stage_pix, stage_contrib, take, pix, contrib, rfl_rows,
+             rfl_m, rfr_rows, rfr_m, *, slot, R, Q_cap, reflections=True, refractions=True):
+    """The pool loop's put for iteration `slot` of a chunk, IN PLACE: lane l
+    of the take's window (take: [start, count] of `pool_take`) stages its
+    pixel (pix (W,) int32) and contribution (contrib (W, 3) f32) at row
+    slot * W + l of stage_pix (int64) and stage_contrib, or where it is past
+    count its dump row R + slot * W + l and 0; the enabled children's rows
+    (W, 16) whose masks (W,) bool are set on a live lane are appended to the
+    pool (Q + 1, 16) at min(start, Q_cap - 2W) in the pool-append order
+    [refr, refl] (the last rejected row to the dump row Q); count (int64 ())
+    becomes the new top and dropped (int64 ()) grows by the rows the cap
+    cut. A disabled child's rows and mask are not read."""
+    dev = pool.device
+    W = contrib.shape[0]
+    f32 = torch.float32
+    _check_pool(pool, dev)
+    _check(count, "count", torch.int64, (), dev)
+    _check(dropped, "dropped", torch.int64, (), dev)
+    _check(take, "take", torch.int64, (2,), dev)
+    _check(pix, "pix", torch.int32, (W,), dev)
+    _check(contrib, "contrib", f32, (W, 3), dev)
+    n_stage = stage_pix.shape[0]
+    _check(stage_pix, "stage_pix", torch.int64, (n_stage,), dev)
+    _check(stage_contrib, "stage_contrib", f32, (n_stage, 3), dev)
+    children = _put_children(rfl_rows, rfl_m, rfr_rows, rfr_m, reflections, refractions)
+    for rows, m in children:
+        _check(rows, "rows", f32, (W, POOL_COLS), dev)
+        _check(m, "mask", torch.bool, (W,), dev)
+        if rows.data_ptr() % 16:
+            raise ValueError("rows: not aligned to 16 bytes")
+    Q = pool.shape[0] - 1
+    if not (children and W > 0 and 0 <= slot and (slot + 1) * W <= n_stage
+            and 2 * W <= Q_cap <= Q):
+        raise ValueError(f"pool_put: children {len(children)}, W={W}, slot={slot} of "
+                         f"{n_stage // max(W, 1)}, Q_cap={Q_cap}, Q={Q}")
+    if dev.type == "cpu":
+        return pool_put_plain(pool, count, dropped, stage_pix, stage_contrib, take, pix,
+                              contrib, rfl_rows, rfl_m, rfr_rows, rfr_m, slot=slot, R=R,
+                              Q_cap=Q_cap, reflections=reflections, refractions=refractions)
+    (rows_a, m_a), (rows_b, m_b) = children[0], children[-1]
+    _launch(dev, "pool_put", _ptr(pool), Q, int(Q_cap), _ptr(count), _ptr(dropped),
+            _ptr(stage_pix), _ptr(stage_contrib), _ptr(take), _ptr(pix), _ptr(contrib),
+            _ptr(rows_a), _ptr(m_a), _ptr(rows_b), _ptr(m_b), len(children), W, int(slot),
+            int(R))
 
 
 # the module's own kernel wrappers, by name (ops/trace.py's chunk graphs)

@@ -13,7 +13,9 @@ in the JAX package:
   with children): a dense LIFO pool of packed (16,) f32 rows, W rays
   serviced per iteration (`_run_pool`); the node kernel writes packed rows
   (`shade_eval_rows`), or per-field children with `packed_stage=False`
-  (`shade_eval`, then `_pack_entry`);
+  (`shade_eval`, then `_pack_entry`); on the card an iteration with packed
+  rows on a resident scene, outside packet mode and the resort, is five
+  kernels (`_fuses`), elsewhere PyTorch ops around the node (their twins);
 * the stack path (smaller tiles, or compaction_ratio 1): one pop per ray
   per iteration from a per-ray stack (`_run_stack`), nodes through
   `shade_eval`;
@@ -227,26 +229,49 @@ def _park(o, d, active):
 def _cast_active(scene, cfg, o, d, active):
     o, d = _park(o, d, active)
     hit = cast_rays(scene, o, d, cfg.backface_culling)
-    hval = hit.valid & active
-    # park missed lanes far away too: their (masked-out) shadow rays then
-    # miss every block AABB
-    point = torch.where(hval[:, None], hit.point, torch.full_like(hit.point, 1e9))
+    hval, point = _active_hit(hit, active)
     return hit, hval, point, d
+
+
+def _active_hit(hit, active):
+    """(hval, point): the hits of the active lanes, and the hit point with
+    missed lanes parked far away too: their (masked-out) shadow rays then
+    miss every block AABB."""
+    hval = hit.valid & active
+    point = torch.where(hval[:, None], hit.point, torch.full_like(hit.point, 1e9))
+    return hval, point
+
+
+def _hit_fields(hit, hval, point):
+    """The node kernels' per-ray hit inputs, contiguous and in their
+    dtypes: (point, normal, color, shininess, valid, t, has_trans, metallic,
+    ior, opacity, boost)."""
+    f32 = torch.float32
+    return (point, hit.normal.contiguous(), hit.color.contiguous(),
+            hit.shininess.contiguous(), hval.to(f32), hit.t.contiguous(),
+            hit.has_trans.to(f32), hit.metallic.contiguous(), hit.ior.contiguous(),
+            hit.opacity.contiguous(), hit.boost.contiguous())
+
+
+def _node_inputs(scene, fields, d, ior, weight, budget, from_refl):
+    """The node kernels' arguments (`shade_eval`, `shade_eval_rows`
+    without `pix`) from the hit inputs `fields` (`_hit_fields`) and the
+    ray state, each contiguous and in its dtype."""
+    point, normal, color, shininess, valid, t, httr, met, hior, opac, boost = fields
+    return (
+        scene.light_pack, scene.sph_pack, scene.trb_pack,
+        scene.tri_blk_pack, scene.tri_blk_aabb,
+        point, normal, d, color, shininess, valid, t, weight, ior, budget, from_refl,
+        httr, met, hior, opac, boost,
+    )
 
 
 def _node_args(scene, hit, hval, point, d, ior, weight, budget, from_refl):
     """The per-ray inputs of the node kernels (`shade_eval`,
     `shade_eval_rows` without `pix`), contiguous and in their dtypes."""
-    f32 = torch.float32
-    return (
-        scene.light_pack, scene.sph_pack, scene.trb_pack,
-        scene.tri_blk_pack, scene.tri_blk_aabb,
-        point, hit.normal.contiguous(), d.contiguous(), hit.color.contiguous(),
-        hit.shininess.contiguous(), hval.to(f32), hit.t.contiguous(),
-        weight.contiguous(), ior.contiguous(), budget.to(torch.int32).contiguous(),
-        from_refl.to(f32), hit.has_trans.to(f32), hit.metallic.contiguous(),
-        hit.ior.contiguous(), hit.opacity.contiguous(), hit.boost.contiguous(),
-    )
+    return _node_inputs(scene, _hit_fields(hit, hval, point), d.contiguous(),
+                        ior.contiguous(), weight.contiguous(),
+                        budget.to(torch.int32).contiguous(), from_refl.to(torch.float32))
 
 
 def _node_kw(scene, cfg: RenderConfig, eps_dist):
@@ -391,6 +416,34 @@ def _unpack_entry(rows):
     )
 
 
+def _pool_window(pool, count, lanes):
+    """The pool loop's take: (start, active, rows) of the W = len(lanes)
+    rows at the LIFO top, start = max(count - W, 0); lanes past count are
+    inactive (their rows are dead, never the dump row)."""
+    start = torch.clamp(count - lanes.shape[0], min=0)
+    idx = start + lanes
+    return start, idx < count, pool.index_select(0, idx)
+
+
+def _pool_put(pool, stage_pix, stage_contrib, slot, R, Q_cap, start, dropped, active, pix,
+              contrib, rows, masks, lanes):
+    """The pool loop's put for iteration `slot` of a chunk: the staging rows
+    of its W = len(lanes) lanes (a dead lane stages its own dump row R +
+    slot * W + lane of the accumulator, and 0), the window start capped so a
+    full append of 2W candidates stays within the logical capacity Q_cap
+    (at the auto capacity this never engages), and the append of the
+    candidates `rows` whose `masks` are set on an active lane. Returns
+    (count, dropped, the append mask)."""
+    W = lanes.shape[0]
+    rows_sl = slice(slot * W, (slot + 1) * W)
+    stage_pix[rows_sl] = torch.where(active, pix, R + slot * W + lanes)
+    stage_contrib[rows_sl] = _where0(active[:, None], contrib)
+    capped = torch.clamp(start, max=Q_cap - 2 * W)
+    dropped = dropped + (start - capped)
+    m = masks & active.repeat(masks.shape[0] // W)
+    return _pool_append(pool, capped, rows, m), dropped, m
+
+
 def _pool_append(pool, count, cand, m):
     """Compact the accepted candidate rows into the pool at `count` with ONE
     row scatter (JAX `_pool_append`, scatter mode; its gather and unique
@@ -494,7 +547,8 @@ class _Captured:
     That is Python a graph would not run, so the capture ends a graph at
     each of its calls, and every replay makes the call eagerly between the
     graphs: on copies of the tensor arguments the graphs wrote (the next
-    replay rewrites them; the scene's are passed as they are), its outputs
+    replay rewrites them; the scene's are passed as they are, and all of a
+    wrapper that updates them in place, `kernels.IN_PLACE`), its outputs
     copied into those the next graph reads, so what a hook keeps of a call
     stays as the call saw it. With no wrapper swapped a chunk is one graph.
     The graphs share one memory pool. `launches` counts the graphs'
@@ -508,10 +562,12 @@ class _Captured:
                                             for f in dataclasses.fields(scene))
                      if isinstance(v, torch.Tensor)}
 
-    def _call(self, fn, a, kw):
+    def _call(self, name, fn, a, kw):
         from . import kernels
 
         with kernels.counting_into(None):
+            if name in kernels.IN_PLACE:
+                return fn(*a, **kw)
             return fn(*_own_copies(a, self.keep),
                       **dict(zip(kw, _own_copies(kw.values(), self.keep))))
 
@@ -538,14 +594,14 @@ class _Captured:
             with torch.cuda.stream(caller):
                 g.replay()
 
-        def cut(fn):
+        def cut(name, fn):
             def call(*a, **kw):
                 if threading.get_ident() != me:
                     return fn(*a, **kw)
                 end()
                 with torch.cuda.stream(caller):
-                    held = _cloned(self._call(fn, a, kw))
-                self.calls.append((fn, a, kw, held))
+                    held = _cloned(self._call(name, fn, a, kw))
+                self.calls.append((name, fn, a, kw, held))
                 begin()
                 return held
             return call
@@ -553,7 +609,7 @@ class _Captured:
         with (_cutting if self.swapped else contextlib.nullcontext()), \
                 torch.cuda.stream(side), kernels.counting_into(self.launches):
             for name, fn in self.swapped.items():
-                setattr(kernels, name, cut(fn))
+                setattr(kernels, name, cut(name, fn))
             begin()
             try:
                 body()
@@ -571,9 +627,9 @@ class _Captured:
     def replay(self):
         from . import kernels
 
-        for g, (fn, a, kw, held) in zip(self.graphs, self.calls):
+        for g, (name, fn, a, kw, held) in zip(self.graphs, self.calls):
             g.replay()
-            _refill(held, self._call(fn, a, kw))
+            _refill(held, self._call(name, fn, a, kw))
         self.graphs[-1].replay()
         kernels.count_launches(self.launches)
 
@@ -668,7 +724,8 @@ def _run_pool(scene, cfg, eps_dist, R, contrib, rows0, masks0):
     gives the same sums).
 
     On a CUDA device a chunk is a CUDA graph (`_ChunkGraph`, one per device
-    and stream): one launch and one read of `count` per chunk; while a
+    and stream): one launch and one read of `count` per chunk, an iteration
+    five kernels where `_fuses` holds (~115 nodes of PyTorch ops else); while a
     kernel wrapper is swapped in, a graph between each two of its calls,
     which are made eagerly (`_Captured`). On the CPU the same chunk body
     runs eagerly on buffers of its own.
@@ -712,16 +769,29 @@ def _run_pool(scene, cfg, eps_dist, R, contrib, rows0, masks0):
     with g.lock if g else contextlib.nullcontext():
         b = (g.buffers(_graph_key(scene, cfg, eps_dist, *shape), scene, dev, *shape) if g
              else _PoolBuffers(dev, *shape))
-        return _pool_loop(scene, cfg, eps_dist, contrib, rows0, masks0, b, g)
+        return _pool_loop(scene, cfg, eps_dist, contrib, rows0, masks0, b, g,
+                          _fuses(scene, cfg, dev))
 
 
-def _pool_loop(scene, cfg, eps_dist, contrib, rows0, masks0, b, g):
+def _fuses(scene, cfg, dev) -> bool:
+    """Whether a pool iteration runs as five kernels (`_pool_loop`'s
+    `fused_step`): on a CUDA device, with the packed node rows on a resident
+    scene, outside packet mode and without the Morton resort. Elsewhere it
+    runs the same steps in PyTorch ops (`glue_step`), the kernels' plain
+    twins."""
+    return (dev.type == "cuda" and cfg.packed_stage
+            and not (scene.streaming or cfg.packet_mode or cfg.resort_secondary))
+
+
+def _pool_loop(scene, cfg, eps_dist, contrib, rows0, masks0, b, g, fused):
     """`_run_pool`'s loop on the buffers `b`, its chunks through the graph
-    `g` (None: eagerly). Returns copies, never the buffers: the next tile
-    refills them."""
+    `g` (None: eagerly), each iteration as five kernels where `fused`
+    (`_fuses`), else in PyTorch ops. Returns copies, never the buffers: the
+    next tile refills them."""
+    from . import kernels
+
     R = contrib.shape[0]
     W, chunk, Q_cap = b.W, b.chunk, b.Q_cap
-    k = rows0.shape[0] // R  # enabled child types (1 or 2)
     packet = cfg.packet_mode
     # the tile's state: an empty pool, the prologue's rows appended. Per-chunk
     # contribution staging: iteration i writes its (W, 3) contributions at
@@ -740,39 +810,56 @@ def _pool_loop(scene, cfg, eps_dist, contrib, rows0, masks0, b, g):
     b.accum[R:].zero_()
     lanes = b.lanes
 
-    def run_chunk():
-        """`chunk` iterations and their commit, on the buffers alone; the
-        counts rebound per iteration are written back at the end."""
-        count, dropped, split = b.count, b.dropped, b.split
-        for slot in range(chunk):
-            start = torch.clamp(count - W, min=0)
-            idx = start + lanes
-            sel_active = idx < count
-            rows = b.pool.index_select(0, idx)
-            if cfg.resort_secondary:
-                order = _morton_order(rows, sel_active)
-                rows, sel_active = rows[order], sel_active[order]
-            e = _unpack_entry(rows)
-            contrib_w, _, rows_b, masks_b = _node_rows(
-                scene, cfg, eps_dist, e["o"], e["d"], e["ior"], e["w"],
-                e["budget"], e["from_refl"], sel_active, pix=e["pix"],
-            )
-            rows_sl = slice(slot * W, (slot + 1) * W)
-            b.stage_pix[rows_sl] = torch.where(sel_active, e["pix"], R + slot * W + lanes)
-            b.stage_contrib[rows_sl] = _where0(sel_active[:, None], contrib_w)
-            # cap so a full append of 2W candidates stays within the logical
-            # capacity; at the auto capacity this never engages
-            capped = torch.clamp(start, max=Q_cap - 2 * W)
-            dropped = dropped + (start - capped)
-            m = masks_b & sel_active.repeat(k)
-            if packet:
-                split = split | _splits_packets(m)
-            count = _pool_append(b.pool, capped, rows_b, m)
-        _commit(b.accum, b.stage_pix, b.stage_contrib)
-        b.count.copy_(count)
-        b.dropped.copy_(dropped)
+    def glue_step(slot, count, dropped, split):
+        """One iteration in PyTorch ops around the node: the counts rebound."""
+        start, sel_active, rows = _pool_window(b.pool, count, lanes)
+        if cfg.resort_secondary:
+            order = _morton_order(rows, sel_active)
+            rows, sel_active = rows[order], sel_active[order]
+        e = _unpack_entry(rows)
+        contrib_w, _, rows_b, masks_b = _node_rows(
+            scene, cfg, eps_dist, e["o"], e["d"], e["ior"], e["w"],
+            e["budget"], e["from_refl"], sel_active, pix=e["pix"],
+        )
+        count, dropped, m = _pool_put(b.pool, b.stage_pix, b.stage_contrib, slot, R, Q_cap,
+                                      start, dropped, sel_active, e["pix"], contrib_w, rows_b,
+                                      masks_b, lanes)
         if packet:
-            b.split.copy_(split)
+            split = split | _splits_packets(m)
+        return count, dropped, split
+
+    def fused_step(slot):
+        """One iteration as five kernels: the take, the triangle cast, the
+        hit record, the node, the put; the counts updated in place."""
+        bf = cfg.backface_culling
+        o, d, w, ior, budget, from_refl, pix, take = kernels.pool_take(b.pool, b.count, W=W)
+        tt, tidx = kernels.cast_triangles(
+            scene.trb_pack, scene.tri_cast_pack, scene.tri_aabb, scene.tri_saabb, o, d,
+            backface_culling=bf, sb_sizes=scene.sb_sizes)
+        hit = kernels.pool_hit(scene.sph_pack, scene.mat_pack, o, d, tt, tidx, take,
+                               backface_culling=bf)
+        contrib_w, rfl_rows, rfl_m, rfr_rows, rfr_m = kernels.shade_eval_rows(
+            *_node_inputs(scene, hit, d, ior, w, budget, from_refl), pix,
+            **_node_kw(scene, cfg, eps_dist))
+        kernels.pool_put(b.pool, b.count, b.dropped, b.stage_pix, b.stage_contrib, take, pix,
+                         contrib_w, rfl_rows, rfl_m, rfr_rows, rfr_m, slot=slot, R=R,
+                         Q_cap=Q_cap, reflections=cfg.reflections,
+                         refractions=cfg.refractions)
+
+    def run_chunk():
+        """`chunk` iterations and their commit, on the buffers alone."""
+        if fused:
+            for slot in range(chunk):
+                fused_step(slot)
+        else:
+            count, dropped, split = b.count, b.dropped, b.split
+            for slot in range(chunk):
+                count, dropped, split = glue_step(slot, count, dropped, split)
+            b.count.copy_(count)
+            b.dropped.copy_(dropped)
+            if packet:
+                b.split.copy_(split)
+        _commit(b.accum, b.stage_pix, b.stage_contrib)
 
     def host_read(after_chunk=False):
         """The chunk's one sync, a `pool.sync` span: count, with the packet

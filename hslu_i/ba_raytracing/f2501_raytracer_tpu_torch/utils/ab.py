@@ -18,6 +18,8 @@ file from anywhere:
         sass [--kernel NAME] [--out PATH]
     python3 hslu_i/ba_raytracing/f2501_raytracer_tpu_torch/utils/ab.py \
         cli [--preset NAME] [--out PATH] [--root DIR]
+    python3 hslu_i/ba_raytracing/f2501_raytracer_tpu_torch/utils/ab.py \
+        pool N
 
 frames N   render the 1920x1080 `realistic` frame (chip_smoke.py's settings)
            of each scene named: `semesterbild` (the resident packed-row pool
@@ -96,6 +98,18 @@ cli        the package's CLI (`python -m ...f2501_raytracer_tpu_torch`) in a
            PATH (default: out/ of checkout DIR); printed: the process's
            wall, the render's own elapsed time (the CLI's `RenderTiming`
            line) and the PNG's hash.
+pool N     the pool iteration in its two forms, in turns glue, fused, fused,
+           glue: in PyTorch ops around the two kernels (ops/trace.py's
+           `glue_step`, forced where the fused form applies) and as five
+           kernels (`fused_step`), on the 1920x1080 `realistic` frame (W =
+           2048) and the 480x270 `extreme` frame (W = 3584). Each turn: the
+           graphs dropped, two frames to capture, N timed frames (walls and
+           u32 checksums), one frame traced with torch.profiler (device
+           busy time, device operations per pool iteration, the top device
+           operations), then the device time of one replayed chunk by CUDA
+           events (the mean over 20 replays) on the last tile's buffers with
+           4W rays pending (`live`) and with none (`drained`), the pool
+           restored before each replay. This checkout only.
 --root DIR imports the package from another checkout (one unpacked with
            `git archive`).
 """
@@ -113,7 +127,8 @@ import time
 
 parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
 parser.add_argument("what",
-                    choices=("frames", "kernels", "shading", "forms", "nodes", "sass", "cli"))
+                    choices=("frames", "kernels", "shading", "forms", "nodes", "sass", "cli",
+                             "pool"))
 parser.add_argument("n", type=int, nargs="?", default=2, help="frames: warm frames per scene")
 parser.add_argument("--scene", nargs="+",
                     choices=("semesterbild", "semesterbild_cloud", "occlusion"),
@@ -628,6 +643,72 @@ def cli():
           f"{run.stdout.strip().splitlines()[1]}", flush=True)
 
 
+def pool():
+    from torch.autograd import DeviceType
+
+    from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops import trace
+    from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.renderer import plan_frame
+
+    fused = trace._fuses
+    cases = {"realistic": cfg,
+             "extreme": RenderConfig(width=480, height=270, **dict(MAIN, tile_rays=262144),
+                                     **EXTREME)}
+    sync = torch.cuda.synchronize
+    for name, c in cases.items():
+        r = RaytracerRenderer(c, device="cuda")
+        scene = r.device_scene(build("semesterbild", c))
+        n_tiles = plan_frame(c).n_tiles
+        for form in ("glue", "fused", "fused", "glue"):
+            trace._fuses = fused if form == "fused" else (lambda *a: False)
+            trace.drop_pool_graphs()
+            r.render_u32(scene)  # the first chunk of the key runs eagerly,
+            r.render_u32(scene)  # the next is captured
+            walls, sums = [], set()
+            for _ in range(ARGS.n):
+                sync()
+                t0 = time.monotonic()
+                fb = r.render_u32(scene)
+                sync()
+                walls.append((time.monotonic() - t0) * 1e3)
+                sums.add(hashlib.sha256(fb.tobytes()).hexdigest()[:16])
+            kernels.reset_launch_counts()
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                r.render_u32(scene)
+                sync()
+            iters = kernels.LAUNCHES["shade_eval_rows"] - n_tiles
+            ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            busy = device_busy_ms(prof.events())
+            top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)[:6]
+            g = next(iter(trace._graphs.values()))
+            b = g.bufs
+            snap = b.pool.clone()
+            chunk_ms = {}
+            for label, n0 in (("live", 4 * b.W), ("drained", 0)):
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                ms = []
+                for _ in range(20):
+                    b.pool.copy_(snap)
+                    b.count.fill_(n0)
+                    b.dropped.zero_()
+                    e0.record()
+                    g.captured.replay()
+                    e1.record()
+                    sync()
+                    ms.append(e0.elapsed_time(e1))
+                chunk_ms[label] = sum(ms) / len(ms)
+            print(f"{name} {c.width}x{c.height} {form}: frames ms {[round(w, 1) for w in walls]}, "
+                  f"u32 sha256 {sorted(sums)}; traced: {iters} pool iterations, device busy "
+                  f"{busy:.1f} ms, {len(ops)} device operations ({len(ops) / iters:.1f} per "
+                  f"iteration, prologues included); a chunk of {b.chunk} iterations by CUDA "
+                  f"events: live {chunk_ms['live']:.4f} ms, drained {chunk_ms['drained']:.4f} ms",
+                  flush=True)
+            for e in top:
+                print(f"  {e.self_device_time_total / 1e3:8.3f} ms device  x{e.count:<6d} "
+                      f"{e.key[:70]}", flush=True)
+    trace._fuses = fused
+
+
 if ARGS.what == "frames":
     assert "occlusion" not in ARGS.scene, "occlusion is no frame's scene"
     frames(ARGS.n)
@@ -641,5 +722,7 @@ elif ARGS.what == "sass":
     sass()
 elif ARGS.what == "cli":
     cli()
+elif ARGS.what == "pool":
+    pool()
 else:
     forms()

@@ -13,7 +13,9 @@ launched from two host threads at once, each on a stream of its own, and a
 mesh of two entries on one card (parallel/mesh.py); the three shading
 kernels in every form against their twins where the shadow scans cross
 many opaque Morton blocks (the 235-block cloud at 5, 50 and 95 lights, the
-two-cluster stack scene).
+two-cluster stack scene). The pool iteration's three glue kernels are held
+against their twins in tests/test_torch_pool_fused.py; here they too are
+launched from two threads.
 
 Needs an NVIDIA GPU and nvcc; every test carries the `gpu` marker and skips
 from the `cuda` fixture when there is no card. This file imports neither JAX
@@ -959,7 +961,8 @@ def _kernel_calls(dev):
     base = dict(width=64, height=32, kernel_ray_tile=64, compaction_ratio=8, loop_chunk=8,
                 max_nodes=16, device_encode=True)
     runs = {
-        ("cast_triangles", "shade_eval_rows"): dict(base, **REALISTIC),
+        ("cast_triangles", "shade_eval_rows", "pool_take", "pool_hit", "pool_put"):
+            dict(base, **REALISTIC),
         ("shade_eval",): dict(base, **dict(REALISTIC, compaction_ratio=1)),
         ("light_shade",): base,
         ("cast_triangles_stream", "occlude_triangles_stream"): dict(
@@ -991,13 +994,22 @@ def test_kernels_from_two_threads_give_one_thread_bits(cuda):
     assert set(calls) == set(kernels.KERNEL_SOURCES)
     for name, (args, kw) in calls.items():
         wrapper = getattr(kernels, name)
-        ref = flat(wrapper(*args, **kw))
+
+        def call(wrapper=wrapper, name=name, args=args, kw=kw):
+            if name not in kernels.IN_PLACE:
+                return flat(wrapper(*args, **kw))
+            # an in-place wrapper's outputs: its tensor arguments, on copies
+            args = [x.clone() if isinstance(x, torch.Tensor) else x for x in args]
+            wrapper(*args, **kw)
+            return [x for x in args if isinstance(x, torch.Tensor)]
+
+        ref = call()
         torch.cuda.synchronize()
 
-        def launch(_):
+        def launch(_, call=call):
             stream = torch.cuda.Stream()
             with torch.cuda.stream(stream):
-                out = flat(wrapper(*args, **kw))
+                out = call()
             stream.synchronize()
             return out
 

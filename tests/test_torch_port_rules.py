@@ -211,7 +211,8 @@ def test_kernel_build_is_keyed_by_sources(tmp_path, monkeypatch):
     directory, under a name that changes with its source, header or flags."""
     assert sorted(kernels.KERNEL_SOURCES) == [
         "cast_triangles", "cast_triangles_stream", "light_shade", "occlude_triangles",
-        "occlude_triangles_stream", "shade_eval", "shade_eval_rows"]
+        "occlude_triangles_stream", "pool_hit", "pool_put", "pool_take", "shade_eval",
+        "shade_eval_rows"]
     assert set(kernels.COMMON_HEADERS) == {
         "rt_common.cuh", "rt_occlude.cuh", "rt_light.cuh", "rt_node.cuh"}
     for f in kernels.COMMON_HEADERS:
@@ -240,11 +241,14 @@ def test_kernel_build_is_keyed_by_sources(tmp_path, monkeypatch):
 
 def test_seven_kernels_each_with_source_wrapper_and_twin():
     """One CUDA source, one C entry point, one wrapper, one launch count and
-    one plain twin per TPU kernel; every file of csrc/ is a kernel's source
-    or a header of the build hash, and includes nothing else."""
+    one plain twin per TPU kernel, and per kernel of the pool iteration's
+    glue (which replaces none); every file of csrc/ is a kernel's source or
+    a header of the build hash, and includes nothing else."""
     import re
 
-    assert len(kernels.KERNEL_SOURCES) == 7
+    assert len(set(kernels.KERNEL_SOURCES) - set(kernels.GLUE_KERNELS)) == 7
+    assert set(kernels.GLUE_KERNELS) == {"pool_take", "pool_hit", "pool_put"}
+    assert set(kernels.IN_PLACE) <= set(kernels.KERNEL_SOURCES)
     assert set(kernels._ARGTYPES) == set(kernels.KERNEL_SOURCES)
     # and one more count: shade_eval_rows' launches in its light-lanes form
     assert set(kernels.LAUNCHES) == set(kernels.KERNEL_SOURCES) | {kernels.LIGHT_LANES_LAUNCHES}
