@@ -1,4 +1,4 @@
-"""Top-level renderer: frame plan, tiles, AA reduction, host assembly.
+"""Top-level renderer: frame plan, tiles, AA reduction, frame assembly.
 
 The port's counterpart of the JAX package's `renderer.py` on one device
 (ref renderer/raytracer_renderer.rs:1140-1379, renderer/mod.rs:80-210): the
@@ -33,6 +33,7 @@ the lead device alone, as the JAX package runs them unsharded.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Callable, Optional
 
@@ -267,11 +268,27 @@ class RaytracerRenderer:
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(self.device)
 
+    @functools.cached_property
+    def frame_plan(self) -> FramePlan:
+        """`plan_frame(cfg)`, built at its first use and kept: a renderer's
+        config is fixed."""
+        return plan_frame(self.cfg)
+
+    @functools.cached_property
+    def _frame_tables(self):
+        """The u32 frame's tables on the (lead) device, uploaded at its first
+        frame and kept: the tile-major pixel order padded with -1 to whole
+        tiles (its first H*W entries are the order the pixels are scattered
+        through), the AA offsets and the AA weights."""
+        plan = self.frame_plan
+        order, offsets = frame_order_device(self.cfg, plan, plan.n_tiles, self.device)
+        return order, offsets, self._to_dev(plan.weights)
+
     def get_pixel_color(self, dscene: DeviceScene, x: int, y: int):
         """Single-pixel convenience (ref raytracer_renderer.rs:1140-1188):
         returns (linear RGB (3,) float32, valid) with AA when configured."""
         cfg = self.cfg
-        plan = plan_frame(cfg)
+        plan = self.frame_plan
         coords = pixel_scene_coords(cfg, np.asarray([x]), np.asarray([y]))[0]
         direction = coords - np.asarray(cfg.camera.render_ray_focus, np.float32)
         o = coords[None, :] + plan.offsets
@@ -288,13 +305,19 @@ class RaytracerRenderer:
         pixels are fetched together at the end; on a mesh each group's tiles
         are split over its entries. Sets `last_dropped` and `last_unfinished`.
 
+        The plan and its device tables are built at the renderer's first
+        frame and kept (`frame_plan`). The tiles' pixels are scattered to
+        row-major order on the device and fetched once.
+
         Records the frame's spans (`utils/timing.py`) while a torch profiler
-        records: `frame`, and inside it `frame.plan` (the plan and the uploads
-        of its tables or rays; counters `aa_samples`, the AA table's rows or
-        1 without AA, `aa_distinct`, the samples traced a pixel, `rays`, the
-        primary rays of every tile, padding included, and `pixels`), a
-        `tile` per tile (ops/trace.py), `frame.fetch` (the host waiting for
-        the device, then the copy back) and `frame.reorder`."""
+        records: `frame`, and inside it `frame.plan` (the kept plan and
+        tables, built in the first frame, and host-built rays; counters
+        `aa_samples`, the AA table's rows or 1 without AA, `aa_distinct`, the
+        samples traced a pixel, `rays`, the primary rays of every tile,
+        padding included, and `pixels`), a `tile` per tile (ops/trace.py),
+        `frame.reorder` (the device scatter and the counts' sums, enqueued)
+        and `frame.fetch` (the host waiting for the device, then the copy
+        back)."""
         spans.frame_recording()
         with spans.span("frame"):
             # the frame's host arrays are freed as `_frame_u32` returns: inside the span
@@ -303,18 +326,17 @@ class RaytracerRenderer:
     def _frame_u32(self, dscene: DeviceScene) -> np.ndarray:
         """`render_u32`'s frame, inside its `frame` span."""
         cfg = self.cfg
+        total_pixels = cfg.width * cfg.height
         with spans.span("frame.plan") as sp_plan:
-            plan = plan_frame(cfg)
+            plan = self.frame_plan
+            order_dev, offs_dev, w_dev = self._frame_tables
             n_tiles, P = plan.n_tiles, plan.pix_per_tile
             if spans.ON:
                 sp_plan.counters.update(
                     aa_samples=cfg.total_aa_rays if cfg.anti_aliasing else 1,
                     aa_distinct=plan.aa, rays=n_tiles * P * plan.aa,
-                    pixels=cfg.width * cfg.height)
-            w_dev = self._to_dev(plan.weights)
-            if cfg.device_ray_gen:
-                order_dev, offs_dev = frame_order_device(cfg, plan, n_tiles, self.device)
-            else:
+                    pixels=total_pixels)
+            if not cfg.device_ray_gen:
                 o_all, d_all = build_frame_rays(cfg, plan)
         reps = shard_scene(dscene, self.mesh) if self.mesh else None  # once a frame
         parts = []
@@ -332,17 +354,20 @@ class RaytracerRenderer:
                 parts.append(trace_tiles_sharded_u32(reps, *args, self.mesh, with_stats=True)
                              if reps else trace_rays_tiled_u32(dscene, *args, with_stats=True))
             gs += size
-        with spans.span("frame.fetch"):
-            u32, dropped, unfinished = (torch.cat(p).cpu() for p in zip(*parts))  # one fetch
         with spans.span("frame.reorder"):
-            total_pixels = cfg.width * cfg.height
-            px = u32.reshape(-1).numpy().astype(np.uint32)
-            self.last_dropped = int(dropped.sum())
-            self.last_unfinished = int(unfinished.sum())
-            _warn_drops(self.last_dropped)
-            fb = np.zeros((total_pixels,), np.uint32)
-            fb[plan.order] = px[:total_pixels]
-        return fb
+            # the pixels scattered to row-major order on the device, wrapped to
+            # int32 (the uint32 bits), the two counts' sums after them
+            u32, dropped, unfinished = (torch.cat(p) for p in zip(*parts))
+            out = torch.zeros((total_pixels + 2,), dtype=torch.int32, device=self.device)
+            out[:total_pixels].index_copy_(0, order_dev[:total_pixels],
+                                           u32.reshape(-1)[:total_pixels].to(torch.int32))
+            out[total_pixels:] = torch.stack([dropped.sum(), unfinished.sum()])
+        with spans.span("frame.fetch"):
+            host = out.cpu().numpy()  # one fetch
+        self.last_dropped = int(host[total_pixels])
+        self.last_unfinished = int(host[total_pixels + 1])
+        _warn_drops(self.last_dropped)
+        return host[:total_pixels].view(np.uint32)
 
     def render_device(
         self,

@@ -5,7 +5,7 @@ and kernel times differ more between machines than between trees. Run as a
 file from anywhere:
 
     python3 hslu_i/ba_raytracing/f2501_raytracer_tpu_torch/utils/ab.py \
-        frames N [--scene semesterbild semesterbild_cloud] [--root DIR]
+        frames N [--scene semesterbild semesterbild_cloud] [--build realistic ...] [--root DIR]
     python3 hslu_i/ba_raytracing/f2501_raytracer_tpu_torch/utils/ab.py \
         kernels [--scene semesterbild semesterbild_cloud occlusion] [--root DIR]
     python3 hslu_i/ba_raytracing/f2501_raytracer_tpu_torch/utils/ab.py \
@@ -21,12 +21,16 @@ file from anywhere:
     python3 hslu_i/ba_raytracing/f2501_raytracer_tpu_torch/utils/ab.py \
         pool N
 
-frames N   render the 1920x1080 `realistic` frame (chip_smoke.py's settings)
-           of each scene named: `semesterbild` (the resident packed-row pool
-           path, through cast_triangles and shade_eval_rows) and
-           `semesterbild_cloud` (the streamed path); once to warm up and N
-           times more; print each wall time, the launches and the u32
-           checksum.
+frames N   render the 1920x1080 frame (chip_smoke.py's settings) of each
+           scene named, `semesterbild` (resident) and `semesterbild_cloud`
+           (streamed), under each feature build named (`--build`, default
+           `realistic`: the packed-row pool path; `soft_shadows` and
+           `default`: the lighting-only path at 50 and 5 lights), by one
+           renderer; once to warm up and N times more; print each wall
+           time, the launches and the u32 checksum; then one frame under a
+           CUDA-only torch.profiler, as the benchmark's traced run: its
+           spans' host ms and the renderer's own (`frame` less its `tile`
+           and `frame.fetch` children).
 kernels    the two kernels of each scene's path (`semesterbild`:
            cast_triangles and shade_eval_rows; `semesterbild_cloud`:
            cast_triangles_stream and occlude_triangles_stream) at the
@@ -133,6 +137,8 @@ parser.add_argument("n", type=int, nargs="?", default=2, help="frames: warm fram
 parser.add_argument("--scene", nargs="+",
                     choices=("semesterbild", "semesterbild_cloud", "occlusion"),
                     default=["semesterbild", "semesterbild_cloud"])
+parser.add_argument("--build", nargs="+", choices=("realistic", "soft_shadows", "default"),
+                    default=["realistic"], help="frames: the feature builds")
 parser.add_argument("--kernel", default="occlude_triangles", help="sass: the kernel")
 parser.add_argument("--out", help="sass: the file for the whole listing; cli: the PNG")
 parser.add_argument("--preset", default="reference_default",
@@ -178,6 +184,9 @@ from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.models import (  # noqa: E40
     triangle_cloud,
 )
 from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.ops import kernels  # noqa: E402
+from hslu_i.ba_raytracing.f2501_raytracer_tpu_torch.utils import (  # noqa: E402
+    timing as port_timing,
+)
 
 if not torch.cuda.is_available():
     sys.exit("ab.py: no CUDA device available")
@@ -212,20 +221,43 @@ def scene_of(name, c=cfg):
 
 
 def frames(n):
+    builds = {"realistic": REALISTIC, "soft_shadows": dict(soft_shadows=True), "default": {}}
     for name in ARGS.scene:
-        scene = scene_of(name)
-        for k in range(n + 1):
-            torch.cuda.synchronize()
-            kernels.reset_launch_counts()
-            t0 = time.monotonic()
-            fb = renderer.render_u32(scene)
-            torch.cuda.synchronize()
-            wall = time.monotonic() - t0
-            assert renderer.last_dropped == 0
-            print(f"{name} 1920x1080 frame {k}{' (warm-up)' if k == 0 else ''}: "
-                  f"{wall * 1e3:.1f} ms, launches "
-                  f"{ {k: v for k, v in kernels.LAUNCHES.items() if v} }, "
-                  f"u32 sha256 {hashlib.sha256(fb.tobytes()).hexdigest()[:16]}", flush=True)
+        for b in ARGS.build:
+            c = RenderConfig(width=1920, height=1080, **MAIN, **builds[b])
+            frames_of(f"{name} {b}", scene_of(name, c), RaytracerRenderer(c, device="cuda"), n)
+
+
+def frames_of(label, scene, renderer, n):
+    for k in range(n + 1):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        fb = renderer.render_u32(scene)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        assert renderer.last_dropped == 0
+        print(f"{label} 1920x1080 frame {k}{' (warm-up)' if k == 0 else ''}: "
+              f"{wall * 1e3:.1f} ms, launches "
+              f"{ {k: v for k, v in kernels.LAUNCHES.items() if v} }, "
+              f"u32 sha256 {hashlib.sha256(fb.tobytes()).hexdigest()[:16]}", flush=True)
+    # one more frame under a CUDA-only profile, as the benchmark's traced
+    # run: the renderer's spans, their host ms
+    port_timing.take_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
+        renderer.render_u32(scene)
+        torch.cuda.synchronize()
+    rec = port_timing.take_spans()
+    ms = {}
+    for sp in rec:
+        ms[sp.name] = ms.get(sp.name, 0.0) + (sp.end - sp.start) * 1e-6
+    (frame,) = [sp for sp in rec if sp.name == "frame"]
+    kids = sum((sp.end - sp.start) * 1e-6 for sp in rec
+               if sp.parent == frame.id and sp.name in ("tile", "frame.fetch"))
+    print(f"{label} traced frame: renderer host {ms['frame'] - kids:.2f} ms; "
+          + ", ".join(f"{name} {ms.get(name, 0.0):.2f}"
+                      for name in ("frame", "frame.plan", "tile", "frame.reorder",
+                                   "frame.fetch")), flush=True)
 
 
 def traced_tile(name, scene):
